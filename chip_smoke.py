@@ -1,0 +1,596 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the four hand-written CUDA kernels from ``src/repro_torch/kernels/
+csrc``, drives the port's main path — the paper's configuration
+``ElasticityConfig(m=32)``: blocked-COO assembly, cold GAMG setup, then 3
+hot steps of reassembly, ``update_operator`` (the PtAP chain) and the
+AMG-PCG solve — and checks that each kernel ran on it.  It then holds every
+kernel against its plain PyTorch version at the main path's shapes (max
+relative error 1e-12 at f64; kernels reorder sums), times kernel, plain
+version and a one-call PyTorch yardstick with CUDA events beside the
+kernel's bound, and compares the port on the CPU with the port on the card
+at m=7 (bitwise levels and aggregates, equal CG iterations, solutions
+within 1e-9).  The second-to-last line is the per-kernel JSON record and
+the last line ``{"ok": true, "device": ...}``.  Any failure raises (exit
+code not 0).  Without a CUDA device, or outside a checkout, it exits with
+code 2 before printing a result.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+REL_TOL = 1e-12          # kernel vs plain version, f64
+SOLUTION_TOL = 1e-9      # port on CPU vs port on the card
+MAIN_M = 32              # ElasticityConfig(m=32): the paper's one-device rung
+EXPECT_LEVEL_ROWS = [95232, 7986, 5016, 114]
+EXPECT_ITERS = 13        # the JAX reference's count on this configuration
+CHECK_M, CHECK_COARSE = 7, 12
+
+# Datasheet peaks of the card the port runs on, the H100 SXM ("NVIDIA H100
+# 80GB HBM3"): HBM bytes/s and fp64 FLOP/s outside the tensor cores.
+CARD = "H100 80GB HBM3"
+PEAKS = (3.35e12, 34.0e12)
+
+KERNELS = {
+    "block_seg_sum": dict(
+        source="src/repro_torch/kernels/csrc/block_seg_sum.cu",
+        replaces="src/repro/kernels/block_seg_sum/block_seg_sum.py:49"),
+    "block_spmv": dict(
+        source="src/repro_torch/kernels/csrc/block_spmv.cu",
+        replaces="src/repro/kernels/block_spmv/block_spmv.py:63"),
+    "fused_smoother": dict(
+        source="src/repro_torch/kernels/csrc/fused_smoother.cu",
+        replaces="src/repro/kernels/fused_smoother/fused_smoother.py:74"),
+    "fused_pair_gemm": dict(
+        source="src/repro_torch/kernels/csrc/fused_pair_gemm.cu",
+        replaces="src/repro/kernels/fused_pair_gemm/fused_pair_gemm.py:70"),
+}
+
+
+def _ops():
+    from repro_torch.kernels.block_seg_sum import ops as seg
+    from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.kernels.fused_pair_gemm import ops as gemm
+    from repro_torch.kernels.fused_smoother import ops as smooth
+    return {"block_seg_sum": seg, "block_spmv": spmv,
+            "fused_smoother": smooth, "fused_pair_gemm": gemm}
+
+
+def reset_counts():
+    for mod in _ops().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.launches for name, mod in _ops().items()}
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` between two CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# The main path
+# ---------------------------------------------------------------------------
+
+def main_path(m: int, device, coarse_size: int | None = None,
+              steps: int = 3, verbose: bool = True) -> dict:
+    """Assemble, set up and run ``steps`` hot steps of the paper's loop
+    through the port's entry points; returns the objects and records."""
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.core.gamg import GAMGSolver
+    from repro_torch.fem.assemble import assemble_elasticity
+    from repro_torch.robust.health import HEALTHY, STATUS_NAMES
+
+    cfg = ElasticityConfig(m=m)
+    if coarse_size is not None:
+        cfg = ElasticityConfig(m=m, coarse_size=coarse_size)
+    t0 = time.perf_counter()
+    prob = assemble_elasticity(cfg.m, order=cfg.order, E=cfg.E, nu=cfg.nu,
+                               device=device)
+    sync(device)
+    t_asm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = GAMGSolver(prob.A, prob.B, theta=cfg.theta,
+                        smoother=cfg.smoother, degree=cfg.degree,
+                        coarse_size=cfg.coarse_size,
+                        coarsener=cfg.coarsener, rtol=cfg.rtol,
+                        maxiter=cfg.maxiter)
+    sync(device)
+    t_setup = time.perf_counter() - t0
+    stats = solver.setup_data.stats
+    if verbose:
+        print(f"main path m={m}: n={prob.n} nnzb={prob.A.nnzb} "
+              f"coo_inputs={prob.coo_plan.n_input} "
+              f"assemble_s={t_asm:.3f} setup_s={t_setup:.3f} "
+              f"level_rows={stats['level_rows']} "
+              f"level_bs={stats['level_bs']}")
+    records = []
+    for step in range(steps):
+        rec = {"step": step}
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        a_new = prob.reassemble(1.0 + 0.1 * step)
+        sync(device)
+        rec["reassemble_ms"] = 1e3 * (time.perf_counter() - t0)
+        c1 = read_counts()
+        t0 = time.perf_counter()
+        solver.update_operator(a_new.data)
+        sync(device)
+        rec["update_operator_ms"] = 1e3 * (time.perf_counter() - t0)
+        c2 = read_counts()
+        t0 = time.perf_counter()
+        res = solver.solve(prob.b)
+        sync(device)
+        rec["solve_ms"] = 1e3 * (time.perf_counter() - t0)
+        c3 = read_counts()
+        rec.update(iters=res.iters, relres=float(res.relres),
+                   status=STATUS_NAMES[int(res.health.status)],
+                   healthy=int(res.health.status) == HEALTHY,
+                   launches={
+                       "reassemble": _diff(c1, c0),
+                       "update_operator": _diff(c2, c1),
+                       "solve": _diff(c3, c2)})
+        rec["x"] = res.x
+        records.append(rec)
+        if verbose:
+            shown = {k: (round(v, 3) if isinstance(v, float) and k != "relres"
+                         else v) for k, v in rec.items() if k != "x"}
+            print("hot step " + json.dumps(shown))
+    return dict(prob=prob, solver=solver, records=records, setup_s=t_setup,
+                assemble_s=t_asm)
+
+
+def profile_hot_step(run: dict, top: int = 12) -> None:
+    """One more hot step under ``torch.profiler``: device time by kernel
+    and the card's idle share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prob, solver = run["prob"], run["solver"]
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for phase in ("reassemble", "update_operator", "solve"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if phase == "reassemble":
+                a_new = prob.reassemble(1.3)
+            elif phase == "update_operator":
+                solver.update_operator(a_new.data)
+            else:
+                solver.solve(prob.b)
+            torch.cuda.synchronize()
+            walls[phase] = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    wall_ms = sum(walls.values())
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time / 1e3)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    print("profiled hot step " + json.dumps(dict(
+        wall_ms=walls, device_busy_ms=busy_ms, device_events=len(kernels),
+        idle_share=1.0 - busy_ms / wall_ms)))
+    for name, (n, t) in rows:
+        print("profile kernel " + json.dumps(dict(
+            name=name[:90], launches=n, device_ms=t,
+            share=t / busy_ms if busy_ms else 0.0)))
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def check_main_path(run: dict) -> None:
+    stats = run["solver"].setup_data.stats
+    if stats["level_rows"] != EXPECT_LEVEL_ROWS:
+        raise AssertionError(f"level_rows {stats['level_rows']} != "
+                             f"{EXPECT_LEVEL_ROWS}")
+    for rec in run["records"]:
+        if not rec["healthy"]:
+            raise AssertionError(f"step {rec['step']}: status "
+                                 f"{rec['status']}")
+        if rec["iters"] != EXPECT_ITERS:
+            raise AssertionError(f"step {rec['step']}: {rec['iters']} CG "
+                                 f"iterations, expected {EXPECT_ITERS}")
+        want = {"reassemble": ["block_seg_sum"],
+                "update_operator": ["fused_pair_gemm", "block_seg_sum"],
+                "solve": ["block_spmv", "fused_smoother"]}
+        for phase, names in want.items():
+            for name in names:
+                if rec["launches"][phase][name] <= 0:
+                    raise AssertionError(
+                        f"step {rec['step']}: {name} did not launch during "
+                        f"{phase}")
+
+
+# ---------------------------------------------------------------------------
+# Kernel vs plain version at the main path's shapes
+# ---------------------------------------------------------------------------
+
+class Case:
+    """One kernel call at a main-path shape: the wrapper, the plain version
+    and an optional one-call PyTorch yardstick on the same inputs."""
+
+    def __init__(self, kernel, label, run, plain, nbytes, flops,
+                 library=None):
+        self.kernel, self.label = kernel, label
+        self.run, self.plain, self.library = run, plain, library
+        self.nbytes, self.flops = nbytes, flops
+
+
+def _unique_count(idx, mask=None) -> int:
+    import torch
+    sel = idx if mask is None else idx[mask]
+    return int(torch.unique(sel).numel())
+
+
+def build_cases(run: dict, device) -> list:
+    import torch
+
+    from repro_torch.core.block_csr import device_array
+    from repro_torch.core.ptap import ptap_numeric_data
+    from repro_torch.core.spgemm import spgemm_numeric_data
+    from repro_torch.kernels.block_seg_sum import ops as seg
+    from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
+    from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
+    from repro_torch.kernels.fused_pair_gemm import ops as gemm
+    from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
+    from repro_torch.kernels.fused_smoother import ops as smooth
+    from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
+
+    prob, solver = run["prob"], run["solver"]
+    setupd, hier = solver.setup_data, solver.hierarchy
+    gen = torch.Generator(device=device).manual_seed(0)
+    f64 = dict(dtype=torch.float64, device=device)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, **f64)
+
+    cases = []
+    # --- block_seg_sum: the COO reassembly stream ------------------------
+    plan = prob.coo_plan
+    vals = (prob.values * 1.2).contiguous()
+    offs = device_array(plan, "offsets", device, torch.int32)
+    perm = device_array(plan, "perm", device, torch.int32)
+    kept = vals[device_array(plan, "keep", device)]
+    slot_of_kept = torch.empty_like(device_array(plan, "keep", device))
+    slot_of_kept[device_array(plan, "order", device)] = device_array(
+        plan, "out_idx_sorted", device)
+    n_kept = int(perm.numel())
+    cases.append(Case(
+        "block_seg_sum", f"coo stream {n_kept}x3x3 -> {plan.nnzb}",
+        lambda: seg.block_seg_sum(vals, offs, perm),
+        lambda: block_seg_sum_ref(vals, offs, perm),
+        nbytes=n_kept * (72 + 4) + offs.numel() * 4 + plan.nnzb * 72,
+        flops=n_kept * 9,
+        library=lambda: torch.zeros((plan.nnzb, 3, 3), **f64).index_add_(
+            0, slot_of_kept, kept)))
+
+    # --- block_spmv and fused_smoother on every level operator, block_spmv
+    # on every prolongator --------------------------------------------------
+    for li, lv in enumerate(hier.levels):
+        for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell)):
+            nnz = int(ell.mask.sum())
+            x = randn(ell.nbc, ell.bc)
+            csr = _scalar_csr(ell)
+            xf = x.reshape(-1)
+            cases.append(Case(
+                "block_spmv",
+                f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})",
+                lambda ell=ell, x=x: spmv.block_spmv_ell(ell.indices,
+                                                         ell.data, x),
+                lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices,
+                                                        ell.data, x),
+                nbytes=nnz * (ell.br * ell.bc * 8 + 4) + x.numel() * 8
+                + ell.nbr * ell.br * 8,
+                flops=2 * nnz * ell.br * ell.bc,
+                library=lambda csr=csr, xf=xf: torch.mv(csr, xf)))
+        a = lv.a_ell
+        bs = a.br
+        nnz = int(a.mask.sum())
+        b, x, d = (randn(a.nbr, bs) for _ in range(3))
+        coef = torch.tensor([0.3, 0.7], **f64)
+        args = (a.indices, a.data, lv.dinv, b, x, d, coef)
+        cases.append(Case(
+            "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs})",
+            lambda args=args: smooth.smoother_step_ell(*args),
+            lambda args=args: smoother_step_ref(*args),
+            nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
+            + 5 * a.nbr * bs * 8,
+            flops=2 * nnz * bs * bs + 2 * a.nbr * bs * bs + 4 * a.nbr * bs))
+
+    # --- fused_pair_gemm on both Galerkin products of every level, and the
+    # block_seg_sum row-split combine where rows split -----------------------
+    a_data = prob.A.data
+    for li, ls in enumerate(setupd.levels):
+        cache = ls.ptap_cache
+        p_data = ls.P.data
+        r_data = p_data[device_array(cache, "r_perm", device)].transpose(
+            1, 2).contiguous()
+        ap = spgemm_numeric_data(cache.ap_plan, a_data, p_data)
+        for tag, sp, lhs_data, rhs_data in (("AP", cache.ap_plan, a_data,
+                                             p_data),
+                                            ("R(AP)", cache.ac_plan, r_data,
+                                             ap)):
+            ta = device_array(sp, "tile_pair_a", device, torch.int32)
+            tb = device_array(sp, "tile_pair_b", device, torch.int32)
+            tm = device_array(sp, "tile_mask", device, torch.bool)
+            gargs = (lhs_data, rhs_data, ta, tb, tm)
+            lhs = torch.where(tm[..., None, None], lhs_data[ta.long()],
+                              torch.zeros((), **f64))
+            rhs = rhs_data[tb.long()]
+            br, bk, bc = sp.br, sp.bk, sp.bc
+            nbytes = (_unique_count(ta, tm) * br * bk * 8
+                      + _unique_count(tb, tm) * bk * bc * 8
+                      + ta.numel() * 9 + sp.tile_rows * br * bc * 8)
+            cases.append(Case(
+                "fused_pair_gemm",
+                f"level{li} {tag} {sp.tile_rows}x{sp.pair_kmax} "
+                f"({br},{bk},{bc})",
+                lambda gargs=gargs: gemm.fused_pair_gemm(*gargs),
+                lambda gargs=gargs: fused_pair_gemm_ref(*gargs),
+                nbytes=nbytes, flops=2 * sp.npairs * br * bk * bc,
+                library=lambda lhs=lhs, rhs=rhs: torch.einsum(
+                    "skij,skjl->sil", lhs, rhs)))
+            if not sp.tile_identity:
+                part = gemm.fused_pair_gemm(*gargs)
+                toffs = device_array(sp, "tile_offsets", device, torch.int32)
+                tseg = device_array(sp, "tile_seg", device)
+                cases.append(Case(
+                    "block_seg_sum",
+                    f"level{li} {tag} combine {sp.tile_rows} -> {sp.nnzb} "
+                    f"({br},{bc})",
+                    lambda part=part, toffs=toffs: seg.block_seg_sum(
+                        part, toffs),
+                    lambda part=part, toffs=toffs: block_seg_sum_ref(
+                        part, toffs),
+                    nbytes=part.numel() * 8 + toffs.numel() * 4
+                    + sp.nnzb * br * bc * 8,
+                    flops=part.numel(),
+                    library=lambda part=part, tseg=tseg, sp=sp, br=br,
+                    bc=bc: torch.zeros((sp.nnzb, br, bc), **f64)
+                    .index_add_(0, tseg, part)))
+        a_data = ptap_numeric_data(cache, a_data, p_data)
+    return cases
+
+
+def _scalar_csr(ell):
+    """cuSPARSE's operand for the yardstick: the ELL operator expanded to
+    scalar CSR (the paper's scalar AIJ baseline)."""
+    import torch
+    r, k = torch.nonzero(ell.mask, as_tuple=True)
+    br, bc = ell.br, ell.bc
+    a = torch.arange(br, device=r.device)
+    b = torch.arange(bc, device=r.device)
+    rows = (r[:, None, None] * br + a[None, :, None]).expand(-1, br, bc)
+    cols = (ell.indices[r, k].long()[:, None, None] * bc
+            + b[None, None, :]).expand(-1, br, bc)
+    vals = ell.data[r, k]
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows.reshape(-1), cols.reshape(-1)]), vals.reshape(-1),
+        (ell.nbr * br, ell.nbc * bc))
+    return coo.coalesce().to_sparse_csr()
+
+
+def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
+    """Hold every case's kernel against its plain version; time it."""
+    import torch
+    bw, fp = peaks
+    per = {name: dict(cases=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
+                      plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      library_all=True, bytes=0, flops=0)
+           for name in KERNELS}
+    for c in cases:
+        got, want = c.run(), c.plain()
+        if isinstance(got, tuple):
+            got, want = torch.cat([g.reshape(-1) for g in got]), \
+                torch.cat([w.reshape(-1) for w in want])
+        sync(got.device)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        rel = err / scale if scale else err
+        if not rel <= REL_TOL:
+            raise AssertionError(f"{c.kernel} {c.label}: max rel err {rel:.3e}"
+                                 f" > {REL_TOL}")
+        row = per[c.kernel]
+        row["cases"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+        bound = 1e3 * max(c.nbytes / bw, c.flops / fp)
+        row["bound_ms"] += bound
+        row["bytes"] += c.nbytes
+        row["flops"] += c.flops
+        line = dict(kernel=c.kernel, case=c.label, max_abs_err=err,
+                    max_rel_err=rel, bound_ms=bound, bytes=c.nbytes)
+        if timed:
+            k_ms, p_ms = time_ms(c.run), time_ms(c.plain)
+            l_ms = time_ms(c.library) if c.library is not None else None
+            row["ms"] += k_ms
+            row["plain_ms"] += p_ms
+            if l_ms is None:
+                row["library_all"] = False
+            else:
+                row["library_ms"] += l_ms
+            line.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms)
+        print("kernel case " + json.dumps(line))
+    return per
+
+
+def copy_bandwidth() -> float:
+    """Measured bytes/s of a large device-to-device ``copy_``."""
+    import torch
+    src = torch.empty(2 ** 28, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=10)
+    return 2 * src.numel() * 4 / (ms * 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The port on the CPU against the port on the card
+# ---------------------------------------------------------------------------
+
+def cpu_vs_cuda(m: int, coarse_size: int) -> dict:
+    import numpy as np
+    import torch
+    cpu = main_path(m, "cpu", coarse_size=coarse_size, verbose=False)
+    gpu = main_path(m, "cuda", coarse_size=coarse_size, verbose=False)
+    s_cpu, s_gpu = cpu["solver"].setup_data, gpu["solver"].setup_data
+    if s_cpu.stats["level_rows"] != s_gpu.stats["level_rows"]:
+        raise AssertionError(f"levels differ: {s_cpu.stats['level_rows']} vs"
+                             f" {s_gpu.stats['level_rows']}")
+    for li, (a, b) in enumerate(zip(s_cpu.levels, s_gpu.levels)):
+        if not np.array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg):
+            raise AssertionError(f"level {li}: aggregates differ")
+    out = dict(level_rows=s_cpu.stats["level_rows"],
+               level_bs=s_cpu.stats["level_bs"], iters=[], rel_diff=[])
+    for rc, rg in zip(cpu["records"], gpu["records"]):
+        if rc["iters"] != rg["iters"]:
+            raise AssertionError(f"step {rc['step']}: {rc['iters']} CG "
+                                 f"iterations on CPU, {rg['iters']} on CUDA")
+        xc, xg = rc["x"], rg["x"].cpu()
+        rel = float(torch.linalg.vector_norm(xc - xg)
+                    / torch.linalg.vector_norm(xc))
+        if not rel <= SOLUTION_TOL:
+            raise AssertionError(f"step {rc['step']}: solutions differ by "
+                                 f"{rel:.3e}")
+        out["iters"].append(rc["iters"])
+        out["rel_diff"].append(rel)
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def peaks_for(name: str) -> tuple:
+    """The datasheet peaks; another card has other peaks, so it raises."""
+    if CARD not in name:
+        raise RuntimeError(f"chip_smoke: bounds are for the {CARD} "
+                           f"({PEAKS[0] / 1e12} TB/s, {PEAKS[1] / 1e12} "
+                           f"TFLOP/s fp64); this card is {name!r}")
+    return PEAKS
+
+
+def kernel_record(per: dict, launches: dict, per_step: dict,
+                  peaks: tuple) -> dict:
+    """The per-kernel JSON record: launches on the main path, the largest
+    error against the plain version, and times summed over the cases."""
+    record = []
+    for kname, meta in KERNELS.items():
+        row = per[kname]
+        if row["cases"] == 0:
+            raise AssertionError(f"{kname}: no case checked")
+        by_bytes = row["bytes"] / peaks[0] >= row["flops"] / peaks[1]
+        record.append(dict(
+            name=kname, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=launches[kname],
+            launches_per_hot_step=sum(v[kname] for v in per_step.values()),
+            cases=row["cases"], max_abs_err=row["max_abs_err"],
+            max_rel_err=row["max_rel_err"], ms=row["ms"],
+            kernel_ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"],
+            bound_by="bytes" if by_bytes else "operations",
+            library_ms=row["library_ms"] if row["library_all"] else None))
+    return {"kernels": record}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import backend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device {name}")
+    peaks = peaks_for(name)
+
+    t0 = time.perf_counter()
+    so = backend.build_library()
+    build_s = time.perf_counter() - t0
+    print(f"kernel build: {build_s:.1f} s -> {so.name}")
+    log = Path(str(so) + ".log")
+    if log.exists():
+        for ln in log.read_text().splitlines():
+            if "registers" in ln or "spill" in ln:
+                print("ptxas " + ln.strip())
+
+    reset_counts()
+    run = main_path(MAIN_M, "cuda")
+    launches = read_counts()
+    check_main_path(run)
+    per_step = run["records"][-1]["launches"]
+    print("main path launches " + json.dumps(launches))
+    print("launches per hot step " + json.dumps(per_step))
+    profile_hot_step(run)
+
+    print(f"datasheet peaks: {peaks[0] / 1e12:.2f} TB/s, "
+          f"{peaks[1] / 1e12:.1f} TFLOP/s fp64; measured copy_ "
+          f"{copy_bandwidth() / 1e12:.3f} TB/s")
+    per = check_kernels(build_cases(run, "cuda"), peaks)
+
+    check = cpu_vs_cuda(CHECK_M, CHECK_COARSE)
+    print("cpu vs cuda " + json.dumps(check))
+
+    print(json.dumps(kernel_record(per, launches, per_step, peaks)))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

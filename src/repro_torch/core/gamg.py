@@ -1,0 +1,273 @@
+"""GAMG — smoothed-aggregation AMG with the paper's hot/cold split (torch
+twin of ``repro.core.gamg``).
+
+``setup``      cold phase: strength graph, greedy aggregation, tentative +
+               smoothed prolongators, every SpGEMM/transpose/ELL plan — on
+               the block format, host symbolic, device numeric.
+``recompute``  hot phase: new fine-operator values, same structure; every
+               level operator is rebuilt through the cached PtAP plans,
+               plus ``dinv``, ``lam_max`` and the coarse Cholesky.
+``hier_solve`` hot KSPSolve: AMG-preconditioned CG.
+
+Reuse model = PETSc ``-pc_gamg_reuse_interpolation true``: aggregates and
+prolongator values stay fixed across recomputes.  The device placement of
+the whole hierarchy follows the fine operator's data tensor.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import Aggregation, greedy_aggregate
+from repro_torch.core.block_csr import (
+    BlockCSR,
+    BlockELL,
+    EllTransposePlan,
+    ELLPlan,
+    device_array,
+    transpose_apply_plan,
+)
+from repro_torch.core.krylov import CGResult, pcg
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.ptap import PtAPCache, ptap_numeric_data, \
+    ptap_symbolic
+from repro_torch.core.smooth import (
+    invert_diag_blocks,
+    lambda_max_dinv_a,
+    smoothed_prolongator,
+)
+from repro_torch.core.spmv import spmv_ell
+from repro_torch.core.strength import strength_graph
+from repro_torch.core.tentative import tentative_prolongator
+from repro_torch.core.vcycle import Hierarchy, LevelState, fine_operator, \
+    vcycle
+
+
+@dataclasses.dataclass
+class LevelSetup:
+    """Cold, host-side symbolic data for one level (structure + plans).
+    Restriction is transpose-free: ``pt`` applies ``P^T`` off ``p_ell``."""
+
+    A0: BlockCSR            # level operator at setup time
+    P: BlockCSR             # smoothed prolongator (values fixed on reuse)
+    ptap_cache: PtAPCache
+    a_ell_plan: ELLPlan
+    p_ell: BlockELL         # fixed values
+    aggr: Aggregation
+    omega: torch.Tensor
+    n_fine: int
+    n_coarse: int
+    pt: EllTransposePlan
+
+    @property
+    def diag_rows(self) -> np.ndarray:
+        """Block rows that store a diagonal block."""
+        rows = self.A0.row_of_nnz()
+        return rows[rows == self.A0.indices]
+
+    @property
+    def diag_pos(self) -> np.ndarray:
+        """Position of each stored diagonal block in the BCSR data."""
+        return np.flatnonzero(self.A0.row_of_nnz() == self.A0.indices)
+
+
+@dataclasses.dataclass
+class GAMGSetup:
+    levels: List[LevelSetup]
+    coarse_struct: BlockCSR   # coarsest-level operator (setup values)
+    bs_fine: int
+    nns_dim: int
+    smoother: str
+    degree: int
+    theta: float
+    coarsener: str
+    stats: dict
+    precision: PrecisionPolicy = dataclasses.field(
+        default_factory=PrecisionPolicy.double)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels) + 1
+
+    @property
+    def coarse_rows(self) -> np.ndarray:
+        return self.coarse_struct.row_of_nnz()
+
+    @property
+    def coarse_cols(self) -> np.ndarray:
+        return self.coarse_struct.indices.astype(np.int64)
+
+
+def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
+          max_levels: int = 10, coarse_size: int = 100,
+          smoother: str = "chebyshev", degree: int = 2,
+          coarsener: str = "greedy", precision: str = "f64",
+          restriction: str = "transpose_free") -> GAMGSetup:
+    """Cold GAMG setup on the block format (no scalar expansion).
+
+    ``coarsener="greedy"`` is the host Vanek covering; the reference's
+    device Luby-MIS (``"mis"``, its default) is not ported yet and raises,
+    as do reduced precisions and ``restriction="stored"``.  The hierarchy
+    lives on ``A.data``'s device; ``B`` must be on the same device.
+    """
+    precision = PrecisionPolicy.from_name(precision)
+    if A.br != A.bc:
+        raise ValueError("system operator must have square blocks")
+    if restriction != "transpose_free":
+        raise ValueError(f"invalid restriction mode {restriction!r}: "
+                         f"repro_torch restricts transpose-free")
+    if coarsener != "greedy":
+        raise ValueError(f"invalid coarsener {coarsener!r}: repro_torch has "
+                         f"'greedy' (the device Luby-MIS coarsener is "
+                         f"queued in ROADMAP.md)")
+    if B.device != A.device:
+        raise ValueError(f"B on {B.device}, A on {A.device}")
+    levels: List[LevelSetup] = []
+    Acur, Bcur = A, B
+    nns = int(Bcur.shape[1])
+    stats = {"level_rows": [A.nbr * A.br], "level_nnzb": [A.nnzb],
+             "level_bs": [A.br], "conversions_to_scalar": 0}
+    while Acur.nbr > coarse_size and len(levels) < max_levels - 1:
+        bs = Acur.br
+        graph = strength_graph(Acur, theta)
+        aggr = greedy_aggregate(graph, min_size=-(-nns // bs))
+        if aggr.n_agg >= Acur.nbr:        # no coarsening possible
+            break
+        Ptent, Bc = tentative_prolongator(aggr, Bcur, bs)
+        P, omega, _lam, _plans = smoothed_prolongator(Acur, Ptent)
+        cache = ptap_symbolic(Acur, P)
+        a_next = ptap_numeric_data(cache, Acur.data, P.data)
+        Anext = BlockCSR.from_arrays(cache.ac_plan.indptr,
+                                     cache.ac_plan.indices, a_next,
+                                     cache.n_coarse)
+        p_ell = P.to_ell()
+        levels.append(LevelSetup(
+            A0=Acur, P=P, ptap_cache=cache, a_ell_plan=Acur.ell_plan(),
+            p_ell=p_ell, aggr=aggr, omega=omega, n_fine=Acur.nbr,
+            n_coarse=aggr.n_agg, pt=transpose_apply_plan(P, p_ell.kmax)))
+        stats["level_rows"].append(Anext.nbr * Anext.br)
+        stats["level_nnzb"].append(Anext.nnzb)
+        stats["level_bs"].append(Anext.br)
+        Acur, Bcur = Anext, Bc
+    return GAMGSetup(levels=levels, coarse_struct=Acur, bs_fine=A.br,
+                     nns_dim=nns, smoother=smoother, degree=degree,
+                     theta=theta, coarsener=coarsener, stats=stats,
+                     precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# Hot numeric recompute (the state-gated PtAP chain)
+# ---------------------------------------------------------------------------
+
+def level_state(ls: LevelSetup, a_data: torch.Tensor) -> LevelState:
+    """Numeric level state from the level's operator payloads: ELL
+    operator, inverted diagonal blocks and ``lam_max(D^-1 A)``."""
+    dev = a_data.device
+    diag = torch.zeros((ls.A0.nbr, ls.A0.br, ls.A0.bc), dtype=a_data.dtype,
+                       device=dev)
+    diag[device_array(ls, "diag_rows", dev)] = \
+        a_data[device_array(ls, "diag_pos", dev)]
+    dinv = invert_diag_blocks(diag)
+    a_ell = ls.a_ell_plan.build(a_data)
+    dinva_ell = torch.einsum("nab,nkbc->nkac", dinv, a_ell.data)
+    lam = lambda_max_dinv_a(a_ell.indices, dinva_ell.contiguous())
+    return LevelState(a_ell=a_ell, p_ell=ls.p_ell, dinv=dinv, lam_max=lam,
+                      p_t=ls.pt)
+
+
+def jittered_cholesky(densef: torch.Tensor, base_scale: float,
+                      retry_scale: float) -> torch.Tensor:
+    """Dense Cholesky with a one-shot jitter-escalation retry.
+
+    The base factorization adds ``base_scale * trace/n`` to the diagonal.
+    A failed factorization (``cholesky_ex`` reports an indefinite or
+    rank-deficient matrix in ``info``; one host check) is retried once
+    with ``retry_scale * |trace|/n``.  A factor that fails even then is
+    returned as NaN, which the Krylov health flags catch within one
+    iteration — the reference's NaN-factor contract.
+    """
+    n = densef.shape[0]
+    eye = torch.eye(n, dtype=densef.dtype, device=densef.device)
+    tr = torch.trace(densef)
+    chol, info = torch.linalg.cholesky_ex(densef + (base_scale * tr / n)
+                                          * eye)
+    if int(info) == 0:
+        return chol
+    chol, info = torch.linalg.cholesky_ex(
+        densef + (retry_scale * torch.abs(tr) / n) * eye)
+    if int(info) == 0:
+        return chol
+    return torch.full_like(chol, float("nan"))
+
+
+def coarse_cholesky(dense: torch.Tensor, policy: PrecisionPolicy
+                    ) -> torch.Tensor:
+    """Jittered dense Cholesky of the coarsest operator (f64: 1e-12
+    relative jitter, ``sqrt(eps)`` on the retry)."""
+    return jittered_cholesky(dense.to(policy.factor_dtype),
+                             policy.coarse_jitter_scale(),
+                             policy.coarse_retry_scale())
+
+
+def _coarse_dense(setupd: GAMGSetup, a_data: torch.Tensor) -> torch.Tensor:
+    """Densify the coarsest operator through cached block positions."""
+    cs = setupd.coarse_struct
+    dev = a_data.device
+    out = torch.zeros((cs.nbr, cs.nbc, cs.br, cs.bc), dtype=a_data.dtype,
+                      device=dev)
+    out[device_array(setupd, "coarse_rows", dev),
+        device_array(setupd, "coarse_cols", dev)] = a_data
+    return out.permute(0, 2, 1, 3).reshape(cs.shape)
+
+
+def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
+    """Hot numeric hierarchy rebuild: a function of the fine values only."""
+    policy = setupd.precision
+    a_data = a_fine_data.to(policy.hierarchy_dtype)
+    states = []
+    for ls in setupd.levels:
+        states.append(level_state(ls, a_data))
+        a_data = ptap_numeric_data(ls.ptap_cache, a_data, ls.P.data)
+    chol = coarse_cholesky(_coarse_dense(setupd, a_data), policy)
+    return Hierarchy(levels=tuple(states), coarse_chol=chol)
+
+
+def hier_solve(setupd: GAMGSetup, hier: Hierarchy, b: torch.Tensor,
+               x0: torch.Tensor | None = None, *, rtol: float = 1e-8,
+               maxiter: int = 200) -> CGResult:
+    """AMG-PCG solve on a hierarchy; ``x0`` warm-starts CG."""
+    def apply_a(x):
+        return spmv_ell(fine_operator(hier), x)
+
+    def apply_m(r):
+        return vcycle(hier, r, smoother=setupd.smoother,
+                      degree=setupd.degree)
+
+    return pcg(apply_a, apply_m, b, x0=x0, rtol=rtol, maxiter=maxiter,
+               precond_dtype=setupd.precision.smoother_dtype)
+
+
+class GAMGSolver:
+    """PETSc-shaped front door: setup once, re-solve many times.  Runs on
+    the device of ``A.data``."""
+
+    def __init__(self, A: BlockCSR, B: torch.Tensor, *, rtol: float = 1e-8,
+                 maxiter: int = 200, **opts):
+        self.rtol, self.maxiter = rtol, maxiter
+        self.setup_data = setup(A, B, **opts)
+        self.hierarchy = recompute(self.setup_data, A.data)
+        self.n_recomputes = 0
+
+    def update_operator(self, a_fine_data: torch.Tensor) -> None:
+        """Hot path: new operator values, same structure (Newton step)."""
+        self.hierarchy = recompute(self.setup_data, a_fine_data)
+        self.n_recomputes += 1
+
+    def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None
+              ) -> CGResult:
+        """Solve; ``x0`` warm-starts CG from a prior iterate."""
+        return hier_solve(self.setup_data, self.hierarchy, b, x0,
+                          rtol=self.rtol, maxiter=self.maxiter)

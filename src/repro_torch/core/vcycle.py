@@ -1,0 +1,183 @@
+"""Device-resident V-cycle (torch twin of ``repro.core.vcycle``; paper
+Sec. 3.1).
+
+Expressed over the padded BlockELL layout: SpMV with the level operator
+and prolongation through the ``block_spmv`` kernel, transpose-free
+restriction off P's own blocks, pbjacobi-preconditioned Chebyshev (or
+damped block-Jacobi) smoothing — by default each recurrence step is one
+``fused_smoother`` kernel launch — and a dense Cholesky coarse solve.
+Nothing in the cycle waits on the host: the Chebyshev coefficients are
+device scalars derived from the device ``lam_max``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.block_csr import BlockELL, EllTransposePlan
+from repro_torch.core.spmv import apply_ell, apply_ell_t
+from repro_torch.kernels import backend
+from repro_torch.kernels.fused_smoother import ops as smoother_ops
+
+
+@dataclasses.dataclass
+class LevelState:
+    """Numeric per-level state; structure lives in the setup's plans."""
+
+    a_ell: BlockELL                 # level operator (bs x bs blocks)
+    p_ell: BlockELL                 # prolongator (bs_f x bs_c), fixed values
+    dinv: torch.Tensor              # (nbr, bs, bs) inverted diagonal blocks
+    lam_max: torch.Tensor           # Chebyshev upper bound for D^-1 A
+    p_t: Optional[EllTransposePlan] = None   # transpose-free P^T plan
+
+
+@dataclasses.dataclass
+class Hierarchy:
+    """Device-resident numeric hierarchy."""
+
+    levels: Tuple[LevelState, ...]
+    coarse_chol: torch.Tensor       # lower Cholesky factor, coarsest level
+
+
+def fine_operator(hier: Hierarchy) -> BlockELL:
+    """The finest-level operator the Krylov loop applies."""
+    return hier.levels[0].a_ell
+
+
+def pbjacobi_apply(dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Point-block Jacobi apply of a vector."""
+    nbr, bs = dinv.shape[0], dinv.shape[1]
+    return torch.einsum("nab,nb->na", dinv, r.reshape(nbr, bs)).reshape(-1)
+
+
+def chebyshev_recurrence(spmv, pbj, lam_max, b, x, degree: int = 2,
+                         lo_frac: float = 0.1, hi_frac: float = 1.05):
+    """pbjacobi-preconditioned Chebyshev on [lo_frac, hi_frac]*lam_max
+    (the unfused recurrence, same constants as the reference)."""
+    lo = lo_frac * lam_max
+    hi = hi_frac * lam_max
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    r = b - spmv(x)
+    z = pbj(r)
+    d = z / theta
+    x = x + d
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        r = r - spmv(d)
+        z = pbj(r)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
+        x = x + d
+        rho = rho_new
+    return x
+
+
+def pbjacobi_recurrence(spmv, pbj, b, x, its: int = 2, omega: float = 0.6):
+    """Damped point-block Jacobi (unfused)."""
+    for _ in range(its):
+        r = b - spmv(x)
+        x = x + omega * pbj(r)
+    return x
+
+
+def chebyshev_smooth(lv: LevelState, b, x, degree: int = 2,
+                     lo_frac: float = 0.1, hi_frac: float = 1.05):
+    return chebyshev_recurrence(lambda v: apply_ell(lv.a_ell, v),
+                                lambda r: pbjacobi_apply(lv.dinv, r),
+                                lv.lam_max, b, x, degree, lo_frac, hi_frac)
+
+
+def pbjacobi_smooth(lv: LevelState, b, x, omega: float = 0.6,
+                    its: int = 2):
+    return pbjacobi_recurrence(lambda v: apply_ell(lv.a_ell, v),
+                               lambda r: pbjacobi_apply(lv.dinv, r),
+                               b, x, its, omega)
+
+
+def _coef(c1, c2, like: torch.Tensor) -> torch.Tensor:
+    """``[c1, c2]`` as a two-element device tensor; Python numbers are
+    filled on the device, so no host copy or sync is involved."""
+    def dev(c):
+        if isinstance(c, torch.Tensor):
+            return c.to(like.dtype)
+        return torch.full((), c, dtype=like.dtype, device=like.device)
+    return torch.stack([dev(c1), dev(c2)])
+
+
+def _fused_step(lv: LevelState, b, x, d, coef):
+    """One fused step ``d' = c1 d + c2 D^-1 (b - A x); x' = x + d'``."""
+    return smoother_ops.smoother_step(lv.a_ell, lv.dinv, b, x, d, coef)
+
+
+def chebyshev_smooth_fused(lv: LevelState, b, x, degree: int = 2,
+                           lo_frac: float = 0.1, hi_frac: float = 1.05):
+    """Chebyshev smoothing with each recurrence step as one fused kernel
+    launch; the residual is formed fresh from the current iterate, which
+    differs from the unfused recurrence only in rounding."""
+    lo = lo_frac * lv.lam_max
+    hi = hi_frac * lv.lam_max
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    x, d = _fused_step(lv, b, x, torch.zeros_like(b),
+                       _coef(0.0, 1.0 / theta, b))
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        x, d = _fused_step(lv, b, x, d,
+                           _coef(rho_new * rho, 2.0 * rho_new / delta, b))
+        rho = rho_new
+    return x
+
+
+def pbjacobi_smooth_fused(lv: LevelState, b, x, omega: float = 0.6,
+                          its: int = 2):
+    """Damped point-block Jacobi with each step as one fused launch."""
+    d = torch.zeros_like(b)
+    coef = _coef(0.0, omega, b)
+    for _ in range(its):
+        x, d = _fused_step(lv, b, x, d, coef)
+    return x
+
+
+def apply_smoother(lv, b, x, smoother: str, degree: int,
+                   path: str | None = None):
+    """Smoother-name dispatch; ``path`` (``REPRO_TORCH_SMOOTH_PATH``)
+    picks the fused kernel ("fused", default) or, on the CPU only, the
+    unfused recurrences ("reference")."""
+    if backend.resolve_smooth_path(b.device, path) == "fused":
+        if smoother == "chebyshev":
+            return chebyshev_smooth_fused(lv, b, x, degree=degree)
+        return pbjacobi_smooth_fused(lv, b, x, its=degree)
+    if smoother == "chebyshev":
+        return chebyshev_smooth(lv, b, x, degree=degree)
+    return pbjacobi_smooth(lv, b, x, its=degree)
+
+
+def apply_restriction(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
+    """Restrict a fine-level residual, ``P^T r``, off ``p_ell``'s blocks."""
+    return apply_ell_t(lv.p_ell, lv.p_t, r)
+
+
+def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
+           degree: int = 2) -> torch.Tensor:
+    """One V(degree, degree) cycle with zero initial guess (the
+    preconditioner)."""
+    bs_stack, x_stack = [], []
+    rhs = b
+    for lv in hier.levels:
+        x = apply_smoother(lv, rhs, torch.zeros_like(rhs), smoother, degree)
+        r = rhs - apply_ell(lv.a_ell, x)
+        bs_stack.append(rhs)
+        x_stack.append(x)
+        rhs = apply_restriction(lv, r)
+    xc = torch.cholesky_solve(rhs[:, None], hier.coarse_chol)[:, 0]
+    for lv, rhs_l, x in zip(reversed(hier.levels), reversed(bs_stack),
+                            reversed(x_stack)):
+        x = x + apply_ell(lv.p_ell, xc)          # prolong + correct
+        xc = apply_smoother(lv, rhs_l, x, smoother, degree)
+    return xc

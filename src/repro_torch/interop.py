@@ -1,0 +1,117 @@
+"""Carry state across from numpy: the port's objects from plain arrays.
+
+Lets a caller run the port's hot path (``recompute``, ``vcycle``, ``pcg``)
+on exactly another implementation's operators, prolongators and
+hierarchies — handed over as numpy arrays — so hot-path parity can be
+checked apart from cold-setup parity.  Structures are taken as given;
+every plan is rebuilt by the port's own symbolic phases (host numpy).
+Imports nothing but numpy, torch and this package.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import Aggregation
+from repro_torch.core.block_coo import set_values_coo
+from repro_torch.core.block_csr import BlockCSR, BlockELL, EllTransposePlan, \
+    transpose_apply_plan
+from repro_torch.core.gamg import GAMGSetup, LevelSetup
+from repro_torch.core.ptap import ptap_symbolic
+from repro_torch.core.vcycle import Hierarchy, LevelState
+from repro_torch.fem.assemble import ElasticityProblem, coo_plan
+from repro_torch.fem.hex_elasticity import hex_mesh
+from repro_torch.kernels.backend import resolve_device
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, copy=True), dtype=dtype).to(device)
+
+
+def bcsr_from_numpy(indptr, indices, data, nbc: int, *,
+                    device="cuda") -> BlockCSR:
+    """A ``BlockCSR`` from host structure and ``(nnzb, br, bc)`` values."""
+    dev = resolve_device(device)
+    return BlockCSR.from_arrays(np.asarray(indptr), np.asarray(indices),
+                                _t(data, dev, torch.float64), nbc)
+
+
+def problem_from_numpy(m: int, *, values, b, B, order: int = 1,
+                       device="cuda") -> ElasticityProblem:
+    """An ``ElasticityProblem`` on the ``m^3`` grid (z=0 face clamped) with
+    the given value stream, load ``b`` and near-null space ``B``; mesh and
+    COO plan are rebuilt on the host and ``A`` assembled from ``values``."""
+    dev = resolve_device(device)
+    mesh = hex_mesh(m, order)
+    plan, free = coo_plan(mesh)
+    vals = _t(values, dev, torch.float64)
+    return ElasticityProblem(A=set_values_coo(plan, vals),
+                             b=_t(b, dev, torch.float64),
+                             B=_t(B, dev, torch.float64), mesh=mesh,
+                             free_nodes=free, coo_plan=plan, values=vals)
+
+
+def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
+                     smoother: str = "chebyshev", degree: int = 2,
+                     theta: float = 0.08, nns_dim: int = 6,
+                     device="cuda") -> GAMGSetup:
+    """A ``GAMGSetup`` from per-level arrays.
+
+    Each entry of ``levels`` holds ``A0`` and ``P`` as dicts of
+    ``indptr, indices, data, nbc``, the aggregates ``node_to_agg`` and the
+    damping ``omega``; ``coarse`` is the coarsest operator as such a dict.
+    The PtAP, ELL and transpose-apply plans are rebuilt from the
+    structures by the port's symbolic phases.
+    """
+    dev = resolve_device(device)
+    out = []
+    for lv in levels:
+        A0 = bcsr_from_numpy(**lv["A0"], device=dev)
+        P = bcsr_from_numpy(**lv["P"], device=dev)
+        agg = np.asarray(lv["node_to_agg"], dtype=np.int64)
+        p_ell = P.to_ell()
+        out.append(LevelSetup(
+            A0=A0, P=P, ptap_cache=ptap_symbolic(A0, P),
+            a_ell_plan=A0.ell_plan(), p_ell=p_ell,
+            aggr=Aggregation(node_to_agg=agg, n_agg=P.nbc),
+            omega=_t(lv["omega"], dev, torch.float64), n_fine=A0.nbr,
+            n_coarse=P.nbc, pt=transpose_apply_plan(P, p_ell.kmax)))
+    Ac = bcsr_from_numpy(**coarse, device=dev)
+    ops = [ls.A0 for ls in out] + [Ac]
+    stats = {"level_rows": [a.nbr * a.br for a in ops],
+             "level_nnzb": [a.nnzb for a in ops],
+             "level_bs": [a.br for a in ops], "conversions_to_scalar": 0}
+    bs_fine = out[0].A0.br if out else Ac.br
+    return GAMGSetup(levels=out, coarse_struct=Ac, bs_fine=bs_fine,
+                     nns_dim=nns_dim, smoother=smoother, degree=degree,
+                     theta=theta, coarsener="greedy", stats=stats)
+
+
+def _ell(d: dict, dev) -> BlockELL:
+    return BlockELL(indices=_t(d["indices"], dev, torch.int32),
+                    data=_t(d["data"], dev, torch.float64),
+                    mask=_t(d["mask"], dev, torch.bool), nbc=int(d["nbc"]))
+
+
+def hierarchy_from_numpy(levels: Sequence[dict], coarse_chol, *,
+                         device="cuda") -> Hierarchy:
+    """A ``Hierarchy`` from per-level arrays: ``a_ell`` and ``p_ell`` as
+    dicts of ``indices, data, mask, nbc``, ``dinv``, ``lam_max`` and
+    ``p_t`` as a dict of ``rows, gather, mask, nbr``; plus the coarse
+    lower Cholesky factor."""
+    dev = resolve_device(device)
+    states = []
+    for lv in levels:
+        pt = lv["p_t"]
+        states.append(LevelState(
+            a_ell=_ell(lv["a_ell"], dev), p_ell=_ell(lv["p_ell"], dev),
+            dinv=_t(lv["dinv"], dev, torch.float64),
+            lam_max=_t(lv["lam_max"], dev, torch.float64),
+            p_t=EllTransposePlan(rows=np.asarray(pt["rows"], np.int32),
+                                 gather=np.asarray(pt["gather"], np.int32),
+                                 mask=np.asarray(pt["mask"], bool),
+                                 nbr=int(pt["nbr"]))))
+    return Hierarchy(levels=tuple(states),
+                     coarse_chol=_t(coarse_chol, dev, torch.float64))

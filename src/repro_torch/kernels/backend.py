@@ -1,0 +1,238 @@
+"""Device resolution, the CUDA kernel library, and the path knobs.
+
+Devices.  Every entry point of the port takes an explicit ``device``,
+defaulting to ``"cuda"``; ``resolve_device`` raises when CUDA is asked for
+and absent, so nothing silently runs on the CPU.  The CPU runs only where a
+caller passes ``device="cpu"`` (the tests do), and there every kernel
+wrapper takes its plain PyTorch version.
+
+Kernel library.  The four hand-written kernels live in ``csrc/*.cu`` with a
+plain C interface.  ``build_library`` compiles each source with its own
+``nvcc -c`` for ``sm_90a`` (all started together), links them with one
+``nvcc -shared`` into one ``.so`` keyed by a hash of the sources, under
+``kernels/_build/`` (listed in ``.gitignore``); ``library`` loads it with
+``ctypes`` at first use.  Pointers and the stream travel as ``c_void_p``
+and sizes as ``c_int``; each C entry point returns ``cudaGetLastError()``
+and ``launch`` raises if it is not 0.
+
+Path knobs (re-read per call; the port's own variable names, so settings
+made for the JAX reference never reach it):
+
+* ``resolve_spgemm_path`` — numeric SpGEMM: ``"fused"`` (default; the
+  ``fused_pair_gemm`` kernel plus the ``block_seg_sum`` row-split combine)
+  or ``"reference"`` (einsum pair products + the plain segment sum, the
+  reference's CPU default order); ``REPRO_TORCH_SPGEMM_PATH`` forces it.
+* ``resolve_smooth_path`` — V-cycle smoother: ``"fused"`` (default; the
+  ``fused_smoother`` kernel) or ``"reference"`` (the unfused recurrences);
+  ``REPRO_TORCH_SMOOTH_PATH`` forces it.
+
+``"reference"`` runs plain versions, so it is CPU-only: asked for on a CUDA
+device it raises.  On the card the port launches its kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+# ---------------------------------------------------------------------------
+# Devices
+# ---------------------------------------------------------------------------
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on; CUDA unless the caller asks for
+    the CPU.  Raises instead of falling back when CUDA is absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: expected 'cuda' "
+                         f"or 'cpu'")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# The CUDA library
+# ---------------------------------------------------------------------------
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    """Hash of every kernel source and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_torch_{source_digest()}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc (PATH or "
+                           "/usr/local/cuda/bin)")
+    return nvcc
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless the build for
+    these sources exists.  The compiler's output (``-Xptxas -v``: registers,
+    spills) is kept beside it as ``<lib>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for src, obj in zip(cu, objs)]
+        logs, failed = [], []
+        for src, p in zip(cu, procs):
+            out, _ = p.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if p.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n"
+                               + "\n".join(logs))
+        staged = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(staged), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(f"== link\n{link.stdout}")
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        Path(str(so) + ".log").write_text("\n".join(logs))
+        os.replace(staged, so)    # atomic: concurrent builds agree
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(str(build_library()))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+P = ctypes.c_void_p   # pointers and the stream
+I = ctypes.c_int      # sizes
+
+
+@functools.lru_cache(maxsize=None)
+def kernel(name: str, argtypes: tuple):
+    """C entry point ``name`` with its ctypes signature declared."""
+    fn = getattr(library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, argtypes: tuple, *args) -> None:
+    """Call a C entry point on the current stream (passed last) and raise
+    on a refused launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = kernel(name, argtypes)(*args, stream)
+    if rc:
+        msg = library().repro_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def on_cuda(name: str, **tensors) -> bool:
+    """Where a wrapper runs: True launches the kernel (CUDA tensors), False
+    takes the plain version (CPU tensors).  Mixed or other devices raise."""
+    devs = {t.device for t in tensors.values() if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs on several devices: "
+                         + ", ".join(f"{k}={t.device}" for k, t in
+                                     tensors.items() if t is not None))
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def check_kernel_args(name: str, floats: dict, ints: dict = None,
+                      masks: dict = None) -> None:
+    """Validation before any pointer reaches a kernel: float payloads f64,
+    index arrays int32, masks bool, everything contiguous."""
+    groups = ((floats, torch.float64), (ints or {}, torch.int32),
+              (masks or {}, torch.bool))
+    for group, dtype in groups:
+        for k, t in group.items():
+            if t is None:
+                continue
+            if t.dtype != dtype:
+                raise ValueError(f"{name}: {k} is {t.dtype}, the kernel "
+                                 f"takes {dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {k} must be contiguous")
+            if t.numel() >= 2 ** 31:
+                raise ValueError(f"{name}: {k} has {t.numel()} elements, "
+                                 f"beyond the kernels' int32 indexing")
+
+
+# ---------------------------------------------------------------------------
+# Knobs
+# ---------------------------------------------------------------------------
+
+def _resolve_path(kind: str, var: str, device, path: str | None,
+                  hint: str = "") -> str:
+    if path is None:
+        path = os.environ.get(var) or "fused"
+    if path not in ("fused", "reference"):
+        raise ValueError(f"invalid {kind} path {path!r}: expected 'fused' or "
+                         f"'reference' (from {var} or the path= knob{hint})")
+    if path == "reference" and torch.device(device).type == "cuda":
+        raise ValueError(f"the 'reference' {kind} path runs the plain "
+                         f"versions and is CPU-only; on {device} the port "
+                         f"launches its kernels (unset {var})")
+    return path
+
+
+def resolve_spgemm_path(device, path: str | None = None) -> str:
+    """Numeric SpGEMM path for payloads on ``device``."""
+    return _resolve_path("SpGEMM", "REPRO_TORCH_SPGEMM_PATH", device, path,
+                         "; the 'pairs' path is not ported yet")
+
+
+def resolve_smooth_path(device, path: str | None = None) -> str:
+    """V-cycle smoother path for vectors on ``device``."""
+    return _resolve_path("smoother", "REPRO_TORCH_SMOOTH_PATH", device, path)

@@ -1,0 +1,67 @@
+"""Wrapper of the fused smoother step kernel (``csrc/fused_smoother.cu``).
+
+``repro_torch.core.vcycle.apply_smoother`` dispatches here on the fused
+smoother path (the default).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.block_csr import BlockELL
+from repro_torch.kernels import backend
+from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
+
+SHAPES = (3, 6)
+_ARGS = (backend.P,) * 9 + (backend.I,) * 3 + (backend.P,)
+
+#: kernel launches since the last reset (plain-version calls do not count)
+launches = 0
+
+
+def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
+                      dinv: torch.Tensor, b_blocks: torch.Tensor,
+                      x_blocks: torch.Tensor, d_blocks: torch.Tensor,
+                      coef: torch.Tensor):
+    """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors; A
+    square in padded BlockELL form, ``dinv (nbr, bs, bs)``, ``coef`` a
+    two-element device tensor ``[c1, c2]``.  ``x'`` is a new tensor (out of
+    place).  CPU tensors take the plain version; CUDA tensors the kernel."""
+    global launches
+    name = "fused_smoother"
+    if not backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
+                           b=b_blocks, x=x_blocks, d=d_blocks, coef=coef):
+        return smoother_step_ref(indices, data, dinv, b_blocks, x_blocks,
+                                 d_blocks, coef)
+    nbr, kmax, bs, bs2 = data.shape
+    if bs != bs2 or bs not in SHAPES:
+        raise ValueError(f"{name}: block shape {(bs, bs2)} has no kernel "
+                         f"instantiation (square, bs in {SHAPES})")
+    vec = (nbr, bs)
+    if (tuple(indices.shape) != (nbr, kmax)
+            or tuple(dinv.shape) != (nbr, bs, bs)
+            or any(tuple(v.shape) != vec for v in (b_blocks, x_blocks,
+                                                    d_blocks))
+            or tuple(coef.shape) != (2,)):
+        raise ValueError(f"{name}: operand shapes disagree with A "
+                         f"{tuple(data.shape)}")
+    backend.check_kernel_args(
+        name, dict(data=data, dinv=dinv, b=b_blocks, x=x_blocks, d=d_blocks,
+                   coef=coef), dict(indices=indices))
+    x_new = torch.empty(vec, dtype=data.dtype, device=data.device)
+    d_new = torch.empty(vec, dtype=data.dtype, device=data.device)
+    p = backend.ptr
+    backend.launch("repro_fused_smoother_f64", _ARGS, p(indices), p(data),
+                   p(dinv), p(b_blocks), p(x_blocks), p(d_blocks), p(coef),
+                   p(x_new), p(d_new), nbr, kmax, bs)
+    launches += 1
+    return x_new, d_new
+
+
+def smoother_step(a_ell: BlockELL, dinv: torch.Tensor, b: torch.Tensor,
+                  x: torch.Tensor, d: torch.Tensor, coef: torch.Tensor):
+    """The fused step on flat ``(n,)`` vectors; returns ``(x', d')``."""
+    shape = (a_ell.nbr, a_ell.br)
+    x_new, d_new = smoother_step_ell(a_ell.indices, a_ell.data, dinv,
+                                     b.reshape(shape), x.reshape(shape),
+                                     d.reshape(shape), coef)
+    return x_new.reshape(b.shape), d_new.reshape(b.shape)

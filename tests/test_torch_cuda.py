@@ -1,0 +1,150 @@
+"""The port's CUDA kernels on the card: each wrapper against its plain
+version at small main-path block shapes, its launch counter, and the port
+on the card against the port on the CPU.  Marked ``cuda``; skipped where
+no CUDA device is present.  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.gamg import GAMGSolver  # noqa: E402
+from repro_torch.fem.assemble import assemble_elasticity  # noqa: E402
+from repro_torch.kernels.block_seg_sum import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref  # noqa
+from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
+from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref  # noqa
+from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa
+from repro_torch.kernels.fused_pair_gemm.ref import \
+    fused_pair_gemm_ref  # noqa: E402
+from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
+from repro_torch.kernels.fused_smoother.ref import \
+    smoother_step_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+REL = 1e-12
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    got = torch.cat([g.reshape(-1) for g in got]) if isinstance(
+        got, tuple) else got
+    want = torch.cat([w.reshape(-1) for w in want]) if isinstance(
+        want, tuple) else want
+    err = float((got - want).abs().max())
+    assert err <= REL * float(want.abs().max()), err
+
+
+def _launch_once(mod, call):
+    before = mod.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
+def test_seg_sum_kernel(dev, br, bc):
+    g = torch.Generator(device=dev).manual_seed(br * bc)
+    vals = torch.randn(300, br, bc, generator=g, dtype=torch.float64,
+                       device=dev)
+    cuts = torch.randint(0, 301, (49,), generator=g, device=dev).sort()[0]
+    ends = torch.tensor([0, 300], device=dev)
+    offsets = torch.cat([ends[:1], cuts, ends[1:]]).to(torch.int32)
+    perm = torch.randperm(300, generator=g, device=dev).to(torch.int32)
+    got = _launch_once(seg_ops, lambda: seg_ops.block_seg_sum(
+        vals, offsets, perm))
+    assert torch.equal(got, block_seg_sum_ref(vals, offsets, perm))
+
+
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
+def test_spmv_kernel(dev, br, bc):
+    g = torch.Generator(device=dev).manual_seed(10 + br * bc)
+    idx = torch.randint(0, 40, (70, 9), generator=g, device=dev,
+                        dtype=torch.int32)
+    data = torch.randn(70, 9, br, bc, generator=g, dtype=torch.float64,
+                       device=dev)
+    x = torch.randn(40, bc, generator=g, dtype=torch.float64, device=dev)
+    got = _launch_once(spmv_ops, lambda: spmv_ops.block_spmv_ell(
+        idx, data, x))
+    _close(got, block_spmv_ell_ref(idx, data, x))
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+def test_smoother_kernel(dev, bs):
+    g = torch.Generator(device=dev).manual_seed(20 + bs)
+    f64 = dict(dtype=torch.float64, device=dev)
+    idx = torch.randint(0, 60, (60, 7), generator=g, device=dev,
+                        dtype=torch.int32)
+    args = (idx, torch.randn(60, 7, bs, bs, generator=g, **f64),
+            torch.randn(60, bs, bs, generator=g, **f64)) + tuple(
+        torch.randn(60, bs, generator=g, **f64) for _ in range(3)) + (
+        torch.tensor([0.25, 0.8], **f64),)
+    got = _launch_once(smooth_ops,
+                       lambda: smooth_ops.smoother_step_ell(*args))
+    _close(got, smoother_step_ref(*args))
+
+
+@pytest.mark.parametrize("br,bk,bc", [(3, 3, 6), (6, 3, 6), (6, 6, 6)])
+def test_pair_gemm_kernel(dev, br, bk, bc):
+    g = torch.Generator(device=dev).manual_seed(30 + br + bk + bc)
+    f64 = dict(dtype=torch.float64, device=dev)
+    a = torch.randn(50, br, bk, generator=g, **f64)
+    b = torch.randn(45, bk, bc, generator=g, **f64)
+    ta = torch.randint(0, 50, (80, 6), generator=g, device=dev,
+                       dtype=torch.int32)
+    tb = torch.randint(0, 45, (80, 6), generator=g, device=dev,
+                       dtype=torch.int32)
+    mask = torch.rand(80, 6, generator=g, device=dev) < 0.7
+    got = _launch_once(gemm_ops, lambda: gemm_ops.fused_pair_gemm(
+        a, b, ta, tb, mask))
+    _close(got, fused_pair_gemm_ref(a, b, ta, tb, mask))
+
+
+def test_unsupported_block_shape_raises(dev):
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    data = torch.zeros((4, 2, 2, 2), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        spmv_ops.block_spmv_ell(idx, data, torch.zeros(
+            (1, 2), dtype=torch.float64, device=dev))
+
+
+def test_port_on_card_matches_port_on_cpu(dev):
+    runs = {}
+    for d in ("cpu", dev):
+        prob = assemble_elasticity(7, device=d)
+        solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+        res = solver.solve(prob.b)
+        runs[str(d)] = (solver.setup_data, res)
+    (s_cpu, r_cpu), (s_gpu, r_gpu) = runs.values()
+    assert s_cpu.stats["level_rows"] == s_gpu.stats["level_rows"]
+    for a, b in zip(s_cpu.levels, s_gpu.levels):
+        np.testing.assert_array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg)
+    assert r_cpu.iters == r_gpu.iters
+    x_cpu, x_gpu = r_cpu.x, r_gpu.x.cpu()
+    assert float((x_cpu - x_gpu).norm() / x_cpu.norm()) <= 1e-9
+
+
+def test_reference_paths_refuse_cuda_payloads(dev):
+    """The plain 'reference' paths never run on the card."""
+    from repro_torch.core.vcycle import apply_smoother
+    prob = assemble_elasticity(4, device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+    cache = solver.setup_data.levels[0].ptap_cache
+    with pytest.raises(ValueError, match="CPU-only"):
+        from repro_torch.core.spgemm import spgemm_numeric_data
+        spgemm_numeric_data(cache.ap_plan, prob.A.data,
+                            solver.setup_data.levels[0].P.data,
+                            path="reference")
+    lv = solver.hierarchy.levels[0]
+    with pytest.raises(ValueError, match="CPU-only"):
+        apply_smoother(lv, prob.b, torch.zeros_like(prob.b), "chebyshev", 2,
+                       path="reference")

@@ -1,0 +1,168 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in
+``src/repro_torch`` or ``chip_smoke.py``; entry points default to CUDA and
+raise where it is absent; CPU tensors take the plain versions and count no
+kernel launch."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.block_seg_sum import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
+from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa: E402
+from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_repro(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.fem.assemble import assemble_elasticity
+    from repro_torch.interop import bcsr_from_numpy
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backend.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        assemble_elasticity(3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ElasticityConfig(m=3).build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bcsr_from_numpy([0, 1], [0], np.eye(3)[None], 1)
+
+
+def _cpu_calls():
+    rng = np.random.default_rng(0)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape))
+
+    idx = torch.zeros((4, 2), dtype=torch.int32)
+    mask = torch.ones((4, 2), dtype=torch.bool)
+    return [
+        (seg_ops, lambda: seg_ops.block_seg_sum(
+            t((5, 3, 3)), torch.tensor([0, 2, 5], dtype=torch.int32))),
+        (spmv_ops, lambda: spmv_ops.block_spmv_ell(idx, t((4, 2, 3, 6)),
+                                                   t((1, 6)))),
+        (smooth_ops, lambda: smooth_ops.smoother_step_ell(
+            idx, t((4, 2, 3, 3)), t((4, 3, 3)), t((4, 3)), t((4, 3)),
+            t((4, 3)), t((2,)))),
+        (gemm_ops, lambda: gemm_ops.fused_pair_gemm(
+            t((3, 6, 3)), t((2, 3, 6)), idx, idx, mask)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(4), ids=["block_seg_sum", "block_spmv",
+                                             "fused_smoother",
+                                             "fused_pair_gemm"])
+def test_cpu_calls_take_the_plain_version_and_count_nothing(i):
+    mod, call = _cpu_calls()[i]
+    before = mod.launches
+    call()
+    assert mod.launches == before
+
+
+def test_other_devices_and_mixed_devices_raise():
+    meta = torch.empty((4, 2, 3, 3), dtype=torch.float64, device="meta")
+    idx = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        spmv_ops.block_spmv_ell(idx, meta, torch.empty(
+            (1, 3), dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        spmv_ops.block_spmv_ell(torch.zeros((4, 2), dtype=torch.int32),
+                                meta, torch.zeros((1, 3)))
+
+
+def test_path_knobs_validate(monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_SPGEMM_PATH", "pairs")
+    with pytest.raises(ValueError, match="not ported yet"):
+        backend.resolve_spgemm_path("cpu")
+    monkeypatch.setenv("REPRO_TORCH_SMOOTH_PATH", "bogus")
+    with pytest.raises(ValueError, match="smoother path"):
+        backend.resolve_smooth_path("cpu")
+    monkeypatch.delenv("REPRO_TORCH_SPGEMM_PATH")
+    monkeypatch.delenv("REPRO_TORCH_SMOOTH_PATH")
+    assert backend.resolve_spgemm_path("cpu") == "fused"
+    assert backend.resolve_smooth_path("cpu") == "fused"
+
+
+@pytest.mark.parametrize("var", ["REPRO_SPGEMM_PATH", "REPRO_SMOOTH_PATH",
+                                 "REPRO_PRECISION"])
+def test_reference_package_knobs_do_not_reach_the_port(monkeypatch, var):
+    """The JAX package's variables (where "reference" is the CPU default)
+    leave the port on its kernel paths and its f64 policy."""
+    monkeypatch.setenv(var, "f32" if var == "REPRO_PRECISION"
+                       else "reference")
+    assert backend.resolve_spgemm_path("cuda") == "fused"
+    assert backend.resolve_smooth_path("cuda") == "fused"
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.interop import bcsr_from_numpy
+    from repro_torch.core import gamg
+    A = bcsr_from_numpy([0, 1], [0], np.eye(3)[None], 1, device="cpu")
+    B = torch.eye(3, dtype=torch.float64)
+    assert gamg.setup(A, B).precision == PrecisionPolicy.double()
+
+
+@pytest.mark.parametrize("knob", ["spgemm", "smooth"])
+@pytest.mark.parametrize("source", ["env", "arg"])
+def test_reference_path_is_refused_on_cuda(monkeypatch, knob, source):
+    """No route to the plain versions on the card: the 'reference' paths
+    raise for CUDA payloads and run only on the CPU."""
+    resolve = getattr(backend, f"resolve_{knob}_path")
+    var = f"REPRO_TORCH_{knob.upper()}_PATH"
+    kw = {}
+    if source == "env":
+        monkeypatch.setenv(var, "reference")
+    else:
+        kw["path"] = "reference"
+    assert resolve("cpu", **kw) == "reference"
+    with pytest.raises(ValueError, match="CPU-only"):
+        resolve("cuda", **kw)
+    with pytest.raises(ValueError, match="CPU-only"):
+        resolve(torch.device("cuda", 0), **kw)
