@@ -5,17 +5,32 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc``, drives the port's main path — the paper's configuration
-``ElasticityConfig(m=32)``: blocked-COO assembly, cold GAMG setup, then 3
-hot steps of reassembly, ``update_operator`` (the PtAP chain) and the
-AMG-PCG solve — and checks that each kernel ran on it.  It then holds every
-kernel against its plain PyTorch version at the main path's shapes (max
-relative error 1e-12 at f64; kernels reorder sums), times kernel, plain
-version and a one-call PyTorch yardstick with CUDA events beside the
-kernel's bound, and compares the port on the CPU with the port on the card
-at m=7 (bitwise levels and aggregates, equal CG iterations, solutions
-within 1e-9).  The second-to-last line is the per-kernel JSON record and
+It builds the six hand-written CUDA kernels from ``src/repro_torch/kernels/
+csrc`` and drives three paths of the port on the paper's configuration
+``ElasticityConfig(m=32)``, each with the launch counts set to 0 just
+before it and read just after:
+
+1. the main path — blocked-COO assembly, cold GAMG setup, then 3 hot steps
+   of reassembly, ``update_operator`` (the PtAP chain) and the AMG-PCG
+   solve (13 iterations each), plus one profiled hot step;
+2. the serve path — ``AMGSolveServer`` on the main path's setup, bursts of
+   1, 3, 8, 5, 16 and 21 requests in panels of k in {1, 2, 4, 8, 16},
+   ``update_operator`` and a burst of 4 copies of ``b`` (13 iterations on
+   every column); per-column iterations equal dedicated vector solves;
+3. the pairs path — one ``update_operator`` on the unfused "pairs" SpGEMM
+   path (``REPRO_TORCH_SPGEMM_PATH=pairs``), held against the fused
+   hierarchy (1e-12) and solved (13 iterations), with its peak memory
+   beside the fused recompute's.
+
+It checks that each kernel ran on its path, then holds every kernel
+against its plain PyTorch version at the paths' shapes (max relative error
+1e-12 at f64; kernels reorder sums), checks that ``block_spmm`` and the
+panel ``fused_smoother`` are bitwise per column against ``block_spmv`` and
+the vector step, times kernel, plain version and a one-call PyTorch
+yardstick with CUDA events beside the kernel's bound, and compares the
+port on the CPU with the port on the card at m=7 (bitwise levels and
+aggregates, equal CG iterations, solutions within 1e-9, vector and k=4
+panel solves).  The second-to-last line is the per-kernel JSON record and
 the last line ``{"ok": true, "device": ...}``.  Any failure raises (exit
 code not 0).  Without a CUDA device, or outside a checkout, it exits with
 code 2 before printing a result.  Imports nothing of JAX.
@@ -23,6 +38,7 @@ code 2 before printing a result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -38,6 +54,10 @@ MAIN_M = 32              # ElasticityConfig(m=32): the paper's one-device rung
 EXPECT_LEVEL_ROWS = [95232, 7986, 5016, 114]
 EXPECT_ITERS = 13        # the JAX reference's count on this configuration
 CHECK_M, CHECK_COARSE = 7, 12
+BUCKETS = (1, 2, 4, 8, 16)
+BURSTS = (1, 3, 8, 5, 16, 21)   # 21 = a full 16 panel + 5 in an 8 panel
+CHECKED_BURSTS = (3, 5)         # per column against dedicated solves
+PANEL_KS = (16, 4)              # block_spmm cases
 
 # Datasheet peaks of the card the port runs on, the H100 SXM ("NVIDIA H100
 # 80GB HBM3"): HBM bytes/s and fp64 FLOP/s outside the tensor cores.
@@ -57,16 +77,25 @@ KERNELS = {
     "fused_pair_gemm": dict(
         source="src/repro_torch/kernels/csrc/fused_pair_gemm.cu",
         replaces="src/repro/kernels/fused_pair_gemm/fused_pair_gemm.py:70"),
+    "block_spmm": dict(
+        source="src/repro_torch/kernels/csrc/block_spmm.cu",
+        replaces="src/repro/kernels/block_spmm/block_spmm.py:49"),
+    "block_pair_gemm": dict(
+        source="src/repro_torch/kernels/csrc/block_pair_gemm.cu",
+        replaces="src/repro/kernels/block_pair_gemm/block_pair_gemm.py:44"),
 }
 
 
 def _ops():
+    from repro_torch.kernels.block_pair_gemm import ops as pair
     from repro_torch.kernels.block_seg_sum import ops as seg
+    from repro_torch.kernels.block_spmm import ops as spmm
     from repro_torch.kernels.block_spmv import ops as spmv
     from repro_torch.kernels.fused_pair_gemm import ops as gemm
     from repro_torch.kernels.fused_smoother import ops as smooth
     return {"block_seg_sum": seg, "block_spmv": spmv,
-            "fused_smoother": smooth, "fused_pair_gemm": gemm}
+            "fused_smoother": smooth, "fused_pair_gemm": gemm,
+            "block_spmm": spmm, "block_pair_gemm": pair}
 
 
 def reset_counts():
@@ -166,12 +195,13 @@ def main_path(m: int, device, coarse_size: int | None = None,
                        "solve": _diff(c3, c2)})
         rec["x"] = res.x
         records.append(rec)
+        a_data = a_new.data
         if verbose:
             shown = {k: (round(v, 3) if isinstance(v, float) and k != "relres"
                          else v) for k, v in rec.items() if k != "x"}
             print("hot step " + json.dumps(shown))
     return dict(prob=prob, solver=solver, records=records, setup_s=t_setup,
-                assemble_s=t_asm)
+                assemble_s=t_asm, a_data=a_data)
 
 
 def profile_hot_step(run: dict, top: int = 12) -> None:
@@ -191,6 +221,7 @@ def profile_hot_step(run: dict, top: int = 12) -> None:
                 a_new = prob.reassemble(1.3)
             elif phase == "update_operator":
                 solver.update_operator(a_new.data)
+                run["a_data"] = a_new.data
             else:
                 solver.solve(prob.b)
             torch.cuda.synchronize()
@@ -240,6 +271,165 @@ def check_main_path(run: dict) -> None:
                         f"{phase}")
 
 
+class PathCounts:
+    """Kernel launches of one path: the sum of the count deltas around the
+    path's own calls (checks made in between do not count)."""
+
+    def __init__(self):
+        self.total = {name: 0 for name in KERNELS}
+
+    def run(self, fn):
+        c0 = read_counts()
+        out = fn()
+        delta = _diff(read_counts(), c0)
+        for k, v in delta.items():
+            self.total[k] += v
+        return out, delta
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want| of two tensors on any devices."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale else err
+
+
+def serve_path(run: dict, device, expect_iters: int,
+               verbose: bool = True) -> dict:
+    """The solve server on the main path's setup: bursts of requests in
+    bucketed panels, an operator update and a burst of ``b``.  Returns
+    the path's kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gamg import hier_solve
+    from repro_torch.multirhs import AMGSolveServer
+
+    prob, setupd = run["prob"], run["solver"].setup_data
+    counts = PathCounts()
+    reset_counts()
+    server, _ = counts.run(lambda: AMGSolveServer(
+        setupd, run["a_data"], buckets=BUCKETS, rtol=1e-8, maxiter=200))
+    rng = np.random.default_rng(0)
+    n_reports, vector_ms = 0, []
+    plan = [(burst, [rng.standard_normal(prob.n) for _ in range(burst)])
+            for burst in BURSTS]
+    b_host = prob.b.cpu().numpy()
+    plan.append(("update", [b_host] * 4))
+    for burst, rhs in plan:
+        if burst == "update":
+            a_new = prob.reassemble(1.2).data
+            counts.run(lambda: server.update_operator(a_new))
+        sync(device)
+        t0 = time.perf_counter()
+        reports, delta = counts.run(lambda: server.serve(rhs))
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        n_reports += len(reports)
+        its = [r.iters for r in reports]
+        # flush solves chunks of up to BUCKETS[-1] requests, one panel each
+        panels = [r.k_bucket for r in reports[::BUCKETS[-1]]]
+        line = dict(burst=burst, requests=len(rhs), buckets=panels,
+                    iters=[min(its), max(its)], wall_ms=wall_ms,
+                    ms_per_request=wall_ms / len(rhs),
+                    launches={k: delta[k] for k in ("block_spmm",
+                                                    "fused_smoother",
+                                                    "block_spmv")})
+        bad = [r for r in reports if r.status != "ok" or not r.converged]
+        if bad:
+            raise AssertionError(f"burst {burst}: {len(bad)} reports not ok:"
+                                 f" {[(r.request_id, r.status) for r in bad]}")
+        if burst == "update" and its != [expect_iters] * len(rhs):
+            raise AssertionError(f"post-update burst: iterations {its}, "
+                                 f"expected {expect_iters} on every column")
+        if burst in CHECKED_BURSTS:
+            for r, b in zip(reports, rhs):
+                bt = torch.as_tensor(b, device=device)
+                sync(device)
+                t0 = time.perf_counter()
+                v = hier_solve(setupd, server.hierarchy, bt, rtol=1e-8,
+                               maxiter=200)
+                sync(device)
+                vector_ms.append(1e3 * (time.perf_counter() - t0))
+                rel = _rel(torch.as_tensor(r.x), v.x)
+                if v.iters != r.iters or not rel <= SOLUTION_TOL:
+                    raise AssertionError(
+                        f"burst {burst} request {r.request_id}: panel "
+                        f"{r.iters} iterations, vector {v.iters}; solutions "
+                        f"differ by {rel:.3e}")
+            line["vector_check"] = "iterations equal, solutions within 1e-9"
+        if verbose:
+            print("serve burst " + json.dumps(line))
+    want = sum(BURSTS) + 4
+    if n_reports != want:
+        raise AssertionError(f"serve: {n_reports} reports, expected {want}")
+    if verbose:
+        print("serve path " + json.dumps(dict(
+            reports=n_reports, stats=server.stats,
+            vector_solve_ms_median=statistics.median(vector_ms),
+            launches=counts.total)))
+    return counts.total
+
+
+def pairs_path(run: dict, device, expect_iters: int,
+               verbose: bool = True) -> dict:
+    """One ``update_operator`` on the "pairs" SpGEMM path at the values of
+    the current fused hierarchy, held against it and solved; then the
+    fused recompute again, for its peak memory.  Returns the path's
+    kernel launches."""
+    import torch
+    prob, solver = run["prob"], run["solver"]
+    a = run["a_data"]
+    fused = solver.hierarchy
+    cuda = torch.device(device).type == "cuda"
+    counts = PathCounts()
+    reset_counts()
+
+    def recompute(path):
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        os.environ["REPRO_TORCH_SPGEMM_PATH"] = path
+        t0 = time.perf_counter()
+        try:
+            _, delta = counts.run(lambda: solver.update_operator(a))
+        finally:
+            del os.environ["REPRO_TORCH_SPGEMM_PATH"]
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        return dict(ms=ms, peak_bytes_above_live=peak, launches=delta)
+
+    pairs = recompute("pairs")
+    hier = solver.hierarchy
+    errs = {"coarse_chol": _rel(hier.coarse_chol, fused.coarse_chol)}
+    for li, (p, f) in enumerate(zip(hier.levels, fused.levels)):
+        errs[f"level{li} a_ell.data"] = _rel(p.a_ell.data, f.a_ell.data)
+        errs[f"level{li} dinv"] = _rel(p.dinv, f.dinv)
+        errs[f"level{li} lam_max"] = _rel(p.lam_max, f.lam_max)
+    worst = max(errs.values())
+    if not worst <= REL_TOL:
+        raise AssertionError(f"pairs vs fused hierarchy: {errs}")
+    res, _ = counts.run(lambda: solver.solve(prob.b))
+    if res.iters != expect_iters or int(res.health.status) != 0:
+        raise AssertionError(f"pairs hierarchy: {res.iters} iterations, "
+                             f"status {int(res.health.status)}")
+    del hier
+    fused_rec = recompute("fused")
+    if verbose:
+        print("pairs path " + json.dumps(dict(
+            pairs=pairs, fused=fused_rec, max_rel_err=worst, iters=res.iters,
+            launches=counts.total)))
+    return counts.total
+
+
+def check_path_launches(name: str, launches: dict, kernels) -> None:
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} did not launch on the {name} path")
+
+
 # ---------------------------------------------------------------------------
 # Kernel vs plain version at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -267,8 +457,12 @@ def build_cases(run: dict, device) -> list:
     from repro_torch.core.block_csr import device_array
     from repro_torch.core.ptap import ptap_numeric_data
     from repro_torch.core.spgemm import spgemm_numeric_data
+    from repro_torch.kernels.block_pair_gemm import ops as pair
+    from repro_torch.kernels.block_pair_gemm.ref import block_pair_gemm_ref
     from repro_torch.kernels.block_seg_sum import ops as seg
     from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
     from repro_torch.kernels.block_spmv import ops as spmv
     from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
     from repro_torch.kernels.fused_pair_gemm import ops as gemm
@@ -323,6 +517,21 @@ def build_cases(run: dict, device) -> list:
                 + ell.nbr * ell.br * 8,
                 flops=2 * nnz * ell.br * ell.bc,
                 library=lambda csr=csr, xf=xf: torch.mv(csr, xf)))
+            for k in PANEL_KS:
+                X = randn(ell.nbc, ell.bc, k)
+                Xf = X.reshape(ell.nbc * ell.bc, k)
+                cases.append(Case(
+                    "block_spmm",
+                    f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc}) "
+                    f"k={k}",
+                    lambda ell=ell, X=X: spmm.block_spmm_ell(
+                        ell.indices, ell.data, X),
+                    lambda ell=ell, X=X: block_spmm_ell_ref(
+                        ell.indices, ell.data, X),
+                    nbytes=nnz * (ell.br * ell.bc * 8 + 4) + X.numel() * 8
+                    + ell.nbr * ell.br * k * 8,
+                    flops=2 * nnz * ell.br * ell.bc * k,
+                    library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf)))
         a = lv.a_ell
         bs = a.br
         nnz = int(a.mask.sum())
@@ -336,6 +545,17 @@ def build_cases(run: dict, device) -> list:
             nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
             + 5 * a.nbr * bs * 8,
             flops=2 * nnz * bs * bs + 2 * a.nbr * bs * bs + 4 * a.nbr * bs))
+        k = PANEL_KS[0]
+        b, x, d = (randn(a.nbr, bs, k) for _ in range(3))
+        args = (a.indices, a.data, lv.dinv, b, x, d, coef)
+        cases.append(Case(
+            "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs}) k={k}",
+            lambda args=args: smooth.smoother_step_ell(*args),
+            lambda args=args: smoother_step_ref(*args),
+            nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
+            + 5 * a.nbr * bs * k * 8,
+            flops=k * (2 * nnz * bs * bs + 2 * a.nbr * bs * bs
+                       + 4 * a.nbr * bs)))
 
     # --- fused_pair_gemm on both Galerkin products of every level, and the
     # block_seg_sum row-split combine where rows split -----------------------
@@ -358,6 +578,17 @@ def build_cases(run: dict, device) -> list:
                               torch.zeros((), **f64))
             rhs = rhs_data[tb.long()]
             br, bk, bc = sp.br, sp.bk, sp.bc
+            # the "pairs" path's operands: one gathered block per pair
+            plhs = lhs_data[device_array(sp, "pair_a", device)]
+            prhs = rhs_data[device_array(sp, "pair_b", device)]
+            cases.append(Case(
+                "block_pair_gemm",
+                f"level{li} {tag} {sp.npairs} pairs ({br},{bk},{bc})",
+                lambda plhs=plhs, prhs=prhs: pair.block_pair_gemm(plhs, prhs),
+                lambda plhs=plhs, prhs=prhs: block_pair_gemm_ref(plhs, prhs),
+                nbytes=sp.npairs * (br * bk + bk * bc + br * bc) * 8,
+                flops=2 * sp.npairs * br * bk * bc,
+                library=lambda plhs=plhs, prhs=prhs: torch.bmm(plhs, prhs)))
             nbytes = (_unique_count(ta, tm) * br * bk * 8
                       + _unique_count(tb, tm) * bk * bc * 8
                       + ta.numel() * 9 + sp.tile_rows * br * bc * 8)
@@ -408,6 +639,57 @@ def _scalar_csr(ell):
         torch.stack([rows.reshape(-1), cols.reshape(-1)]), vals.reshape(-1),
         (ell.nbr * br, ell.nbc * bc))
     return coo.coalesce().to_sparse_csr()
+
+
+def check_bitwise(run: dict, device) -> dict:
+    """Each column of ``block_spmm`` is bitwise ``block_spmv`` of that
+    column, on every level operator and prolongator at every panel width;
+    a width-1 panel is bitwise the vector apply; each column of the panel
+    smoother step is bitwise the vector step."""
+    import torch
+
+    from repro_torch.core.spmv import apply_ell
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.kernels.fused_smoother import ops as smooth
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    f64 = dict(dtype=torch.float64, device=device)
+    checked = dict(spmm_columns=0, apply_width1=0, smoother_columns=0)
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bitwise equal (max diff "
+                                 f"{float((got - want).abs().max()):.3e})")
+
+    for li, lv in enumerate(run["solver"].hierarchy.levels):
+        for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell)):
+            for k in PANEL_KS + (1,):
+                X = torch.randn(ell.nbc, ell.bc, k, generator=gen, **f64)
+                Y = spmm.block_spmm_ell(ell.indices, ell.data, X)
+                for j in range(k):
+                    same(Y[:, :, j], spmv.block_spmv_ell(
+                        ell.indices, ell.data, X[:, :, j].contiguous()),
+                        f"block_spmm {tag}{li} k={k} column {j}")
+                    checked["spmm_columns"] += 1
+            x = torch.randn(ell.nbc * ell.bc, generator=gen, **f64)
+            same(apply_ell(ell, x[:, None])[:, 0], apply_ell(ell, x),
+                 f"width-1 panel apply {tag}{li}")
+            checked["apply_width1"] += 1
+        a, bs, k = lv.a_ell, lv.a_ell.br, PANEL_KS[0]
+        b, x, d = (torch.randn(a.nbr, bs, k, generator=gen, **f64)
+                   for _ in range(3))
+        coef = torch.tensor([0.3, 0.7], **f64)
+        xp, dp = smooth.smoother_step_ell(a.indices, a.data, lv.dinv, b, x,
+                                          d, coef)
+        for j in range(k):
+            xv, dv = smooth.smoother_step_ell(
+                a.indices, a.data, lv.dinv,
+                *(v[:, :, j].contiguous() for v in (b, x, d)), coef)
+            same(xp[:, :, j], xv, f"panel smoother A{li} column {j} x'")
+            same(dp[:, :, j], dv, f"panel smoother A{li} column {j} d'")
+            checked["smoother_columns"] += 1
+    return checked
 
 
 def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
@@ -493,6 +775,17 @@ def cpu_vs_cuda(m: int, coarse_size: int) -> dict:
                                  f"{rel:.3e}")
         out["iters"].append(rc["iters"])
         out["rel_diff"].append(rel)
+    # one k=4 panel solve on each side
+    B = np.random.default_rng(4).standard_normal((cpu["prob"].n, 4))
+    pc = cpu["solver"].solve_many(torch.as_tensor(B))
+    pg = gpu["solver"].solve_many(torch.as_tensor(B, device="cuda"))
+    if not torch.equal(pc.iters, pg.iters.cpu()):
+        raise AssertionError(f"k=4 panel: iterations {pc.iters.tolist()} on "
+                             f"CPU, {pg.iters.tolist()} on CUDA")
+    rel = _rel(pg.x, pc.x)
+    if not rel <= SOLUTION_TOL:
+        raise AssertionError(f"k=4 panel: solutions differ by {rel:.3e}")
+    out.update(panel_iters=pc.iters.tolist(), panel_rel_diff=rel)
     return out
 
 
@@ -514,10 +807,11 @@ def peaks_for(name: str) -> tuple:
     return PEAKS
 
 
-def kernel_record(per: dict, launches: dict, per_step: dict,
+def kernel_record(per: dict, by_path: dict, per_step: dict,
                   peaks: tuple) -> dict:
-    """The per-kernel JSON record: launches on the main path, the largest
-    error against the plain version, and times summed over the cases."""
+    """The per-kernel JSON record: launches summed over the paths (and per
+    path), the largest error against the plain version, and times summed
+    over the cases."""
     record = []
     for kname, meta in KERNELS.items():
         row = per[kname]
@@ -526,7 +820,9 @@ def kernel_record(per: dict, launches: dict, per_step: dict,
         by_bytes = row["bytes"] / peaks[0] >= row["flops"] / peaks[1]
         record.append(dict(
             name=kname, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[kname],
+            replaces=meta["replaces"],
+            launches=sum(p[kname] for p in by_path.values()),
+            launches_by_path={path: p[kname] for path, p in by_path.items()},
             launches_per_hot_step=sum(v[kname] for v in per_step.values()),
             cases=row["cases"], max_abs_err=row["max_abs_err"],
             max_rel_err=row["max_rel_err"], ms=row["ms"],
@@ -570,13 +866,21 @@ def main() -> int:
 
     reset_counts()
     run = main_path(MAIN_M, "cuda")
-    launches = read_counts()
+    by_path = {"main": read_counts()}
     check_main_path(run)
     per_step = run["records"][-1]["launches"]
-    print("main path launches " + json.dumps(launches))
+    print("main path launches " + json.dumps(by_path["main"]))
     print("launches per hot step " + json.dumps(per_step))
     profile_hot_step(run)
 
+    by_path["serve"] = serve_path(run, "cuda", EXPECT_ITERS)
+    check_path_launches("serve", by_path["serve"],
+                        ("block_spmm", "fused_smoother", "block_spmv"))
+    by_path["pairs"] = pairs_path(run, "cuda", EXPECT_ITERS)
+    check_path_launches("pairs", by_path["pairs"],
+                        ("block_pair_gemm", "block_seg_sum"))
+
+    print("bitwise per column " + json.dumps(check_bitwise(run, "cuda")))
     print(f"datasheet peaks: {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.1f} TFLOP/s fp64; measured copy_ "
           f"{copy_bandwidth() / 1e12:.3f} TB/s")
@@ -585,7 +889,7 @@ def main() -> int:
     check = cpu_vs_cuda(CHECK_M, CHECK_COARSE)
     print("cpu vs cuda " + json.dumps(check))
 
-    print(json.dumps(kernel_record(per, launches, per_step, peaks)))
+    print(json.dumps(kernel_record(per, by_path, per_step, peaks)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

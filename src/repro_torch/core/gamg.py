@@ -93,6 +93,11 @@ class GAMGSetup:
         return len(self.levels) + 1
 
     @property
+    def device(self) -> torch.device:
+        """Where the hierarchy lives: the device of the operators."""
+        return self.coarse_struct.data.device
+
+    @property
     def coarse_rows(self) -> np.ndarray:
         return self.coarse_struct.row_of_nnz()
 
@@ -271,3 +276,13 @@ class GAMGSolver:
         """Solve; ``x0`` warm-starts CG from a prior iterate."""
         return hier_solve(self.setup_data, self.hierarchy, b, x0,
                           rtol=self.rtol, maxiter=self.maxiter)
+
+    def solve_many(self, B: torch.Tensor, x0: torch.Tensor | None = None):
+        """Panel solve: ``B (n, k)`` -> ``BlockCGResult`` (per-column
+        masked PCG, one operator stream for all k columns).  ``x0``
+        warm-starts every column from a prior ``(n, k)`` panel.  Streams
+        of requests go through ``repro_torch.multirhs.AMGSolveServer``."""
+        from repro_torch.multirhs.block_krylov import make_block_solve
+        solve = make_block_solve(self.setup_data, rtol=self.rtol,
+                                 maxiter=self.maxiter)
+        return solve(self.hierarchy, B, x0)

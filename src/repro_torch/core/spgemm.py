@@ -16,6 +16,12 @@ numeric (device), ``path=`` resolved by ``repro_torch.kernels.backend``:
                  combined by the ``block_seg_sum`` kernel.  Neither the
                  gathered operands nor the ``(npairs, br, bc)`` products
                  are built.
+    "pairs"      the unfused ablation path (paper's PtAP ablation,
+                 ``benchmarks/table3_ptap_ablation.py`` in the reference):
+                 gathered ``(npairs, br, bk)`` / ``(npairs, bk, bc)``
+                 operands, the ``block_pair_gemm`` kernel's
+                 ``(npairs, br, bc)`` products, then the ``block_seg_sum``
+                 kernel over ``out_idx``.
     "reference"  gathered operands, einsum pair products and a sorted
                  segment sum over ``out_idx`` (the reference's CPU
                  default order); CPU only — raises on CUDA payloads.
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch.core.block_csr import BlockCSR, device_array
 from repro_torch.kernels import backend
+from repro_torch.kernels.block_pair_gemm import ops as pair_ops
 from repro_torch.kernels.block_seg_sum import ops as seg_ops
 from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops
 
@@ -203,7 +210,7 @@ def spgemm_numeric_data(plan: SpGEMMPlan, a_data: torch.Tensor,
                         b_data: torch.Tensor, *,
                         path: str | None = None) -> torch.Tensor:
     """Device numeric phase -> C.data, a pure function of the plan and the
-    values.  ``path`` is "fused" | "reference" (``None``: the
+    values.  ``path`` is "fused" | "pairs" | "reference" (``None``: the
     ``REPRO_TORCH_SPGEMM_PATH`` knob, default "fused"); "reference" is
     CPU-only."""
     dev = a_data.device
@@ -213,7 +220,10 @@ def spgemm_numeric_data(plan: SpGEMMPlan, a_data: torch.Tensor,
         return _fused_numeric(plan, a_data, b_data)
     lhs = a_data[device_array(plan, "pair_a", dev)]     # (npairs, br, bk)
     rhs = b_data[device_array(plan, "pair_b", dev)]     # (npairs, bk, bc)
-    prod = torch.einsum("pij,pjk->pik", lhs, rhs).contiguous()
+    if path == "pairs":
+        prod = pair_ops.block_pair_gemm(lhs, rhs)
+    else:
+        prod = torch.einsum("pij,pjk->pik", lhs, rhs).contiguous()
     return seg_ops.block_seg_sum(
         prod, device_array(plan, "pair_offsets", dev, torch.int32))
 

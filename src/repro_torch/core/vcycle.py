@@ -2,10 +2,12 @@
 Sec. 3.1).
 
 Expressed over the padded BlockELL layout: SpMV with the level operator
-and prolongation through the ``block_spmv`` kernel, transpose-free
-restriction off P's own blocks, pbjacobi-preconditioned Chebyshev (or
-damped block-Jacobi) smoothing — by default each recurrence step is one
-``fused_smoother`` kernel launch — and a dense Cholesky coarse solve.
+and prolongation through the ``block_spmv`` kernel (``block_spmm`` on
+panels), transpose-free restriction off P's own blocks,
+pbjacobi-preconditioned Chebyshev (or damped block-Jacobi) smoothing — by
+default each recurrence step is one ``fused_smoother`` kernel launch —
+and a dense Cholesky coarse solve.  Every step takes a vector ``(n,)`` or
+a column panel ``(n, k)``, so the multi-RHS solve runs this same cycle.
 Nothing in the cycle waits on the host: the Chebyshev coefficients are
 device scalars derived from the device ``lam_max``.
 """
@@ -47,9 +49,11 @@ def fine_operator(hier: Hierarchy) -> BlockELL:
 
 
 def pbjacobi_apply(dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Point-block Jacobi apply of a vector."""
+    """Point-block Jacobi apply; ``r`` is ``(n,)`` or a panel ``(n, k)``."""
     nbr, bs = dinv.shape[0], dinv.shape[1]
-    return torch.einsum("nab,nb->na", dinv, r.reshape(nbr, bs)).reshape(-1)
+    tail = tuple(r.shape[1:])
+    out = torch.einsum("nab,nb...->na...", dinv, r.reshape((nbr, bs) + tail))
+    return out.contiguous().reshape((nbr * bs,) + tail)
 
 
 def chebyshev_recurrence(spmv, pbj, lam_max, b, x, degree: int = 2,
@@ -166,7 +170,7 @@ def apply_restriction(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
 def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
            degree: int = 2) -> torch.Tensor:
     """One V(degree, degree) cycle with zero initial guess (the
-    preconditioner)."""
+    preconditioner), on a vector ``(n,)`` or a panel ``(n, k)``."""
     bs_stack, x_stack = [], []
     rhs = b
     for lv in hier.levels:
@@ -175,7 +179,11 @@ def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
         bs_stack.append(rhs)
         x_stack.append(x)
         rhs = apply_restriction(lv, r)
-    xc = torch.cholesky_solve(rhs[:, None], hier.coarse_chol)[:, 0]
+    # cholesky_solve returns column-major panels; the kernels take
+    # row-major (n, k) panels
+    xc = torch.cholesky_solve(rhs.reshape(rhs.shape[0], -1),
+                              hier.coarse_chol).contiguous().reshape(
+                                  rhs.shape)
     for lv, rhs_l, x in zip(reversed(hier.levels), reversed(bs_stack),
                             reversed(x_stack)):
         x = x + apply_ell(lv.p_ell, xc)          # prolong + correct

@@ -6,7 +6,7 @@ and absent, so nothing silently runs on the CPU.  The CPU runs only where a
 caller passes ``device="cpu"`` (the tests do), and there every kernel
 wrapper takes its plain PyTorch version.
 
-Kernel library.  The four hand-written kernels live in ``csrc/*.cu`` with a
+Kernel library.  The hand-written kernels live in ``csrc/*.cu`` with a
 plain C interface.  ``build_library`` compiles each source with its own
 ``nvcc -c`` for ``sm_90a`` (all started together), links them with one
 ``nvcc -shared`` into one ``.so`` keyed by a hash of the sources, under
@@ -19,9 +19,11 @@ Path knobs (re-read per call; the port's own variable names, so settings
 made for the JAX reference never reach it):
 
 * ``resolve_spgemm_path`` — numeric SpGEMM: ``"fused"`` (default; the
-  ``fused_pair_gemm`` kernel plus the ``block_seg_sum`` row-split combine)
-  or ``"reference"`` (einsum pair products + the plain segment sum, the
-  reference's CPU default order); ``REPRO_TORCH_SPGEMM_PATH`` forces it.
+  ``fused_pair_gemm`` kernel plus the ``block_seg_sum`` row-split combine),
+  ``"pairs"`` (the unfused ablation path: gathered operands, the
+  ``block_pair_gemm`` kernel, then ``block_seg_sum``) or ``"reference"``
+  (einsum pair products + the plain segment sum, the reference's CPU
+  default order); ``REPRO_TORCH_SPGEMM_PATH`` forces it.
 * ``resolve_smooth_path`` — V-cycle smoother: ``"fused"`` (default; the
   ``fused_smoother`` kernel) or ``"reference"`` (the unfused recurrences);
   ``REPRO_TORCH_SMOOTH_PATH`` forces it.
@@ -214,12 +216,12 @@ def check_kernel_args(name: str, floats: dict, ints: dict = None,
 # ---------------------------------------------------------------------------
 
 def _resolve_path(kind: str, var: str, device, path: str | None,
-                  hint: str = "") -> str:
+                  choices: tuple) -> str:
     if path is None:
         path = os.environ.get(var) or "fused"
-    if path not in ("fused", "reference"):
-        raise ValueError(f"invalid {kind} path {path!r}: expected 'fused' or "
-                         f"'reference' (from {var} or the path= knob{hint})")
+    if path not in choices:
+        raise ValueError(f"invalid {kind} path {path!r}: expected one of "
+                         f"{choices} (from {var} or the path= knob)")
     if path == "reference" and torch.device(device).type == "cuda":
         raise ValueError(f"the 'reference' {kind} path runs the plain "
                          f"versions and is CPU-only; on {device} the port "
@@ -230,9 +232,10 @@ def _resolve_path(kind: str, var: str, device, path: str | None,
 def resolve_spgemm_path(device, path: str | None = None) -> str:
     """Numeric SpGEMM path for payloads on ``device``."""
     return _resolve_path("SpGEMM", "REPRO_TORCH_SPGEMM_PATH", device, path,
-                         "; the 'pairs' path is not ported yet")
+                         ("fused", "pairs", "reference"))
 
 
 def resolve_smooth_path(device, path: str | None = None) -> str:
-    """V-cycle smoother path for vectors on ``device``."""
-    return _resolve_path("smoother", "REPRO_TORCH_SMOOTH_PATH", device, path)
+    """V-cycle smoother path for vectors or panels on ``device``."""
+    return _resolve_path("smoother", "REPRO_TORCH_SMOOTH_PATH", device, path,
+                         ("fused", "reference"))

@@ -1,0 +1,41 @@
+"""Wrapper of the batched block GEMM kernel (``csrc/block_pair_gemm.cu``).
+
+``repro_torch.core.spgemm`` runs the pair products of the unfused "pairs"
+numeric path through here (gather, this kernel, then ``block_seg_sum``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import backend
+from repro_torch.kernels.block_pair_gemm.ref import block_pair_gemm_ref
+
+SHAPES = ((3, 3, 6), (6, 3, 6), (6, 6, 6))
+_ARGS = (backend.P,) * 3 + (backend.I,) * 4 + (backend.P,)
+
+#: kernel launches since the last reset (plain-version calls do not count)
+launches = 0
+
+
+def block_pair_gemm(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``(npairs, br, bk) @ (npairs, bk, bc)`` -> ``(npairs, br, bc)``.
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    global launches
+    name = "block_pair_gemm"
+    if lhs.ndim != 3 or rhs.ndim != 3 or lhs.shape[0] != rhs.shape[0] \
+            or lhs.shape[2] != rhs.shape[1]:
+        raise ValueError(f"{name}: shapes {tuple(lhs.shape)} @ "
+                         f"{tuple(rhs.shape)} disagree")
+    if not backend.on_cuda(name, lhs=lhs, rhs=rhs):
+        return block_pair_gemm_ref(lhs, rhs)
+    npairs, br, bk = lhs.shape
+    bc = rhs.shape[2]
+    if (br, bk, bc) not in SHAPES:
+        raise ValueError(f"{name}: block shapes {(br, bk)} @ {(bk, bc)} "
+                         f"have no kernel instantiation (have {SHAPES})")
+    backend.check_kernel_args(name, dict(lhs=lhs, rhs=rhs))
+    out = torch.empty((npairs, br, bc), dtype=lhs.dtype, device=lhs.device)
+    backend.launch("repro_block_pair_gemm_f64", _ARGS, backend.ptr(lhs),
+                   backend.ptr(rhs), backend.ptr(out), npairs, br, bk, bc)
+    launches += 1
+    return out

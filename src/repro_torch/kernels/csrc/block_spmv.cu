@@ -10,12 +10,13 @@
 // flop-per-byte balance); x blocks are gathered (mostly from L2) and y is
 // written once.  Design (first, plain): one thread per block row loops over
 // its kmax slots, gathers the bc-wide x block by the slot's index, and
-// accumulates br outputs in registers with FMAs.  Padded slots are zero
-// blocks pointing at column 0, so they add exact zeros and need no mask.
+// accumulates br outputs in registers with FMAs (ell_row_apply, shared
+// with block_spmm and fused_smoother).  Padded slots are zero blocks
+// pointing at column 0, so they add exact zeros and need no mask.
 // Thread-per-row reads each row's payload with a stride of kmax*br*bc
 // doubles between neighbouring threads, and wide, short coarse levels
 // launch few threads: a later redesign maps a warp to a row.
-#include "common.cuh"
+#include "ell_row.cuh"
 
 namespace {
 
@@ -27,22 +28,10 @@ __global__ void spmv_kernel(const int* __restrict__ idx,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nbr) return;
   double acc[BR];
-#pragma unroll
-  for (int a = 0; a < BR; ++a) acc[a] = 0.0;
-  const int* ri = idx + static_cast<long long>(r) * kmax;
-  const double* rd = data + static_cast<long long>(r) * kmax * BR * BC;
-  for (int k = 0; k < kmax; ++k) {
-    const double* xb = x + static_cast<long long>(ri[k]) * BC;
-    double xv[BC];
-#pragma unroll
-    for (int b = 0; b < BC; ++b) xv[b] = xb[b];
-    const double* blk = rd + static_cast<long long>(k) * BR * BC;
-#pragma unroll
-    for (int a = 0; a < BR; ++a) {
-#pragma unroll
-      for (int b = 0; b < BC; ++b) acc[a] = fma(blk[a * BC + b], xv[b], acc[a]);
-    }
-  }
+  repro::ell_row_apply<BR, BC>(idx + static_cast<long long>(r) * kmax,
+                               data + static_cast<long long>(r) * kmax * BR *
+                                          BC,
+                               x, 1, kmax, acc);
   double* yr = y + static_cast<long long>(r) * BR;
 #pragma unroll
   for (int a = 0; a < BR; ++a) yr[a] = acc[a];

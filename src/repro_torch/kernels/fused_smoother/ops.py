@@ -1,7 +1,8 @@
 """Wrapper of the fused smoother step kernel (``csrc/fused_smoother.cu``).
 
 ``repro_torch.core.vcycle.apply_smoother`` dispatches here on the fused
-smoother path (the default).
+smoother path (the default), for vectors and for the multi-RHS solve's
+``(n, k)`` panels (one entry point each in the CUDA source).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
 
 SHAPES = (3, 6)
 _ARGS = (backend.P,) * 9 + (backend.I,) * 3 + (backend.P,)
+_PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 4 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -22,10 +24,11 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                       dinv: torch.Tensor, b_blocks: torch.Tensor,
                       x_blocks: torch.Tensor, d_blocks: torch.Tensor,
                       coef: torch.Tensor):
-    """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors; A
-    square in padded BlockELL form, ``dinv (nbr, bs, bs)``, ``coef`` a
-    two-element device tensor ``[c1, c2]``.  ``x'`` is a new tensor (out of
-    place).  CPU tensors take the plain version; CUDA tensors the kernel."""
+    """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors or
+    ``(nbr, bs, k)`` panels; A square in padded BlockELL form, ``dinv
+    (nbr, bs, bs)``, ``coef`` a two-element device tensor ``[c1, c2]``
+    shared by all columns.  ``x'`` is a new tensor (out of place).  CPU
+    tensors take the plain version; CUDA tensors the kernel."""
     global launches
     name = "fused_smoother"
     if not backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
@@ -36,8 +39,10 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     if bs != bs2 or bs not in SHAPES:
         raise ValueError(f"{name}: block shape {(bs, bs2)} has no kernel "
                          f"instantiation (square, bs in {SHAPES})")
-    vec = (nbr, bs)
-    if (tuple(indices.shape) != (nbr, kmax)
+    vec = tuple(b_blocks.shape)
+    if (len(vec) not in (2, 3) or vec[:2] != (nbr, bs)
+            or (len(vec) == 3 and vec[2] <= 0)
+            or tuple(indices.shape) != (nbr, kmax)
             or tuple(dinv.shape) != (nbr, bs, bs)
             or any(tuple(v.shape) != vec for v in (b_blocks, x_blocks,
                                                     d_blocks))
@@ -50,17 +55,23 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     x_new = torch.empty(vec, dtype=data.dtype, device=data.device)
     d_new = torch.empty(vec, dtype=data.dtype, device=data.device)
     p = backend.ptr
-    backend.launch("repro_fused_smoother_f64", _ARGS, p(indices), p(data),
-                   p(dinv), p(b_blocks), p(x_blocks), p(d_blocks), p(coef),
-                   p(x_new), p(d_new), nbr, kmax, bs)
+    ptrs = (p(indices), p(data), p(dinv), p(b_blocks), p(x_blocks),
+            p(d_blocks), p(coef), p(x_new), p(d_new))
+    if len(vec) == 2:
+        backend.launch("repro_fused_smoother_f64", _ARGS, *ptrs, nbr, kmax,
+                       bs)
+    else:
+        backend.launch("repro_fused_smoother_panel_f64", _PANEL_ARGS, *ptrs,
+                       nbr, kmax, bs, vec[2])
     launches += 1
     return x_new, d_new
 
 
 def smoother_step(a_ell: BlockELL, dinv: torch.Tensor, b: torch.Tensor,
                   x: torch.Tensor, d: torch.Tensor, coef: torch.Tensor):
-    """The fused step on flat ``(n,)`` vectors; returns ``(x', d')``."""
-    shape = (a_ell.nbr, a_ell.br)
+    """The fused step on flat ``(n,)`` vectors or ``(n, k)`` panels;
+    returns ``(x', d')``."""
+    shape = (a_ell.nbr, a_ell.br) + tuple(b.shape[1:])
     x_new, d_new = smoother_step_ell(a_ell.indices, a_ell.data, dinv,
                                      b.reshape(shape), x.reshape(shape),
                                      d.reshape(shape), coef)

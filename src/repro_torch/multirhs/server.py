@@ -1,0 +1,263 @@
+"""Hierarchy-reusing solve server: request streams -> bucketed panel solves
+(torch twin of ``repro.multirhs.server``).
+
+One cold ``GAMGSetup`` serves many solves — load cases, client requests,
+Newton steps.  The server accepts a stream of right-hand sides against the
+cached hierarchy and drains it in panels:
+
+* requests are batched into column panels padded up to a small set of
+  bucket widths (default k in {1, 2, 4, 8, 16});
+* padding columns are zero vectors — inactive from the first masked-PCG
+  iteration, they cost panel columns but no extra iterations;
+* each request gets back its own column, iteration count and relative
+  residual (the per-column masking keeps those equal to a dedicated
+  single-RHS solve);
+* ``update_operator`` refreshes the hierarchy through the hot recompute
+  (new values, same structure) without touching the buckets.
+
+Requests arrive as numpy f64 and reports return numpy; each panel is
+built on the host and moved to the setup's device once per batch, and the
+panel solve runs there (on CUDA through the ``block_spmm`` and panel
+``fused_smoother`` kernels).
+
+A malformed request — wrong shape, a payload that does not convert to the
+panel dtype, or non-finite values — is rejected at ``submit`` with a
+``ValueError`` before it can poison a panel.  Corruption that arises in
+flight is quarantined per column by the masked PCG's health flags: the
+column's report says ``status="degraded"`` (usable best iterate) or
+``status="failed"`` (solution zeroed), and its neighbours finish
+untouched.  Not ported yet, and refused with a ``ValueError`` when asked
+for: ``recover=`` (the bounded retry of flagged columns, ROADMAP Queue 1
+item 7) and ``assembler=`` with ``update_coefficients`` (device assembly,
+Queue 1 item 2).
+"""
+from __future__ import annotations
+
+import time
+from typing import Hashable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import gamg
+from repro_torch.multirhs.block_krylov import make_block_solve
+from repro_torch.obs.server_metrics import ServerMetrics
+from repro_torch.robust.health import (
+    BREAKDOWN,
+    HEALTHY,
+    NONFINITE,
+    STATUS_NAMES,
+)
+
+
+class SolveReport(NamedTuple):
+    request_id: Hashable
+    x: np.ndarray         # (n,) solution for this request
+    iters: int
+    relres: float
+    converged: bool
+    k_bucket: int         # panel width the request was served in
+    status: str = "ok"    # "ok" | "degraded" | "failed"
+    health: int = HEALTHY  # raw health code (STATUS_NAMES)
+    # submit -> report latency, submit -> batch-start wait, and — when the
+    # server records history — this request's per-iteration residual
+    # norms ((maxiter,), NaN past its final iteration)
+    latency_s: float = 0.0
+    queue_wait_s: float = 0.0
+    history: "np.ndarray | None" = None
+
+
+class AMGSolveServer:
+    """Setup-once, serve-many front end over a cached GAMG hierarchy; runs
+    on the device of the setup's operators."""
+
+    def __init__(self, setupd: gamg.GAMGSetup, a_fine_data, *,
+                 buckets: Sequence[int] = (1, 2, 4, 8, 16),
+                 rtol: float = 1e-8, maxiter: int = 200,
+                 assembler=None, recover=None,
+                 record_history: bool = False):
+        if recover is not None:
+            raise ValueError(
+                "recover= is not ported yet: the bounded retry of flagged "
+                "columns waits for robust/recover.py (ROADMAP Queue 1 item "
+                "7)")
+        if assembler is not None:
+            raise ValueError(
+                "assembler= is not ported yet: device assembly and "
+                "update_coefficients wait for ROADMAP Queue 1 item 2")
+        buckets_in = [int(k) for k in buckets]
+        if not buckets_in:
+            raise ValueError("buckets must be a non-empty sequence of "
+                             "panel widths")
+        if min(buckets_in) < 1:
+            raise ValueError(f"bucket widths must be positive ints, got "
+                             f"{buckets_in}")
+        if len(set(buckets_in)) != len(buckets_in):
+            raise ValueError(f"duplicate bucket widths in {buckets_in}: "
+                             f"list each width once")
+        self.setupd = setupd
+        self.buckets = tuple(sorted(buckets_in))
+        self.n = int(setupd.stats["level_rows"][0])
+        self.device = setupd.device
+        # panels are assembled at the policy's Krylov dtype: every rhs is
+        # cast to it at submit, so no request's dtype decides the panel's
+        self.dtype = torch.empty(
+            (), dtype=setupd.precision.krylov_dtype).numpy().dtype
+        self._record_history = bool(record_history)
+        self._solve = make_block_solve(setupd, rtol=rtol, maxiter=maxiter,
+                                       record_history=self._record_history)
+        self.hierarchy = gamg.recompute(setupd, self._on_device(a_fine_data))
+        self._pending: List[tuple] = []
+        self._next_id = 0
+        self.stats = {
+            "requests": 0, "batches": 0, "padded_columns": 0,
+            "recomputes": 0, "coefficient_updates": 0,
+            "solves_per_k": {k: 0 for k in self.buckets},
+            "rejected": 0, "degraded": 0, "failed": 0, "recovered": 0,
+        }
+        self._metrics = ServerMetrics(self.buckets)
+
+    def _on_device(self, a) -> torch.Tensor:
+        dtype = self.setupd.precision.hierarchy_dtype
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=dtype)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # ---- observability ---------------------------------------------------
+    def metrics(self) -> ServerMetrics:
+        """The server's measurement surface (latency/padding histograms,
+        outcome counters; export via ``.to_prometheus()``/``.to_jsonl()``)."""
+        return self._metrics
+
+    def snapshot(self) -> dict:
+        """One plain-dict health/throughput summary (dashboard poll)."""
+        return self._metrics.snapshot()
+
+    # ---- operator lifecycle ---------------------------------------------
+    def update_operator(self, a_fine_data) -> None:
+        """Hot path: new fine values, same structure (the PtAP chain)."""
+        a = self._on_device(a_fine_data)
+        with self._metrics.registry.timer("server/recompute_seconds") as t:
+            self.hierarchy = t.block(gamg.recompute(self.setupd, a))
+        self.stats["recomputes"] += 1
+
+    # ---- request stream --------------------------------------------------
+    def _reject(self, msg: str, cause=None):
+        self.stats["rejected"] += 1
+        self._metrics.rejected.inc()
+        raise ValueError(msg) from cause
+
+    def submit(self, b, request_id: Optional[Hashable] = None) -> Hashable:
+        """Queue one right-hand side; returns its request id.
+
+        A rhs that is the wrong shape, does not convert to the panel
+        dtype, or carries NaN/Inf is rejected here with a ``ValueError``.
+        """
+        try:
+            b = np.asarray(b, dtype=self.dtype)
+        except (TypeError, ValueError) as e:
+            self._reject(f"rhs does not convert to the panel dtype "
+                         f"{self.dtype}: {e}", e)
+        if b.shape != (self.n,):
+            self._reject(f"rhs shape {b.shape} != ({self.n},)")
+        if not np.isfinite(b).all():
+            self._reject(f"rhs contains {int((~np.isfinite(b)).sum())} "
+                         f"non-finite values — rejected before panel "
+                         f"assembly")
+        if request_id is None:
+            request_id = self._next_id
+            self._next_id += 1
+        self._pending.append((request_id, b, time.perf_counter()))
+        self._metrics.requests.inc()
+        self._metrics.pending.set(len(self._pending))
+        return request_id
+
+    def _bucket_for(self, count: int) -> int:
+        """Smallest bucket width holding ``count`` columns; a count above
+        the largest bucket raises (``flush`` never makes one)."""
+        if count < 1:
+            raise ValueError(f"chunk must hold at least one request, "
+                             f"got {count}")
+        if count > self.buckets[-1]:
+            raise ValueError(f"chunk of {count} requests exceeds the "
+                             f"largest bucket width {self.buckets[-1]}")
+        return next(k for k in self.buckets if k >= count)
+
+    @staticmethod
+    def _classify(code: int, converged: bool) -> str:
+        if code == HEALTHY and converged:
+            return "ok"
+        if code in (BREAKDOWN, NONFINITE):
+            return "failed"
+        return "degraded"       # maxiter / stagnation: best iterate usable
+
+    def flush(self) -> List[SolveReport]:
+        """Drain the queue: bucketed, padded panel solves; one report per
+        request, in submission order.
+
+        A flagged column degrades or fails its own report only.  Failed
+        columns return zeros, degraded columns their best iterate; neither
+        carries a NaN.  ``queue_wait_s`` runs from submit to the batch
+        starting, ``latency_s`` from submit to the report.
+        """
+        reports: List[SolveReport] = []
+        kmax = self.buckets[-1]
+        while self._pending:
+            chunk = self._pending[:kmax]
+            del self._pending[:kmax]
+            self._metrics.pending.set(len(self._pending))
+            t_batch = time.perf_counter()
+            k = self._bucket_for(len(chunk))
+            B = np.zeros((self.n, k), self.dtype)
+            for j, (_, b, _) in enumerate(chunk):
+                B[:, j] = b
+            out = self._solve(self.hierarchy,
+                              torch.from_numpy(B).to(self.device))
+            res, hist = out if self._record_history else (out, None)
+            x = res.x.cpu().numpy()
+            iters = res.iters.cpu().numpy()
+            relres = res.relres.cpu().numpy()
+            conv = res.converged.cpu().numpy()
+            codes = res.health.status.cpu().numpy()
+            hist_np = None if hist is None else hist.cpu().numpy()
+            # every result is on the host now: the clock stop is honest
+            solve_s = time.perf_counter() - t_batch
+            for j, (rid, _, t_sub) in enumerate(chunk):
+                code = int(codes[j])
+                status = self._classify(code, bool(conv[j]))
+                x_j = x[:, j]
+                if status == "failed":
+                    # explicit failure: never hand back a maybe-iterate
+                    x_j = np.zeros_like(x_j)
+                elif not np.isfinite(x_j).all():  # pragma: no cover
+                    # the masked PCG keeps flagged columns finite; if that
+                    # ever breaks, fail the report rather than leak a NaN
+                    status, x_j = "failed", np.zeros_like(x_j)
+                if status != "ok":
+                    self.stats[status] += 1
+                queue_wait = t_batch - t_sub
+                latency = time.perf_counter() - t_sub
+                it_j = int(iters[j])
+                self._metrics.record_request(status, it_j, queue_wait,
+                                             latency)
+                reports.append(SolveReport(
+                    request_id=rid, x=x_j, iters=it_j,
+                    relres=float(relres[j]), converged=bool(conv[j]),
+                    k_bucket=k, status=status, health=code,
+                    latency_s=latency, queue_wait_s=queue_wait,
+                    history=None if hist_np is None else hist_np[:, j]))
+            self.stats["requests"] += len(chunk)
+            self.stats["batches"] += 1
+            self.stats["padded_columns"] += k - len(chunk)
+            self.stats["solves_per_k"][k] += 1
+            self._metrics.record_batch(k, len(chunk), solve_s)
+        return reports
+
+    def serve(self, rhs_list: Sequence) -> List[SolveReport]:
+        """Convenience: submit a batch of RHS vectors and flush."""
+        for b in rhs_list:
+            self.submit(b)
+        return self.flush()
+
+
+__all__ = ["AMGSolveServer", "SolveReport", "STATUS_NAMES"]

@@ -12,8 +12,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.gamg import GAMGSolver  # noqa: E402
 from repro_torch.fem.assemble import assemble_elasticity  # noqa: E402
+from repro_torch.kernels.block_pair_gemm import ops as pair_ops  # noqa
+from repro_torch.kernels.block_pair_gemm.ref import \
+    block_pair_gemm_ref  # noqa: E402
 from repro_torch.kernels.block_seg_sum import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref  # noqa
+from repro_torch.kernels.block_spmm import ops as spmm_ops  # noqa: E402
+from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref  # noqa
 from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref  # noqa
 from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa
@@ -107,6 +112,106 @@ def test_pair_gemm_kernel(dev, br, bk, bc):
     got = _launch_once(gemm_ops, lambda: gemm_ops.fused_pair_gemm(
         a, b, ta, tb, mask))
     _close(got, fused_pair_gemm_ref(a, b, ta, tb, mask))
+
+
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
+@pytest.mark.parametrize("k", [2, 5, 16])
+def test_spmm_kernel_bitwise_per_column(dev, br, bc, k):
+    """Each panel column is bitwise ``block_spmv`` of that column."""
+    g = torch.Generator(device=dev).manual_seed(40 + br * bc + k)
+    idx = torch.randint(0, 40, (70, 9), generator=g, device=dev,
+                        dtype=torch.int32)
+    data = torch.randn(70, 9, br, bc, generator=g, dtype=torch.float64,
+                       device=dev)
+    x = torch.randn(40, bc, k, generator=g, dtype=torch.float64, device=dev)
+    got = _launch_once(spmm_ops, lambda: spmm_ops.block_spmm_ell(
+        idx, data, x))
+    _close(got, block_spmm_ell_ref(idx, data, x))
+    for j in range(k):
+        col = spmv_ops.block_spmv_ell(idx, data, x[:, :, j].contiguous())
+        assert torch.equal(got[:, :, j], col)
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+def test_smoother_panel_kernel_bitwise_per_column(dev, bs):
+    g = torch.Generator(device=dev).manual_seed(50 + bs)
+    f64 = dict(dtype=torch.float64, device=dev)
+    idx = torch.randint(0, 60, (60, 7), generator=g, device=dev,
+                        dtype=torch.int32)
+    a, dinv = (torch.randn(60, 7, bs, bs, generator=g, **f64),
+               torch.randn(60, bs, bs, generator=g, **f64))
+    b, x, d = (torch.randn(60, bs, 6, generator=g, **f64) for _ in range(3))
+    coef = torch.tensor([0.25, 0.8], **f64)
+    args = (idx, a, dinv, b, x, d, coef)
+    got = _launch_once(smooth_ops,
+                       lambda: smooth_ops.smoother_step_ell(*args))
+    _close(got, smoother_step_ref(*args))
+    for j in range(6):
+        xj, dj = smooth_ops.smoother_step_ell(
+            idx, a, dinv, *(v[:, :, j].contiguous() for v in (b, x, d)),
+            coef)
+        assert torch.equal(got[0][:, :, j], xj)
+        assert torch.equal(got[1][:, :, j], dj)
+
+
+@pytest.mark.parametrize("br,bk,bc", [(3, 3, 6), (6, 3, 6), (6, 6, 6)])
+def test_block_pair_gemm_kernel(dev, br, bk, bc):
+    g = torch.Generator(device=dev).manual_seed(60 + br + bk + bc)
+    f64 = dict(dtype=torch.float64, device=dev)
+    lhs = torch.randn(1000, br, bk, generator=g, **f64)
+    rhs = torch.randn(1000, bk, bc, generator=g, **f64)
+    got = _launch_once(pair_ops, lambda: pair_ops.block_pair_gemm(lhs, rhs))
+    _close(got, block_pair_gemm_ref(lhs, rhs))
+
+
+def test_empty_panel_raises(dev):
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    data = torch.zeros((4, 2, 3, 3), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="k >= 1"):
+        spmm_ops.block_spmm_ell(idx, data, torch.zeros(
+            (1, 3, 0), dtype=torch.float64, device=dev))
+
+
+def test_panel_solve_on_card_matches_cpu_and_vector(dev):
+    """``solve_many`` on the card: per-column iterations equal the CPU
+    panel and the card's vector solves; a width-1 panel is bitwise the
+    vector apply."""
+    B_host = None
+    runs = {}
+    for d in ("cpu", dev):
+        prob = assemble_elasticity(7, device=d)
+        solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+        if B_host is None:
+            B_host = np.random.default_rng(7).standard_normal((prob.n, 4))
+        B = torch.as_tensor(B_host).to(d)
+        runs[str(d)] = (solver, B, solver.solve_many(B))
+    (_, _, r_cpu), (solver, B, r_gpu) = runs.values()
+    assert torch.equal(r_cpu.iters, r_gpu.iters.cpu())
+    x_cpu, x_gpu = r_cpu.x, r_gpu.x.cpu()
+    assert float((x_cpu - x_gpu).norm() / x_cpu.norm()) <= 1e-9
+    for j in range(4):
+        v = solver.solve(B[:, j].contiguous())
+        assert v.iters == int(r_gpu.iters[j])
+    from repro_torch.core.spmv import apply_ell
+    a = solver.hierarchy.levels[0].a_ell
+    assert torch.equal(apply_ell(a, B[:, :1].contiguous())[:, 0],
+                       apply_ell(a, B[:, 0].contiguous()))
+
+
+def test_pairs_path_matches_fused_on_card(dev, monkeypatch):
+    prob = assemble_elasticity(7, device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+    a = prob.reassemble(1.2).data
+    solver.update_operator(a)
+    fused = solver.hierarchy
+    monkeypatch.setenv("REPRO_TORCH_SPGEMM_PATH", "pairs")
+    before = pair_ops.launches
+    solver.update_operator(a)
+    assert pair_ops.launches > before
+    for f, p in zip(fused.levels, solver.hierarchy.levels):
+        _close(p.a_ell.data, f.a_ell.data)
+        _close(p.dinv, f.dinv)
+    _close(solver.hierarchy.coarse_chol, fused.coarse_chol)
 
 
 def test_unsupported_block_shape_raises(dev):

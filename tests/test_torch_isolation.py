@@ -14,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.block_pair_gemm import ops as pair_ops  # noqa
 from repro_torch.kernels.block_seg_sum import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.block_spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
@@ -95,12 +97,21 @@ def _cpu_calls():
             t((4, 3)), t((2,)))),
         (gemm_ops, lambda: gemm_ops.fused_pair_gemm(
             t((3, 6, 3)), t((2, 3, 6)), idx, idx, mask)),
+        (spmm_ops, lambda: spmm_ops.block_spmm_ell(idx, t((4, 2, 3, 6)),
+                                                   t((1, 6, 5)))),
+        (smooth_ops, lambda: smooth_ops.smoother_step_ell(
+            idx, t((4, 2, 3, 3)), t((4, 3, 3)), t((4, 3, 5)), t((4, 3, 5)),
+            t((4, 3, 5)), t((2,)))),
+        (pair_ops, lambda: pair_ops.block_pair_gemm(t((7, 6, 3)),
+                                                    t((7, 3, 6)))),
     ]
 
 
-@pytest.mark.parametrize("i", range(4), ids=["block_seg_sum", "block_spmv",
+@pytest.mark.parametrize("i", range(7), ids=["block_seg_sum", "block_spmv",
                                              "fused_smoother",
-                                             "fused_pair_gemm"])
+                                             "fused_pair_gemm", "block_spmm",
+                                             "fused_smoother_panel",
+                                             "block_pair_gemm"])
 def test_cpu_calls_take_the_plain_version_and_count_nothing(i):
     mod, call = _cpu_calls()[i]
     before = mod.launches
@@ -121,7 +132,10 @@ def test_other_devices_and_mixed_devices_raise():
 
 def test_path_knobs_validate(monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_SPGEMM_PATH", "pairs")
-    with pytest.raises(ValueError, match="not ported yet"):
+    assert backend.resolve_spgemm_path("cpu") == "pairs"
+    assert backend.resolve_spgemm_path("cuda") == "pairs"
+    monkeypatch.setenv("REPRO_TORCH_SPGEMM_PATH", "bogus")
+    with pytest.raises(ValueError, match="SpGEMM path"):
         backend.resolve_spgemm_path("cpu")
     monkeypatch.setenv("REPRO_TORCH_SMOOTH_PATH", "bogus")
     with pytest.raises(ValueError, match="smoother path"):

@@ -1,7 +1,7 @@
-"""Plain versions of the port's four kernels against the JAX package's
-Pallas kernels (interpret mode) and their ``ref.py`` oracles, at the main
-path's block shapes.  The CUDA kernels themselves are held against these
-plain versions on the card by ``chip_smoke.py``."""
+"""Plain versions of the port's kernels against the JAX package's Pallas
+kernels (interpret mode) and their ``ref.py`` oracles, at the paths'
+block shapes.  The CUDA kernels themselves are held against these plain
+versions on the card by ``chip_smoke.py``."""
 import numpy as np
 import pytest
 
@@ -12,7 +12,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.spgemm import spgemm_numeric_data as ref_spgemm  # noqa: E402
 from repro.core.spgemm import spgemm_symbolic as ref_symbolic  # noqa: E402
+from repro.core.block_csr import BlockELL as RefELL  # noqa: E402
+from repro.core.spmv import spmm_ell as ref_spmm_ell  # noqa: E402
+from repro.kernels.block_pair_gemm.block_pair_gemm import (  # noqa: E402
+    block_pair_gemm as pl_pair,
+)
 from repro.kernels.block_seg_sum.ops import block_seg_sum as pl_seg  # noqa
+from repro.kernels.block_spmm.block_spmm import block_spmm_ell as pl_spmm  # noqa
 from repro.kernels.block_seg_sum.ref import block_seg_sum_ref as jnp_seg  # noqa
 from repro.kernels.block_spmv.block_spmv import block_spmv_ell as pl_spmv  # noqa
 from repro.kernels.block_spmv.ref import block_spmv_ell_ref as jnp_spmv  # noqa
@@ -31,7 +37,9 @@ from repro.kernels.fused_smoother.ref import (  # noqa: E402
 
 from repro_torch.core import spgemm as t_spgemm  # noqa: E402
 from repro_torch.interop import bcsr_from_numpy  # noqa: E402
+from repro_torch.kernels.block_pair_gemm import ops as pair_ops  # noqa
 from repro_torch.kernels.block_seg_sum import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.block_spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
@@ -82,6 +90,52 @@ def test_spmv_plain_matches_pallas_and_ref(br, bc):
     assert_close(got, jnp_spmv(ell.indices, ell.data, jnp.asarray(x)))
     assert_close(got, pl_spmv(ell.indices, ell.data, jnp.asarray(x),
                               interpret=True))
+
+
+@pytest.mark.parametrize("br,bc", BLOCKS)
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_spmm_plain_matches_pallas_and_spmm_ell(br, bc, k):
+    rng = np.random.default_rng(150 + br * 10 + bc + k)
+    A = random_bcsr(rng, 23, 17, br, bc, density=0.3)
+    ell = A.to_ell()
+    x = rng.standard_normal((A.nbc, bc, k))
+    got = spmm_ops.block_spmm_ell(_t(ell.indices, torch.int32),
+                                  _t(ell.data), _t(x))
+    assert got.shape == (A.nbr, br, k)
+    assert_close(got, pl_spmm(ell.indices, ell.data, jnp.asarray(x),
+                              interpret=True))
+    want = ref_spmm_ell(RefELL(indices=ell.indices, data=ell.data,
+                               mask=ell.mask, nbc=ell.nbc),
+                        jnp.asarray(x.reshape(A.nbc * bc, k)))
+    assert_close(got.reshape(A.nbr * br, k), want)
+
+
+@pytest.mark.parametrize("br,bk,bc", PRODUCTS)
+def test_block_pair_gemm_plain_matches_pallas(br, bk, bc):
+    rng = np.random.default_rng(250 + br * 100 + bk * 10 + bc)
+    lhs = rng.standard_normal((301, br, bk))
+    rhs = rng.standard_normal((301, bk, bc))
+    got = pair_ops.block_pair_gemm(_t(lhs), _t(rhs))
+    assert_close(got, pl_pair(jnp.asarray(lhs), jnp.asarray(rhs),
+                              interpret=True))
+    assert_close(got, np.einsum("pij,pjk->pik", lhs, rhs))
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+def test_smoother_panel_plain_matches_pallas(bs):
+    rng = np.random.default_rng(220 + bs)
+    A = random_bcsr(rng, 19, 19, bs, bs, density=0.3, ensure_diag=True)
+    ell = A.to_ell()
+    dinv = rng.standard_normal((19, bs, bs))
+    b, x, d = (rng.standard_normal((19, bs, 5)) for _ in range(3))
+    coef = np.array([0.4, -1.3])
+    got = smooth_ops.smoother_step_ell(
+        _t(ell.indices, torch.int32), _t(ell.data), _t(dinv), _t(b), _t(x),
+        _t(d), _t(coef))
+    want = pl_smooth(ell.indices, ell.data, *(
+        jnp.asarray(a) for a in (dinv, b, x, d, coef)), interpret=True)
+    assert_close(got[0], want[0])
+    assert_close(got[1], want[1])
 
 
 @pytest.mark.parametrize("bs", [3, 6])
@@ -152,3 +206,19 @@ def test_fused_spgemm_with_row_splits_matches_pallas(br, bk, bc):
         got = t_spgemm.spgemm_numeric_data(tplan, tA.data, tB.data,
                                            path=path)
         assert_close(got, want)
+
+
+@pytest.mark.parametrize("br,bk,bc", PRODUCTS)
+def test_pairs_spgemm_matches_reference(br, bk, bc):
+    """The "pairs" numeric path (gather, ``block_pair_gemm``,
+    ``block_seg_sum``) against the reference's unfused einsum +
+    ``segment_sum`` path."""
+    rng = np.random.default_rng(500 + br * 100 + bk * 10 + bc)
+    A, B = _product(rng, br, bk, bc, skew=True)
+    plan = ref_symbolic(A, B)
+    tA = bcsr_from_numpy(**bcsr_dict(A), device="cpu")
+    tB = bcsr_from_numpy(**bcsr_dict(B), device="cpu")
+    tplan = t_spgemm.spgemm_symbolic(tA, tB)
+    want = ref_spgemm(plan, A.data, B.data, path="reference")
+    got = t_spgemm.spgemm_numeric_data(tplan, tA.data, tB.data, path="pairs")
+    assert_close(got, want)
