@@ -5,10 +5,12 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the six hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc`` and drives three paths of the port on the paper's configuration
-``ElasticityConfig(m=32)``, each with the launch counts set to 0 just
-before it and read just after:
+It builds the seven hand-written CUDA kernels from ``src/repro_torch/
+kernels/csrc`` and drives four paths of the port on the paper's
+configuration ``ElasticityConfig(m=32)``, each with the launch counts set
+to 0 just before it and read just after.  The autotuner's cache is a fresh
+temporary file (``REPRO_TORCH_TUNE_CACHE``), and the first three paths run
+with ``REPRO_TORCH_TUNE=off`` (the static 256-thread launch):
 
 1. the main path — blocked-COO assembly, cold GAMG setup, then 3 hot steps
    of reassembly, ``update_operator`` (the PtAP chain) and the AMG-PCG
@@ -20,28 +22,43 @@ before it and read just after:
 3. the pairs path — one ``update_operator`` on the unfused "pairs" SpGEMM
    path (``REPRO_TORCH_SPGEMM_PATH=pairs``), held against the fused
    hierarchy (1e-12) and solved (13 iterations), with its peak memory
-   beside the fused recompute's.
+   beside the fused recompute's;
+4. the tune path — the kernel autotuner (``repro_torch.kernels.autotune``)
+   sweeps the ``threads`` knob of every (family, signature) the main and
+   serve paths launched, plus ``pbjacobi`` at every level's ``dinv``
+   shape, records the winners, and runs the CLI's ``smoke`` round trip
+   on the card.
 
 It checks that each kernel ran on its path, then holds every kernel
 against its plain PyTorch version at the paths' shapes (max relative error
 1e-12 at f64; kernels reorder sums), checks that ``block_spmm`` and the
 panel ``fused_smoother`` are bitwise per column against ``block_spmv`` and
 the vector step, times kernel, plain version and a one-call PyTorch
-yardstick with CUDA events beside the kernel's bound, and compares the
-port on the CPU with the port on the card at m=7 (bitwise levels and
+yardstick beside the kernel's bound (device time per call: a batch of
+calls queued behind a sleep kernel between CUDA events; the single-launch
+time, host enqueue included, beside it), and compares the port on the
+CPU with the port on the card at m=7 (bitwise levels and
 aggregates, equal CG iterations, solutions within 1e-9, vector and k=4
-panel solves).  The second-to-last line is the per-kernel JSON record and
-the last line ``{"ok": true, "device": ...}``.  Any failure raises (exit
-code not 0).  Without a CUDA device, or outside a checkout, it exits with
-code 2 before printing a result.  Imports nothing of JAX.
+panel solves).  For the tuned kernels it then launches every ``threads``
+candidate at the m=32 shapes and requires the output bitwise equal to
+the 256-thread launch, times winner against default with CUDA events, and
+runs a hot step and a k=16 panel solve static, tuned, tuned, static
+(equal iterations, bitwise solutions), and profiles one tuned hot step.
+The second-to-last line is the per-kernel JSON record and the last line
+``{"ok": true, "device": ...}``.  Any failure raises (exit code not 0).
+Without a CUDA device, or outside a checkout, it exits with code 2 before
+printing a result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,6 +75,8 @@ BUCKETS = (1, 2, 4, 8, 16)
 BURSTS = (1, 3, 8, 5, 16, 21)   # 21 = a full 16 panel + 5 in an 8 panel
 CHECKED_BURSTS = (3, 5)         # per column against dedicated solves
 PANEL_KS = (16, 4)              # block_spmm cases
+TUNE_K = 16                     # the tuned-vs-static panel solve
+OMEGA = 0.6                     # pbjacobi cases (the autotuner's omega)
 
 # Datasheet peaks of the card the port runs on, the H100 SXM ("NVIDIA H100
 # 80GB HBM3"): HBM bytes/s and fp64 FLOP/s outside the tensor cores.
@@ -83,7 +102,13 @@ KERNELS = {
     "block_pair_gemm": dict(
         source="src/repro_torch/kernels/csrc/block_pair_gemm.cu",
         replaces="src/repro/kernels/block_pair_gemm/block_pair_gemm.py:44"),
+    "pbjacobi": dict(
+        source="src/repro_torch/kernels/csrc/pbjacobi.cu",
+        replaces="src/repro/kernels/pbjacobi/pbjacobi.py:35"),
 }
+#: the kernels with a ``threads`` knob (the autotuner's families)
+TUNED = ("block_spmv", "block_spmm", "pbjacobi", "fused_smoother",
+         "fused_pair_gemm")
 
 
 def _ops():
@@ -93,9 +118,10 @@ def _ops():
     from repro_torch.kernels.block_spmv import ops as spmv
     from repro_torch.kernels.fused_pair_gemm import ops as gemm
     from repro_torch.kernels.fused_smoother import ops as smooth
+    from repro_torch.kernels.pbjacobi import ops as pbj
     return {"block_seg_sum": seg, "block_spmv": spmv,
             "fused_smoother": smooth, "fused_pair_gemm": gemm,
-            "block_spmm": spmm, "block_pair_gemm": pair}
+            "block_spmm": spmm, "block_pair_gemm": pair, "pbjacobi": pbj}
 
 
 def reset_counts():
@@ -114,7 +140,10 @@ def sync(device):
 
 
 def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` between two CUDA events."""
+    """Median milliseconds of one ``fn()`` between two CUDA events.  The
+    card is idle when the first event is recorded, so a short kernel's
+    number includes the host's time to enqueue it (kept beside
+    ``device_ms`` as ``ms_single``)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -128,6 +157,31 @@ def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+SLEEP_CYCLES = 20_000_000      # ~10 ms of torch.cuda._sleep on an H100
+
+
+def device_ms(fn, launches: int = 10, reps: int = 5) -> float:
+    """Median device milliseconds per call of ``fn()``: ``launches`` calls
+    queued behind a sleep kernel between two CUDA events, so the card runs
+    them back to back and the host's enqueue time is not counted (as long
+    as the host queues the batch within the sleep)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -204,7 +258,7 @@ def main_path(m: int, device, coarse_size: int | None = None,
                 assemble_s=t_asm, a_data=a_data)
 
 
-def profile_hot_step(run: dict, top: int = 12) -> None:
+def profile_hot_step(run: dict, top: int = 12, label: str = "") -> None:
     """One more hot step under ``torch.profiler``: device time by kernel
     and the card's idle share of the step's wall time."""
     import torch
@@ -235,11 +289,11 @@ def profile_hot_step(run: dict, top: int = 12) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    print("profiled hot step " + json.dumps(dict(
+    print(f"profiled {label}hot step " + json.dumps(dict(
         wall_ms=walls, device_busy_ms=busy_ms, device_events=len(kernels),
         idle_share=1.0 - busy_ms / wall_ms)))
     for name, (n, t) in rows:
-        print("profile kernel " + json.dumps(dict(
+        print(f"profile {label}kernel " + json.dumps(dict(
             name=name[:90], launches=n, device_ms=t,
             share=t / busy_ms if busy_ms else 0.0)))
 
@@ -436,7 +490,8 @@ def check_path_launches(name: str, launches: dict, kernels) -> None:
 
 class Case:
     """One kernel call at a main-path shape: the wrapper, the plain version
-    and an optional one-call PyTorch yardstick on the same inputs."""
+    and an optional one-call PyTorch yardstick on the same inputs.  A
+    tuned kernel's ``run`` takes ``threads=`` (None resolves it)."""
 
     def __init__(self, kernel, label, run, plain, nbytes, flops,
                  library=None):
@@ -469,6 +524,8 @@ def build_cases(run: dict, device) -> list:
     from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
     from repro_torch.kernels.fused_smoother import ops as smooth
     from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
+    from repro_torch.kernels.pbjacobi import ops as pbj
+    from repro_torch.kernels.pbjacobi.ref import pbjacobi_update_ref
 
     prob, solver = run["prob"], run["solver"]
     setupd, hier = solver.setup_data, solver.hierarchy
@@ -509,8 +566,8 @@ def build_cases(run: dict, device) -> list:
             cases.append(Case(
                 "block_spmv",
                 f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})",
-                lambda ell=ell, x=x: spmv.block_spmv_ell(ell.indices,
-                                                         ell.data, x),
+                lambda threads=None, ell=ell, x=x: spmv.block_spmv_ell(
+                    ell.indices, ell.data, x, threads=threads),
                 lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices,
                                                         ell.data, x),
                 nbytes=nnz * (ell.br * ell.bc * 8 + 4) + x.numel() * 8
@@ -524,8 +581,8 @@ def build_cases(run: dict, device) -> list:
                     "block_spmm",
                     f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc}) "
                     f"k={k}",
-                    lambda ell=ell, X=X: spmm.block_spmm_ell(
-                        ell.indices, ell.data, X),
+                    lambda threads=None, ell=ell, X=X: spmm.block_spmm_ell(
+                        ell.indices, ell.data, X, threads=threads),
                     lambda ell=ell, X=X: block_spmm_ell_ref(
                         ell.indices, ell.data, X),
                     nbytes=nnz * (ell.br * ell.bc * 8 + 4) + X.numel() * 8
@@ -540,7 +597,8 @@ def build_cases(run: dict, device) -> list:
         args = (a.indices, a.data, lv.dinv, b, x, d, coef)
         cases.append(Case(
             "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs})",
-            lambda args=args: smooth.smoother_step_ell(*args),
+            lambda threads=None, args=args: smooth.smoother_step_ell(
+                *args, threads=threads),
             lambda args=args: smoother_step_ref(*args),
             nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
             + 5 * a.nbr * bs * 8,
@@ -550,12 +608,26 @@ def build_cases(run: dict, device) -> list:
         args = (a.indices, a.data, lv.dinv, b, x, d, coef)
         cases.append(Case(
             "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs}) k={k}",
-            lambda args=args: smooth.smoother_step_ell(*args),
+            lambda threads=None, args=args: smooth.smoother_step_ell(
+                *args, threads=threads),
             lambda args=args: smoother_step_ref(*args),
             nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
             + 5 * a.nbr * bs * k * 8,
             flops=k * (2 * nnz * bs * bs + 2 * a.nbr * bs * bs
                        + 4 * a.nbr * bs)))
+        # pbjacobi at the level's dinv shape; torch.baddbmm computes the
+        # same x + omega * dinv @ r in one call
+        r, x = randn(a.nbr, bs), randn(a.nbr, bs)
+        cases.append(Case(
+            "pbjacobi", f"L{li} dinv ({a.nbr},{bs},{bs})",
+            lambda threads=None, lv=lv, r=r, x=x: pbj.pbjacobi_update(
+                lv.dinv, r, x, OMEGA, threads=threads),
+            lambda lv=lv, r=r, x=x: pbjacobi_update_ref(lv.dinv, r, x,
+                                                        OMEGA),
+            nbytes=a.nbr * bs * bs * 8 + 3 * a.nbr * bs * 8,
+            flops=a.nbr * bs * (2 * bs + 2),
+            library=lambda lv=lv, r=r, x=x: torch.baddbmm(
+                x[..., None], lv.dinv, r[..., None], alpha=OMEGA)[..., 0]))
 
     # --- fused_pair_gemm on both Galerkin products of every level, and the
     # block_seg_sum row-split combine where rows split -----------------------
@@ -596,7 +668,8 @@ def build_cases(run: dict, device) -> list:
                 "fused_pair_gemm",
                 f"level{li} {tag} {sp.tile_rows}x{sp.pair_kmax} "
                 f"({br},{bk},{bc})",
-                lambda gargs=gargs: gemm.fused_pair_gemm(*gargs),
+                lambda threads=None, gargs=gargs: gemm.fused_pair_gemm(
+                    *gargs, threads=threads),
                 lambda gargs=gargs: fused_pair_gemm_ref(*gargs),
                 nbytes=nbytes, flops=2 * sp.npairs * br * bk * bc,
                 library=lambda lhs=lhs, rhs=rhs: torch.einsum(
@@ -697,8 +770,8 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
     import torch
     bw, fp = peaks
     per = {name: dict(cases=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
-                      plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                      library_all=True, bytes=0, flops=0)
+                      ms_single=0.0, plain_ms=0.0, bound_ms=0.0,
+                      library_ms=0.0, library_all=True, bytes=0, flops=0)
            for name in KERNELS}
     for c in cases:
         got, want = c.run(), c.plain()
@@ -723,15 +796,18 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
         line = dict(kernel=c.kernel, case=c.label, max_abs_err=err,
                     max_rel_err=rel, bound_ms=bound, bytes=c.nbytes)
         if timed:
-            k_ms, p_ms = time_ms(c.run), time_ms(c.plain)
-            l_ms = time_ms(c.library) if c.library is not None else None
+            k_ms, p_ms = device_ms(c.run), device_ms(c.plain)
+            l_ms = device_ms(c.library) if c.library is not None else None
+            s_ms = time_ms(c.run)
             row["ms"] += k_ms
+            row["ms_single"] += s_ms
             row["plain_ms"] += p_ms
             if l_ms is None:
                 row["library_all"] = False
             else:
                 row["library_ms"] += l_ms
-            line.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms)
+            line.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                        ms_single=s_ms)
         print("kernel case " + json.dumps(line))
     return per
 
@@ -743,6 +819,223 @@ def copy_bandwidth() -> float:
     dst = torch.empty_like(src)
     ms = time_ms(lambda: dst.copy_(src), reps=10)
     return 2 * src.numel() * 4 / (ms * 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The tune path: the autotuner's threads knob
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def tune_mode(mode: str):
+    """``REPRO_TORCH_TUNE`` set to ``mode`` inside the block."""
+    old = os.environ.get("REPRO_TORCH_TUNE")
+    os.environ["REPRO_TORCH_TUNE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_TORCH_TUNE"]
+        else:
+            os.environ["REPRO_TORCH_TUNE"] = old
+
+
+class SignatureLog:
+    """Inside the block, every ``(family, signature)`` the tuned wrappers
+    resolve, with the value it resolved to (``autotune.resolve_param`` is
+    wrapped and restored on exit)."""
+
+    def __init__(self):
+        from repro_torch.kernels import autotune
+        self.autotune = autotune
+        self.seen = {}
+
+    def __enter__(self):
+        at = self.autotune
+        self._orig = orig = at.resolve_param
+
+        def logged(family, signature, name, requested, default,
+                   device="cuda"):
+            value = orig(family, signature, name, requested, default,
+                         device=device)
+            self.seen[at.entry_key(family, signature)] = (
+                family, dict(signature), value)
+            return value
+        at.resolve_param = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.autotune.resolve_param = self._orig
+
+
+def tune_path(run: dict, sigs: dict, device, verbose: bool = True):
+    """Sweep every logged ``(family, signature)`` and ``pbjacobi`` at each
+    level's ``dinv`` shape on ``device`` into the cache, check that every
+    winner reads back, then the CLI's ``smoke`` round trip.  Returns the
+    path's kernel launches and the winners by entry key."""
+    import torch
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.autotune.__main__ import main as tune_cli
+
+    todo = {k: (fam, sig) for k, (fam, sig, _) in sigs.items()}
+    for lv in run["solver"].hierarchy.levels:
+        nbr, bs = lv.dinv.shape[0], lv.dinv.shape[1]
+        sig = autotune.signature(lv.dinv.dtype, nbr * bs, bs=bs)
+        todo[autotune.entry_key("pbjacobi", sig)] = ("pbjacobi", sig)
+    counts = PathCounts()
+    reset_counts()
+    winners = {}
+    for key, (family, sig) in sorted(todo.items()):
+        t0 = time.perf_counter()
+        won, _ = counts.run(lambda: autotune.sweep(family, sig,
+                                                   device=device))
+        winners[key] = won["params"]["threads"]
+        if verbose:
+            print("tune sweep " + json.dumps(dict(
+                family=family, signature=sig, table_us=won["table"],
+                winner=won["params"], best_us=won["best_us"],
+                sweep_s=time.perf_counter() - t0)))
+    autotune.clear_memo()
+    for key, (family, sig) in todo.items():
+        got = autotune.lookup(family, sig, "threads", device)
+        if got != winners[key]:
+            raise AssertionError(f"cache round trip {key}: recorded "
+                                 f"{winners[key]}, read {got}")
+    with tune_mode("cache"):
+        rc, _ = counts.run(lambda: tune_cli(
+            ["smoke", "--device", torch.device(device).type]))
+    if rc != 0:
+        raise AssertionError(f"autotune CLI smoke exited {rc}")
+    if verbose:
+        print("tune path " + json.dumps(dict(
+            signatures=len(todo), cache=str(autotune.cache_path()),
+            launches=counts.total)))
+    return counts.total, winners
+
+
+def check_threads_bitwise(cases: list) -> dict:
+    """Every ``threads`` candidate of each tuned kernel, at the paths'
+    shapes, bitwise equal to the 256-thread launch: no kernel shares data
+    across threads, so the block size changes nothing but speed."""
+    import torch
+    from repro_torch.kernels import autotune
+    checked = {name: 0 for name in TUNED}
+    for c in cases:
+        if c.kernel not in TUNED:
+            continue
+        want = c.run(threads=autotune.DEFAULT_THREADS)
+        for t in autotune.CANDIDATES[c.kernel]["threads"]:
+            got = c.run(threads=t)
+            pairs = zip(got, want) if isinstance(got, tuple) else \
+                [(got, want)]
+            for g, w in pairs:
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{c.kernel} {c.label}: threads={t} differs from "
+                        f"the 256-thread launch")
+            checked[c.kernel] += 1
+    for name, n in checked.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no threads candidate checked")
+    return checked
+
+
+def tuned_vs_static_kernels(cases: list, verbose: bool = True) -> list:
+    """Each tuned case at the cached winner against the static 256-thread
+    launch, device times with CUDA events in turns (static, tuned, tuned,
+    static; each number the mean of its two medians)."""
+    from repro_torch.kernels import autotune
+    rows = []
+    for c in cases:
+        if c.kernel not in TUNED:
+            continue
+        with tune_mode("cache"), SignatureLog() as log:
+            c.run()
+        (_, sig, won), = log.seen.values()
+        static = lambda c=c: c.run(threads=autotune.DEFAULT_THREADS)
+        tuned = lambda c=c, won=won: c.run(threads=won)
+        s1, t1, t2, s2 = (device_ms(static), device_ms(tuned),
+                          device_ms(tuned), device_ms(static))
+        row = dict(kernel=c.kernel, case=c.label, items=sig["items"],
+                   threads=won, static_ms=(s1 + s2) / 2,
+                   tuned_ms=(t1 + t2) / 2, static_pair=[s1, s2],
+                   tuned_pair=[t1, t2])
+        rows.append(row)
+        if verbose:
+            print("tune kernel " + json.dumps(row))
+    return rows
+
+
+def tuned_vs_static_steps(run: dict, device, expect_iters: int,
+                          verbose: bool = True) -> dict:
+    """One hot step (reassembly, ``update_operator``, solve) and one
+    k=16 panel solve with the static launch and with the cached winners,
+    in turns: static, tuned, tuned, static.  Iterations must be equal
+    (``expect_iters`` on the hot step) and the solutions bitwise equal."""
+    import numpy as np
+    import torch
+    prob, solver = run["prob"], run["solver"]
+    B = torch.as_tensor(np.random.default_rng(TUNE_K).standard_normal(
+        (prob.n, TUNE_K)), device=device)
+    out = []
+    for mode in ("off", "cache", "cache", "off"):
+        with tune_mode(mode):
+            sync(device)
+            t0 = time.perf_counter()
+            a_new = prob.reassemble(1.1)
+            solver.update_operator(a_new.data)
+            res = solver.solve(prob.b)
+            sync(device)
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            panel = solver.solve_many(B)
+            sync(device)
+            panel_ms = 1e3 * (time.perf_counter() - t0)
+        out.append(dict(mode=mode, step_ms=step_ms, iters=res.iters,
+                        x=res.x, panel_ms=panel_ms,
+                        panel_iters=panel.iters.tolist(), X=panel.x))
+    run["a_data"] = a_new.data
+    base = out[0]
+    for o in out:
+        if o["iters"] != expect_iters or o["iters"] != base["iters"]:
+            raise AssertionError(f"hot step ({o['mode']}): {o['iters']} "
+                                 f"iterations, static {base['iters']}")
+        if o["panel_iters"] != base["panel_iters"]:
+            raise AssertionError(f"k={TUNE_K} panel ({o['mode']}): "
+                                 f"iterations {o['panel_iters']}, static "
+                                 f"{base['panel_iters']}")
+        for key in ("x", "X"):
+            if not torch.equal(o[key], base[key]):
+                raise AssertionError(
+                    f"{key} ({o['mode']}) not bitwise the static run's "
+                    f"(rel {_rel(o[key], base[key]):.3e})")
+    summary = dict(order=[o["mode"] for o in out],
+                   step_ms=[o["step_ms"] for o in out],
+                   panel_ms=[o["panel_ms"] for o in out],
+                   iters=base["iters"], panel_iters=base["panel_iters"],
+                   solutions="bitwise equal")
+    if verbose:
+        print("tune steps " + json.dumps(summary))
+    return summary
+
+
+def resolve_cost_us(run: dict, calls: int = 20000) -> dict:
+    """Host microseconds per ``resolve_param`` of one level-0 launch
+    signature, in each mode (the port resolves at every launch)."""
+    from repro_torch.kernels import autotune
+    a = run["solver"].hierarchy.levels[0].a_ell
+    sig = autotune.signature(a.data.dtype, a.nbr, br=a.br, bc=a.bc,
+                             kmax=a.kmax)
+    cost = {}
+    for mode in ("off", "cache"):
+        with tune_mode(mode):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                autotune.resolve_param("block_spmv", sig, "threads", None,
+                                       autotune.DEFAULT_THREADS,
+                                       device=a.data.device)
+            cost[mode] = 1e6 * (time.perf_counter() - t0) / calls
+    return cost
 
 
 # ---------------------------------------------------------------------------
@@ -826,7 +1119,8 @@ def kernel_record(per: dict, by_path: dict, per_step: dict,
             launches_per_hot_step=sum(v[kname] for v in per_step.values()),
             cases=row["cases"], max_abs_err=row["max_abs_err"],
             max_rel_err=row["max_rel_err"], ms=row["ms"],
-            kernel_ms=row["ms"], plain_ms=row["plain_ms"],
+            kernel_ms=row["ms"], ms_single=row["ms_single"],
+            plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by="bytes" if by_bytes else "operations",
             library_ms=row["library_ms"] if row["library_all"] else None))
@@ -844,6 +1138,19 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tune_dir) /
+                                               "autotune.json")
+    try:
+        with tune_mode("off"):
+            return run_all()
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run_all() -> int:
+    import torch
+
     from repro_torch.kernels import backend
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -865,15 +1172,16 @@ def main() -> int:
                 print("ptxas " + ln.strip())
 
     reset_counts()
-    run = main_path(MAIN_M, "cuda")
-    by_path = {"main": read_counts()}
-    check_main_path(run)
-    per_step = run["records"][-1]["launches"]
-    print("main path launches " + json.dumps(by_path["main"]))
-    print("launches per hot step " + json.dumps(per_step))
-    profile_hot_step(run)
+    with SignatureLog() as sigs:
+        run = main_path(MAIN_M, "cuda")
+        by_path = {"main": read_counts()}
+        check_main_path(run)
+        per_step = run["records"][-1]["launches"]
+        print("main path launches " + json.dumps(by_path["main"]))
+        print("launches per hot step " + json.dumps(per_step))
+        profile_hot_step(run)
 
-    by_path["serve"] = serve_path(run, "cuda", EXPECT_ITERS)
+        by_path["serve"] = serve_path(run, "cuda", EXPECT_ITERS)
     check_path_launches("serve", by_path["serve"],
                         ("block_spmm", "fused_smoother", "block_spmv"))
     by_path["pairs"] = pairs_path(run, "cuda", EXPECT_ITERS)
@@ -884,7 +1192,18 @@ def main() -> int:
     print(f"datasheet peaks: {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.1f} TFLOP/s fp64; measured copy_ "
           f"{copy_bandwidth() / 1e12:.3f} TB/s")
-    per = check_kernels(build_cases(run, "cuda"), peaks)
+    cases = build_cases(run, "cuda")
+    per = check_kernels(cases, peaks)
+
+    by_path["tune"], _ = tune_path(run, sigs.seen, "cuda")
+    check_path_launches("tune", by_path["tune"], TUNED)
+    print("threads bitwise " + json.dumps(check_threads_bitwise(cases)))
+    tuned_vs_static_kernels(cases)
+    print("tune resolve host us per call "
+          + json.dumps(resolve_cost_us(run)))
+    tuned_vs_static_steps(run, "cuda", EXPECT_ITERS)
+    with tune_mode("cache"):
+        profile_hot_step(run, label="tuned ")
 
     check = cpu_vs_cuda(CHECK_M, CHECK_COARSE)
     print("cpu vs cuda " + json.dumps(check))

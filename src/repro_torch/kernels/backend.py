@@ -27,6 +27,9 @@ made for the JAX reference never reach it):
 * ``resolve_smooth_path`` — V-cycle smoother: ``"fused"`` (default; the
   ``fused_smoother`` kernel) or ``"reference"`` (the unfused recurrences);
   ``REPRO_TORCH_SMOOTH_PATH`` forces it.
+* ``resolve_tune`` — the kernel autotuner's mode (``REPRO_TORCH_TUNE``):
+  ``"off"``, ``"cache"`` (default) or ``"sweep"``; see
+  ``repro_torch.kernels.autotune``.
 
 ``"reference"`` runs plain versions, so it is CPU-only: asked for on a CUDA
 device it raises.  On the card the port launches its kernels.
@@ -80,8 +83,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+@functools.lru_cache(maxsize=None)
 def source_digest() -> str:
-    """Hash of every kernel source and the compiler flags."""
+    """Hash of every kernel source and the compiler flags (memoized: the
+    autotuner keys every lookup on it)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     cu, cuh = _sources()
     for p in cu + cuh:
@@ -173,6 +178,15 @@ def launch(name: str, argtypes: tuple, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+def check_threads(name: str, threads: int) -> None:
+    """Threads per block the tuned kernels take: a multiple of 32 in [32,
+    1024] (the C entry points refuse anything else as well)."""
+    if not (isinstance(threads, int) and 32 <= threads <= 1024
+            and threads % 32 == 0):
+        raise ValueError(f"{name}: threads={threads!r} must be a multiple "
+                         f"of 32 in [32, 1024]")
+
+
 def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
@@ -239,3 +253,37 @@ def resolve_smooth_path(device, path: str | None = None) -> str:
     """V-cycle smoother path for vectors or panels on ``device``."""
     return _resolve_path("smoother", "REPRO_TORCH_SMOOTH_PATH", device, path,
                          ("fused", "reference"))
+
+
+def resolve_tune(mode: str | None = None) -> str:
+    """The autotuner's mode; honours ``REPRO_TORCH_TUNE``.
+
+    "off"    — every ``threads=None`` knob resolves to its static default
+               (256, the block size of the untuned kernels); touches no
+               file.
+    "cache"  (default) a cached winner for the launch's signature on this
+               machine and kernel build when one exists, else the default.
+               Never measures.
+    "sweep"  like "cache", but a miss times the candidates on synthetic
+               operands and records the winner
+               (``repro_torch.kernels.autotune``).
+
+    Accepts the strings ``repro.kernels.backend.resolve_tune`` accepts,
+    with the same meaning; re-read per call (the port runs eagerly, so a
+    change takes effect at the next launch).  Invalid values raise
+    ``ValueError``.
+    """
+    if mode is None:
+        mode = os.environ.get("REPRO_TORCH_TUNE")
+    if mode is None:
+        return "cache"
+    key = str(mode).strip().lower()
+    if key in ("", "0", "off", "false", "none"):
+        return "off"
+    if key in ("cache", "on", "1", "true"):
+        return "cache"
+    if key == "sweep":
+        return "sweep"
+    raise ValueError(
+        f"invalid autotune mode {mode!r}: expected 'off', 'cache' or "
+        f"'sweep' (from REPRO_TORCH_TUNE or the mode= knob)")

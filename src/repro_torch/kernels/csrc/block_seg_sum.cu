@@ -49,7 +49,8 @@ int launch(const double* vals, const int* perm, const int* offsets,
            double* out, int nseg, cudaStream_t stream) {
   const long long n = static_cast<long long>(nseg) * BR * BC;
   if (n == 0) return repro::last_error();
-  seg_sum_kernel<BR, BC><<<repro::blocks_for(n), repro::kThreads, 0,
+  seg_sum_kernel<BR, BC><<<repro::blocks_for(n, repro::kThreads),
+                           repro::kThreads, 0,
                            stream>>>(vals, perm, offsets, out, nseg);
   return repro::last_error();
 }

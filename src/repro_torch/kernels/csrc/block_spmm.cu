@@ -39,10 +39,10 @@ __global__ void spmm_kernel(const int* __restrict__ idx,
 
 template <int BR, int BC>
 int launch(const int* idx, const double* data, const double* x, double* y,
-           int nbr, int kmax, int k, cudaStream_t stream) {
+           int nbr, int kmax, int k, int threads, cudaStream_t stream) {
   const long long n = static_cast<long long>(nbr) * k;
   if (n == 0) return repro::last_error();
-  spmm_kernel<BR, BC><<<repro::blocks_for(n), repro::kThreads, 0,
+  spmm_kernel<BR, BC><<<repro::blocks_for(n, threads), threads, 0,
                         stream>>>(idx, data, x, y, nbr, kmax, k);
   return repro::last_error();
 }
@@ -51,15 +51,20 @@ int launch(const int* idx, const double* data, const double* x, double* y,
 
 REPRO_API int repro_block_spmm_f64(const void* indices, const void* data,
                                    const void* x, void* y, int nbr, int kmax,
-                                   int br, int bc, int k, void* stream) {
+                                   int br, int bc, int k, int threads,
+                                   void* stream) {
   auto i = static_cast<const int*>(indices);
   auto d = static_cast<const double*>(data);
   auto xv = static_cast<const double*>(x);
   auto yv = static_cast<double*>(y);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 0) return repro::bad_shape();
-  if (br == 3 && bc == 3) return launch<3, 3>(i, d, xv, yv, nbr, kmax, k, s);
-  if (br == 3 && bc == 6) return launch<3, 6>(i, d, xv, yv, nbr, kmax, k, s);
-  if (br == 6 && bc == 6) return launch<6, 6>(i, d, xv, yv, nbr, kmax, k, s);
+  const int t = threads;
+  if (k <= 0 || !repro::threads_ok(t)) return repro::bad_shape();
+  if (br == 3 && bc == 3)
+    return launch<3, 3>(i, d, xv, yv, nbr, kmax, k, t, s);
+  if (br == 3 && bc == 6)
+    return launch<3, 6>(i, d, xv, yv, nbr, kmax, k, t, s);
+  if (br == 6 && bc == 6)
+    return launch<6, 6>(i, d, xv, yv, nbr, kmax, k, t, s);
   return repro::bad_shape();
 }

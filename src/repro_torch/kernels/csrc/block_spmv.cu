@@ -39,9 +39,9 @@ __global__ void spmv_kernel(const int* __restrict__ idx,
 
 template <int BR, int BC>
 int launch(const int* idx, const double* data, const double* x, double* y,
-           int nbr, int kmax, cudaStream_t stream) {
+           int nbr, int kmax, int threads, cudaStream_t stream) {
   if (nbr == 0) return repro::last_error();
-  spmv_kernel<BR, BC><<<repro::blocks_for(nbr), repro::kThreads, 0,
+  spmv_kernel<BR, BC><<<repro::blocks_for(nbr, threads), threads, 0,
                         stream>>>(idx, data, x, y, nbr, kmax);
   return repro::last_error();
 }
@@ -50,14 +50,17 @@ int launch(const int* idx, const double* data, const double* x, double* y,
 
 REPRO_API int repro_block_spmv_f64(const void* indices, const void* data,
                                    const void* x, void* y, int nbr, int kmax,
-                                   int br, int bc, void* stream) {
+                                   int br, int bc, int threads,
+                                   void* stream) {
   auto i = static_cast<const int*>(indices);
   auto d = static_cast<const double*>(data);
   auto xv = static_cast<const double*>(x);
   auto yv = static_cast<double*>(y);
   auto s = static_cast<cudaStream_t>(stream);
-  if (br == 3 && bc == 3) return launch<3, 3>(i, d, xv, yv, nbr, kmax, s);
-  if (br == 3 && bc == 6) return launch<3, 6>(i, d, xv, yv, nbr, kmax, s);
-  if (br == 6 && bc == 6) return launch<6, 6>(i, d, xv, yv, nbr, kmax, s);
+  const int t = threads;
+  if (!repro::threads_ok(t)) return repro::bad_shape();
+  if (br == 3 && bc == 3) return launch<3, 3>(i, d, xv, yv, nbr, kmax, t, s);
+  if (br == 3 && bc == 6) return launch<3, 6>(i, d, xv, yv, nbr, kmax, t, s);
+  if (br == 6 && bc == 6) return launch<6, 6>(i, d, xv, yv, nbr, kmax, t, s);
   return repro::bad_shape();
 }

@@ -55,10 +55,10 @@ __global__ void pair_gemm_kernel(const double* __restrict__ a,
 template <int BR, int BK, int BC>
 int launch(const double* a, const double* b, const int* ta, const int* tb,
            const unsigned char* mask, double* out, int rows, int kmax,
-           cudaStream_t stream) {
+           int threads, cudaStream_t stream) {
   const long long n = static_cast<long long>(rows) * BR * BC;
   if (n == 0) return repro::last_error();
-  pair_gemm_kernel<BR, BK, BC><<<repro::blocks_for(n), repro::kThreads, 0,
+  pair_gemm_kernel<BR, BK, BC><<<repro::blocks_for(n, threads), threads, 0,
                                  stream>>>(a, b, ta, tb, mask, out, rows,
                                            kmax);
   return repro::last_error();
@@ -71,7 +71,8 @@ REPRO_API int repro_fused_pair_gemm_f64(const void* a, const void* b,
                                         const void* tile_b,
                                         const void* tile_mask, void* out,
                                         int rows, int kmax, int br, int bk,
-                                        int bc, void* stream) {
+                                        int bc, int threads,
+                                        void* stream) {
   auto av = static_cast<const double*>(a);
   auto bv = static_cast<const double*>(b);
   auto ta = static_cast<const int*>(tile_a);
@@ -79,11 +80,13 @@ REPRO_API int repro_fused_pair_gemm_f64(const void* a, const void* b,
   auto m = static_cast<const unsigned char*>(tile_mask);
   auto o = static_cast<double*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  const int t = threads;
+  if (!repro::threads_ok(t)) return repro::bad_shape();
   if (br == 3 && bk == 3 && bc == 6)
-    return launch<3, 3, 6>(av, bv, ta, tb, m, o, rows, kmax, s);
+    return launch<3, 3, 6>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   if (br == 6 && bk == 3 && bc == 6)
-    return launch<6, 3, 6>(av, bv, ta, tb, m, o, rows, kmax, s);
+    return launch<6, 3, 6>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   if (br == 6 && bk == 6 && bc == 6)
-    return launch<6, 6, 6>(av, bv, ta, tb, m, o, rows, kmax, s);
+    return launch<6, 6, 6>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   return repro::bad_shape();
 }

@@ -93,9 +93,9 @@ template <int BS>
 int launch(const int* idx, const double* data, const double* dinv,
            const double* b, const double* x, const double* d,
            const double* coef, double* x_out, double* d_out, int nbr,
-           int kmax, cudaStream_t stream) {
+           int kmax, int threads, cudaStream_t stream) {
   if (nbr == 0) return repro::last_error();
-  smoother_kernel<BS><<<repro::blocks_for(nbr), repro::kThreads, 0,
+  smoother_kernel<BS><<<repro::blocks_for(nbr, threads), threads, 0,
                         stream>>>(idx, data, dinv, b, x, d, coef, x_out,
                                   d_out, nbr, kmax);
   return repro::last_error();
@@ -105,10 +105,10 @@ template <int BS>
 int launch_panel(const int* idx, const double* data, const double* dinv,
                  const double* b, const double* x, const double* d,
                  const double* coef, double* x_out, double* d_out, int nbr,
-                 int kmax, int k, cudaStream_t stream) {
+                 int kmax, int k, int threads, cudaStream_t stream) {
   const long long n = static_cast<long long>(nbr) * k;
   if (n == 0) return repro::last_error();
-  smoother_panel_kernel<BS><<<repro::blocks_for(n), repro::kThreads, 0,
+  smoother_panel_kernel<BS><<<repro::blocks_for(n, threads), threads, 0,
                               stream>>>(idx, data, dinv, b, x, d, coef,
                                         x_out, d_out, nbr, kmax, k);
   return repro::last_error();
@@ -121,7 +121,7 @@ REPRO_API int repro_fused_smoother_f64(const void* indices, const void* data,
                                        const void* x, const void* d,
                                        const void* coef, void* x_out,
                                        void* d_out, int nbr, int kmax,
-                                       int bs, void* stream) {
+                                       int bs, int threads, void* stream) {
   auto i = static_cast<const int*>(indices);
   auto a = static_cast<const double*>(data);
   auto di = static_cast<const double*>(dinv);
@@ -132,17 +132,19 @@ REPRO_API int repro_fused_smoother_f64(const void* indices, const void* data,
   auto xo = static_cast<double*>(x_out);
   auto dout = static_cast<double*>(d_out);
   auto s = static_cast<cudaStream_t>(stream);
+  const int t = threads;
+  if (!repro::threads_ok(t)) return repro::bad_shape();
   if (bs == 3)
-    return launch<3>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, s);
+    return launch<3>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, t, s);
   if (bs == 6)
-    return launch<6>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, s);
+    return launch<6>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, t, s);
   return repro::bad_shape();
 }
 
 REPRO_API int repro_fused_smoother_panel_f64(
     const void* indices, const void* data, const void* dinv, const void* b,
     const void* x, const void* d, const void* coef, void* x_out, void* d_out,
-    int nbr, int kmax, int bs, int k, void* stream) {
+    int nbr, int kmax, int bs, int k, int threads, void* stream) {
   auto i = static_cast<const int*>(indices);
   auto a = static_cast<const double*>(data);
   auto di = static_cast<const double*>(dinv);
@@ -153,12 +155,13 @@ REPRO_API int repro_fused_smoother_panel_f64(
   auto xo = static_cast<double*>(x_out);
   auto dout = static_cast<double*>(d_out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 0) return repro::bad_shape();
+  const int t = threads;
+  if (k <= 0 || !repro::threads_ok(t)) return repro::bad_shape();
   if (bs == 3)
     return launch_panel<3>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, k,
-                           s);
+                           t, s);
   if (bs == 6)
     return launch_panel<6>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, k,
-                           s);
+                           t, s);
   return repro::bad_shape();
 }

@@ -7,11 +7,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import backend
+from repro_torch.kernels import autotune, backend
 from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
 
 SHAPES = ((3, 3, 6), (6, 3, 6), (6, 6, 6))
-_ARGS = (backend.P,) * 6 + (backend.I,) * 5 + (backend.P,)
+_ARGS = (backend.P,) * 6 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -19,22 +19,29 @@ launches = 0
 
 def fused_pair_gemm(a_data: torch.Tensor, b_data: torch.Tensor,
                     tile_a: torch.Tensor, tile_b: torch.Tensor,
-                    tile_mask: torch.Tensor) -> torch.Tensor:
+                    tile_mask: torch.Tensor, *,
+                    threads: int | None = None) -> torch.Tensor:
     """One partial ``(br, bc)`` block per tile row: the sum over the row's
     valid slots of ``a_data[tile_a] @ b_data[tile_b]``, gathered in the
     kernel.  ``tile_a``/``tile_b`` int32 ``(rows, kmax)``, ``tile_mask``
-    bool.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    bool.  ``threads`` (one per output element) ``None`` resolves through
+    the autotuner (static default 256).  CPU tensors take the plain
+    version; CUDA tensors the kernel."""
     global launches
     name = "fused_pair_gemm"
-    if not backend.on_cuda(name, a=a_data, b=b_data, tile_a=tile_a,
-                           tile_b=tile_b, tile_mask=tile_mask):
-        return fused_pair_gemm_ref(a_data, b_data, tile_a, tile_b, tile_mask)
+    cuda = backend.on_cuda(name, a=a_data, b=b_data, tile_a=tile_a,
+                           tile_b=tile_b, tile_mask=tile_mask)
     _, br, bk = a_data.shape
     _, bk2, bc = b_data.shape
+    rows, kmax = tile_a.shape
+    threads = autotune.launch_threads(
+        name, autotune.signature(a_data.dtype, rows * br * bc, br=br, bk=bk,
+                                 bc=bc, kmax=kmax), threads, a_data.device)
+    if not cuda:
+        return fused_pair_gemm_ref(a_data, b_data, tile_a, tile_b, tile_mask)
     if bk != bk2 or (br, bk, bc) not in SHAPES:
         raise ValueError(f"{name}: block shapes {(br, bk)} @ {(bk2, bc)} "
                          f"have no kernel instantiation (have {SHAPES})")
-    rows, kmax = tile_a.shape
     if tuple(tile_b.shape) != (rows, kmax) or \
             tuple(tile_mask.shape) != (rows, kmax):
         raise ValueError(f"{name}: tile plan shapes disagree")
@@ -46,6 +53,6 @@ def fused_pair_gemm(a_data: torch.Tensor, b_data: torch.Tensor,
     p = backend.ptr
     backend.launch("repro_fused_pair_gemm_f64", _ARGS, p(a_data), p(b_data),
                    p(tile_a), p(tile_b), p(tile_mask), p(out), rows, kmax,
-                   br, bk, bc)
+                   br, bk, bc, threads)
     launches += 1
     return out

@@ -9,12 +9,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.block_csr import BlockELL
-from repro_torch.kernels import backend
+from repro_torch.kernels import autotune, backend
 from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
 
 SHAPES = (3, 6)
-_ARGS = (backend.P,) * 9 + (backend.I,) * 3 + (backend.P,)
-_PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 4 + (backend.P,)
+_ARGS = (backend.P,) * 9 + (backend.I,) * 4 + (backend.P,)
+_PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 5 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -23,19 +23,28 @@ launches = 0
 def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                       dinv: torch.Tensor, b_blocks: torch.Tensor,
                       x_blocks: torch.Tensor, d_blocks: torch.Tensor,
-                      coef: torch.Tensor):
+                      coef: torch.Tensor, *, threads: int | None = None):
     """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors or
     ``(nbr, bs, k)`` panels; A square in padded BlockELL form, ``dinv
     (nbr, bs, bs)``, ``coef`` a two-element device tensor ``[c1, c2]``
-    shared by all columns.  ``x'`` is a new tensor (out of place).  CPU
-    tensors take the plain version; CUDA tensors the kernel."""
+    shared by all columns.  ``x'`` is a new tensor (out of place).
+    ``threads`` (one per block row and column) ``None`` resolves through
+    the autotuner (static default 256; a panel's signature has its k).
+    CPU tensors take the plain version; CUDA tensors the kernel."""
     global launches
     name = "fused_smoother"
-    if not backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
-                           b=b_blocks, x=x_blocks, d=d_blocks, coef=coef):
+    cuda = backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
+                           b=b_blocks, x=x_blocks, d=d_blocks, coef=coef)
+    nbr, kmax, bs, bs2 = data.shape
+    keys = dict(br=bs, bc=bs2, kmax=kmax)
+    if b_blocks.ndim == 3:
+        keys["k"] = b_blocks.shape[2]
+    threads = autotune.launch_threads(
+        name, autotune.signature(data.dtype, nbr * keys.get("k", 1),
+                                 **keys), threads, data.device)
+    if not cuda:
         return smoother_step_ref(indices, data, dinv, b_blocks, x_blocks,
                                  d_blocks, coef)
-    nbr, kmax, bs, bs2 = data.shape
     if bs != bs2 or bs not in SHAPES:
         raise ValueError(f"{name}: block shape {(bs, bs2)} has no kernel "
                          f"instantiation (square, bs in {SHAPES})")
@@ -59,20 +68,21 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
             p(d_blocks), p(coef), p(x_new), p(d_new))
     if len(vec) == 2:
         backend.launch("repro_fused_smoother_f64", _ARGS, *ptrs, nbr, kmax,
-                       bs)
+                       bs, threads)
     else:
         backend.launch("repro_fused_smoother_panel_f64", _PANEL_ARGS, *ptrs,
-                       nbr, kmax, bs, vec[2])
+                       nbr, kmax, bs, vec[2], threads)
     launches += 1
     return x_new, d_new
 
 
 def smoother_step(a_ell: BlockELL, dinv: torch.Tensor, b: torch.Tensor,
-                  x: torch.Tensor, d: torch.Tensor, coef: torch.Tensor):
+                  x: torch.Tensor, d: torch.Tensor, coef: torch.Tensor, *,
+                  threads: int | None = None):
     """The fused step on flat ``(n,)`` vectors or ``(n, k)`` panels;
     returns ``(x', d')``."""
     shape = (a_ell.nbr, a_ell.br) + tuple(b.shape[1:])
     x_new, d_new = smoother_step_ell(a_ell.indices, a_ell.data, dinv,
                                      b.reshape(shape), x.reshape(shape),
-                                     d.reshape(shape), coef)
+                                     d.reshape(shape), coef, threads=threads)
     return x_new.reshape(b.shape), d_new.reshape(b.shape)

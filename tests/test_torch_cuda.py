@@ -27,6 +27,9 @@ from repro_torch.kernels.fused_pair_gemm.ref import \
 from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
 from repro_torch.kernels.fused_smoother.ref import \
     smoother_step_ref  # noqa: E402
+from repro_torch.kernels import autotune, backend  # noqa: E402
+from repro_torch.kernels.pbjacobi import ops as pbj_ops  # noqa: E402
+from repro_torch.kernels.pbjacobi.ref import pbjacobi_update_ref  # noqa
 
 pytestmark = pytest.mark.cuda
 REL = 1e-12
@@ -253,3 +256,79 @@ def test_reference_paths_refuse_cuda_payloads(dev):
     with pytest.raises(ValueError, match="CPU-only"):
         apply_smoother(lv, prob.b, torch.zeros_like(prob.b), "chebyshev", 2,
                        path="reference")
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+@pytest.mark.parametrize("nbr", [37, 1000])
+def test_pbjacobi_kernel(dev, bs, nbr):
+    g = torch.Generator(device=dev).manual_seed(70 + bs + nbr)
+    f64 = dict(dtype=torch.float64, device=dev)
+    dinv = torch.randn(nbr, bs, bs, generator=g, **f64)
+    r, x = (torch.randn(nbr, bs, generator=g, **f64) for _ in range(2))
+    got = _launch_once(pbj_ops, lambda: pbj_ops.pbjacobi_update(
+        dinv, r, x, 0.7))
+    _close(got, pbjacobi_update_ref(dinv, r, x, 0.7))
+    w = torch.tensor([0.7], **f64)
+    assert torch.equal(_launch_once(pbj_ops, lambda: pbj_ops.pbjacobi_update(
+        dinv, r, x, w)), got)
+
+
+def _tuned_calls(dev):
+    """One small launch of each tuned family, taking ``threads``."""
+    g = torch.Generator(device=dev).manual_seed(80)
+    f64 = dict(dtype=torch.float64, device=dev)
+    idx = torch.randint(0, 300, (700, 9), generator=g, device=dev,
+                        dtype=torch.int32)
+    a66 = torch.randn(700, 9, 6, 6, generator=g, **f64)
+    x = torch.randn(300, 6, generator=g, **f64)
+    X = torch.randn(300, 6, 5, generator=g, **f64)
+    sm = (idx, a66, torch.randn(700, 6, 6, generator=g, **f64)) + tuple(
+        torch.randn(700, 6, 3, generator=g, **f64) for _ in range(3)) + (
+        torch.tensor([0.25, 0.8], **f64),)
+    ga = torch.randn(300, 6, 3, generator=g, **f64)
+    gb = torch.randn(300, 3, 6, generator=g, **f64)
+    mask = torch.rand(700, 9, generator=g, device=dev) < 0.7
+    dinv = torch.randn(700, 6, 6, generator=g, **f64)
+    r, xv = (torch.randn(700 * 6, generator=g, **f64) for _ in range(2))
+    return {
+        "block_spmv": lambda t: spmv_ops.block_spmv_ell(idx, a66, x,
+                                                        threads=t),
+        "block_spmm": lambda t: spmm_ops.block_spmm_ell(idx, a66, X,
+                                                        threads=t),
+        "fused_smoother": lambda t: smooth_ops.smoother_step_ell(
+            *sm, threads=t),
+        "fused_pair_gemm": lambda t: gemm_ops.fused_pair_gemm(
+            ga, gb, idx, idx, mask, threads=t),
+        "pbjacobi": lambda t: pbj_ops.pbjacobi_apply(dinv, r, xv, 0.6,
+                                                     threads=t),
+    }
+
+
+@pytest.mark.parametrize("family", sorted(autotune.CANDIDATES))
+def test_threads_candidates_bitwise(dev, family):
+    """The block size changes nothing but speed: every candidate is
+    bitwise the 256-thread launch."""
+    call = _tuned_calls(dev)[family]
+    want = call(autotune.DEFAULT_THREADS)
+    want = want if isinstance(want, tuple) else (want,)
+    for t in autotune.CANDIDATES[family]["threads"]:
+        got = call(t)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), t
+
+
+@pytest.mark.parametrize("threads", [48, 2048])
+def test_invalid_threads_raise(dev, threads):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        _tuned_calls(dev)["block_spmv"](threads)
+    # the C entry points refuse it as well (cudaErrorInvalidValue)
+    f64 = dict(dtype=torch.float64, device=dev)
+    dinv = torch.zeros(4, 3, 3, **f64)
+    r = torch.zeros(4, 3, **f64)
+    w = torch.ones(1, **f64)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        p = backend.ptr
+        backend.launch("repro_pbjacobi_f64", pbj_ops._ARGS, p(dinv), p(r),
+                       p(r), p(w), p(torch.empty_like(r)), 4, 3, threads)

@@ -20,6 +20,7 @@ from repro_torch.kernels.block_spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
+from repro_torch.kernels.pbjacobi import ops as pbj_ops  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -104,14 +105,16 @@ def _cpu_calls():
             t((4, 3, 5)), t((2,)))),
         (pair_ops, lambda: pair_ops.block_pair_gemm(t((7, 6, 3)),
                                                     t((7, 3, 6)))),
+        (pbj_ops, lambda: pbj_ops.pbjacobi_update(t((4, 6, 6)), t((4, 6)),
+                                                  t((4, 6)), 0.6)),
     ]
 
 
-@pytest.mark.parametrize("i", range(7), ids=["block_seg_sum", "block_spmv",
+@pytest.mark.parametrize("i", range(8), ids=["block_seg_sum", "block_spmv",
                                              "fused_smoother",
                                              "fused_pair_gemm", "block_spmm",
                                              "fused_smoother_panel",
-                                             "block_pair_gemm"])
+                                             "block_pair_gemm", "pbjacobi"])
 def test_cpu_calls_take_the_plain_version_and_count_nothing(i):
     mod, call = _cpu_calls()[i]
     before = mod.launches
@@ -128,6 +131,28 @@ def test_other_devices_and_mixed_devices_raise():
     with pytest.raises(ValueError, match="several devices"):
         spmv_ops.block_spmv_ell(torch.zeros((4, 2), dtype=torch.int32),
                                 meta, torch.zeros((1, 3)))
+
+
+def test_pbjacobi_mixed_devices_raise():
+    cpu = torch.zeros((4, 3), dtype=torch.float64)
+    dinv = torch.zeros((4, 3, 3), dtype=torch.float64)
+    meta = torch.empty((4, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        pbj_ops.pbjacobi_update(dinv, meta, cpu, 0.6)
+    with pytest.raises(ValueError, match="several devices"):
+        pbj_ops.pbjacobi_update(dinv, cpu, cpu, torch.ones(
+            1, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pbj_ops.pbjacobi_update(dinv.to("meta"), meta, meta, 0.6)
+
+
+def test_tune_knob_validates(monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TUNE", "bogus")
+    with pytest.raises(ValueError, match="autotune mode"):
+        backend.resolve_tune()
+    monkeypatch.delenv("REPRO_TORCH_TUNE")
+    assert backend.resolve_tune() == "cache"
+    assert backend.resolve_tune("off") == "off"
 
 
 def test_path_knobs_validate(monkeypatch):

@@ -34,6 +34,9 @@ from repro.kernels.fused_smoother.fused_smoother import (  # noqa: E402
 from repro.kernels.fused_smoother.ref import (  # noqa: E402
     smoother_step_ref as jnp_smooth,
 )
+from repro.kernels.pbjacobi.ops import pbjacobi_apply as pl_pbj_apply  # noqa
+from repro.kernels.pbjacobi.pbjacobi import pbjacobi_update as pl_pbj  # noqa
+from repro.kernels.pbjacobi.ref import pbjacobi_update_ref as jnp_pbj  # noqa
 
 from repro_torch.core import spgemm as t_spgemm  # noqa: E402
 from repro_torch.interop import bcsr_from_numpy  # noqa: E402
@@ -43,6 +46,7 @@ from repro_torch.kernels.block_spmm import ops as spmm_ops  # noqa: E402
 from repro_torch.kernels.block_spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.fused_pair_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.fused_smoother import ops as smooth_ops  # noqa
+from repro_torch.kernels.pbjacobi import ops as pbj_ops  # noqa: E402
 
 from helpers import random_bcsr  # noqa: E402
 from torch_helpers import assert_close, bcsr_dict  # noqa: E402
@@ -222,3 +226,35 @@ def test_pairs_spgemm_matches_reference(br, bk, bc):
     want = ref_spgemm(plan, A.data, B.data, path="reference")
     got = t_spgemm.spgemm_numeric_data(tplan, tA.data, tB.data, path="pairs")
     assert_close(got, want)
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+@pytest.mark.parametrize("nbr", [1, 37, 256])
+def test_pbjacobi_plain_matches_pallas_and_ref(bs, nbr):
+    """``x + omega D^-1 r``; 37 rows are ragged against the reference's
+    64-row tile."""
+    rng = np.random.default_rng(600 + 10 * bs + nbr)
+    dinv = rng.standard_normal((nbr, bs, bs))
+    r, x = rng.standard_normal((nbr, bs)), rng.standard_normal((nbr, bs))
+    got = pbj_ops.pbjacobi_update(_t(dinv), _t(r), _t(x), 0.7)
+    jargs = tuple(jnp.asarray(a) for a in (dinv, r, x))
+    assert_close(got, jnp_pbj(*jargs, 0.7))
+    assert_close(got, pl_pbj(*jargs, jnp.asarray(0.7), interpret=True))
+    # omega as a one-element tensor, and the flat front door
+    assert_close(pbj_ops.pbjacobi_update(_t(dinv), _t(r), _t(x),
+                                         torch.tensor([0.7], dtype=torch.float64)),
+                 got)
+    flat = pbj_ops.pbjacobi_apply(_t(dinv), _t(r.reshape(-1)),
+                                  _t(x.reshape(-1)), 0.7,
+                                  accum_dtype=torch.float64)
+    assert flat.shape == (nbr * bs,)
+    assert_close(flat, pl_pbj_apply(jargs[0], jargs[1].reshape(-1),
+                                    jargs[2].reshape(-1), 0.7,
+                                    interpret=True))
+
+
+def test_pbjacobi_apply_refuses_sub_f64_accumulation():
+    dinv, r = torch.eye(3, dtype=torch.float64)[None], torch.ones(3)
+    with pytest.raises(ValueError, match="Queue 1 item 6"):
+        pbj_ops.pbjacobi_apply(dinv, r.double(), r.double(), 0.5,
+                               accum_dtype=torch.float32)
