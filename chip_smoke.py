@@ -44,6 +44,14 @@ candidate at the m=32 shapes and requires the output bitwise equal to
 the 256-thread launch, times winner against default with CUDA events, and
 runs a hot step and a k=16 panel solve static, tuned, tuned, static
 (equal iterations, bitwise solutions), and profiles one tuned hot step.
+Last, it sets the port up on the CPU at m=32 and compares the card's
+aggregates with it: levels, nnzb and ``n_agg`` equal, and every node in
+another aggregate traced back to greedy pass-2 ties within ``TIE_ULPS``
+of the CPU's weights (the two operators differ by rounding; m=7 stays
+bitwise).  ``block_spmv`` and ``block_spmm`` give each block row a
+sub-warp of ``ell_rows.lanes(br, bc, kmax)`` lanes, printed with each of
+their ``kernel case`` lines; a ``lanes sweep`` line per case times every
+lanes value the C entries take beside the map's choice.
 The second-to-last line is the per-kernel JSON record and the last line
 ``{"ok": true, "device": ...}``.  Any failure raises (exit code not 0).
 Without a CUDA device, or outside a checkout, it exits with code 2 before
@@ -65,12 +73,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-REL_TOL = 1e-12          # kernel vs plain version, f64
+REL_TOL = 1e-12          # kernel vs plain version, f64, scaled by max |plain|
 SOLUTION_TOL = 1e-9      # port on CPU vs port on the card
 MAIN_M = 32              # ElasticityConfig(m=32): the paper's one-device rung
 EXPECT_LEVEL_ROWS = [95232, 7986, 5016, 114]
 EXPECT_ITERS = 13        # the JAX reference's count on this configuration
 CHECK_M, CHECK_COARSE = 7, 12
+TIE_ULPS = 8             # m=32 aggregates: pass-2 ties that may flip
+LANES = (1, 2, 4, 8, 16, 32)    # what the ELL kernels' C entries take
 BUCKETS = (1, 2, 4, 8, 16)
 BURSTS = (1, 3, 8, 5, 16, 21)   # 21 = a full 16 panel + 5 in an 8 panel
 CHECKED_BURSTS = (3, 5)         # per column against dedicated solves
@@ -142,8 +152,8 @@ def sync(device):
 def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
     """Median milliseconds of one ``fn()`` between two CUDA events.  The
     card is idle when the first event is recorded, so a short kernel's
-    number includes the host's time to enqueue it (kept beside
-    ``device_ms`` as ``ms_single``)."""
+    number includes the host's time to enqueue it (kept beside the
+    autotuner's ``device_ms`` as ``ms_single``)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -157,31 +167,6 @@ def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-SLEEP_CYCLES = 20_000_000      # ~10 ms of torch.cuda._sleep on an H100
-
-
-def device_ms(fn, launches: int = 10, reps: int = 5) -> float:
-    """Median device milliseconds per call of ``fn()``: ``launches`` calls
-    queued behind a sleep kernel between two CUDA events, so the card runs
-    them back to back and the host's enqueue time is not counted (as long
-    as the host queues the batch within the sleep)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -494,10 +479,13 @@ class Case:
     tuned kernel's ``run`` takes ``threads=`` (None resolves it)."""
 
     def __init__(self, kernel, label, run, plain, nbytes, flops,
-                 library=None):
+                 library=None, lanes=None, at_lanes=None):
         self.kernel, self.label = kernel, label
         self.run, self.plain, self.library = run, plain, library
         self.nbytes, self.flops = nbytes, flops
+        # block_spmv / block_spmm: the map's lanes, and the kernel at any
+        # lanes (256 threads) for the sweep of the map's choice
+        self.lanes, self.at_lanes = lanes, at_lanes
 
 
 def _unique_count(idx, mask=None) -> int:
@@ -519,7 +507,9 @@ def build_cases(run: dict, device) -> list:
     from repro_torch.kernels.block_spmm import ops as spmm
     from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
     from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.kernels.autotune import DEFAULT_THREADS
     from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
+    from repro_torch.kernels.ell_rows import lanes
     from repro_torch.kernels.fused_pair_gemm import ops as gemm
     from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
     from repro_torch.kernels.fused_smoother import ops as smooth
@@ -563,6 +553,7 @@ def build_cases(run: dict, device) -> list:
             x = randn(ell.nbc, ell.bc)
             csr = _scalar_csr(ell)
             xf = x.reshape(-1)
+            nl = lanes(ell.br, ell.bc, ell.kmax)
             cases.append(Case(
                 "block_spmv",
                 f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})",
@@ -573,7 +564,9 @@ def build_cases(run: dict, device) -> list:
                 nbytes=nnz * (ell.br * ell.bc * 8 + 4) + x.numel() * 8
                 + ell.nbr * ell.br * 8,
                 flops=2 * nnz * ell.br * ell.bc,
-                library=lambda csr=csr, xf=xf: torch.mv(csr, xf)))
+                library=lambda csr=csr, xf=xf: torch.mv(csr, xf), lanes=nl,
+                at_lanes=lambda n, ell=ell, x=x: spmv.launch_lanes(
+                    ell.indices, ell.data, x, n, DEFAULT_THREADS)))
             for k in PANEL_KS:
                 X = randn(ell.nbc, ell.bc, k)
                 Xf = X.reshape(ell.nbc * ell.bc, k)
@@ -588,7 +581,10 @@ def build_cases(run: dict, device) -> list:
                     nbytes=nnz * (ell.br * ell.bc * 8 + 4) + X.numel() * 8
                     + ell.nbr * ell.br * k * 8,
                     flops=2 * nnz * ell.br * ell.bc * k,
-                    library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf)))
+                    library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf),
+                    lanes=nl, at_lanes=lambda n, ell=ell, X=X:
+                    spmm.launch_lanes(ell.indices, ell.data, X, n,
+                                      DEFAULT_THREADS)))
         a = lv.a_ell
         bs = a.br
         nnz = int(a.mask.sum())
@@ -768,6 +764,8 @@ def check_bitwise(run: dict, device) -> dict:
 def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
     """Hold every case's kernel against its plain version; time it."""
     import torch
+
+    from repro_torch.kernels.autotune import device_ms
     bw, fp = peaks
     per = {name: dict(cases=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
                       ms_single=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -795,6 +793,8 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
         row["flops"] += c.flops
         line = dict(kernel=c.kernel, case=c.label, max_abs_err=err,
                     max_rel_err=rel, bound_ms=bound, bytes=c.nbytes)
+        if c.lanes is not None:
+            line["lanes"] = c.lanes
         if timed:
             k_ms, p_ms = device_ms(c.run), device_ms(c.plain)
             l_ms = device_ms(c.library) if c.library is not None else None
@@ -810,6 +810,29 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
                         ms_single=s_ms)
         print("kernel case " + json.dumps(line))
     return per
+
+
+def lanes_sweep(cases: list) -> None:
+    """``block_spmv`` and ``block_spmm`` at every lanes value a C entry
+    takes, at the paths' shapes and 256 threads: each held against the
+    plain version, timed with CUDA events beside the map's choice (the
+    map is no knob; this shows what it leaves on the table)."""
+    from repro_torch.kernels.autotune import device_ms
+    for c in cases:
+        if c.at_lanes is None:
+            continue
+        want = c.plain()
+        ms = {}
+        for n in LANES:
+            rel = _rel(c.at_lanes(n), want)
+            if not rel <= REL_TOL:
+                raise AssertionError(f"{c.kernel} {c.label} lanes={n}: max "
+                                     f"rel err {rel:.3e} > {REL_TOL}")
+            ms[n] = device_ms(lambda n=n: c.at_lanes(n))
+        best = min(ms, key=ms.get)
+        print("lanes sweep " + json.dumps(dict(
+            kernel=c.kernel, case=c.label, map=c.lanes, ms_by_lanes=ms,
+            best=best, map_over_best=ms[c.lanes] / ms[best])))
 
 
 def copy_bandwidth() -> float:
@@ -943,8 +966,12 @@ def check_threads_bitwise(cases: list) -> dict:
 def tuned_vs_static_kernels(cases: list, verbose: bool = True) -> list:
     """Each tuned case at the cached winner against the static 256-thread
     launch, device times with CUDA events in turns (static, tuned, tuned,
-    static; each number the mean of its two medians)."""
+    static; each number the mean of its two medians).  ``beyond_margin``
+    marks a winner slower than 256 by more than the sweep's
+    ``EVENT_MARGIN`` (the sweep ran on synthetic operands, these on the
+    paths' own)."""
     from repro_torch.kernels import autotune
+    from repro_torch.kernels.autotune import device_ms
     rows = []
     for c in cases:
         if c.kernel not in TUNED:
@@ -959,7 +986,9 @@ def tuned_vs_static_kernels(cases: list, verbose: bool = True) -> list:
         row = dict(kernel=c.kernel, case=c.label, items=sig["items"],
                    threads=won, static_ms=(s1 + s2) / 2,
                    tuned_ms=(t1 + t2) / 2, static_pair=[s1, s2],
-                   tuned_pair=[t1, t2])
+                   tuned_pair=[t1, t2],
+                   beyond_margin=t1 + t2 > (s1 + s2) * (
+                       1 + autotune.EVENT_MARGIN))
         rows.append(row)
         if verbose:
             print("tune kernel " + json.dumps(row))
@@ -1082,6 +1111,55 @@ def cpu_vs_cuda(m: int, coarse_size: int) -> dict:
     return out
 
 
+def aggregates_vs_cpu(run: dict) -> dict:
+    """The card's m=32 setup against the port's on the CPU: levels, nnzb
+    and ``n_agg`` equal; where a level's aggregates differ, every
+    difference traced back to greedy pass-2 ties within ``TIE_ULPS``,
+    judged by the CPU's weights (``trace_tie_flips``)."""
+    import numpy as np
+
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.core import gamg
+    from repro_torch.core.aggregation import trace_tie_flips
+    from repro_torch.core.strength import strength_graph
+    from repro_torch.fem.assemble import assemble_elasticity
+
+    cfg = ElasticityConfig(m=MAIN_M)
+    t0 = time.perf_counter()
+    prob = assemble_elasticity(cfg.m, order=cfg.order, E=cfg.E, nu=cfg.nu,
+                               device="cpu")
+    cpu = gamg.setup(prob.A, prob.B, theta=cfg.theta,
+                     coarse_size=cfg.coarse_size, coarsener=cfg.coarsener)
+    setup_s = time.perf_counter() - t0
+    card = run["solver"].setup_data
+    for key in ("level_rows", "level_nnzb", "level_bs"):
+        if cpu.stats[key] != card.stats[key]:
+            raise AssertionError(f"m={MAIN_M} {key}: CPU {cpu.stats[key]}, "
+                                 f"card {card.stats[key]}")
+    tol = TIE_ULPS * float(np.finfo(np.float64).eps)
+    levels = []
+    for li, (a, b) in enumerate(zip(cpu.levels, card.levels)):
+        if a.aggr.n_agg != b.aggr.n_agg:
+            raise AssertionError(f"m={MAIN_M} level {li}: n_agg "
+                                 f"{a.aggr.n_agg} on CPU, {b.aggr.n_agg} "
+                                 f"on the card")
+        if np.array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg):
+            levels.append(dict(level=li, differing_nodes=0))
+            continue
+        out = trace_tie_flips(strength_graph(a.A0, cpu.theta),
+                              strength_graph(b.A0, card.theta),
+                              -(-cpu.nns_dim // a.A0.br), tol)
+        levels.append(dict(level=li, **out))
+        if not (out["same_edges"] and out["traced"]):
+            raise AssertionError(f"m={MAIN_M} level {li}: aggregates differ "
+                                 f"beyond pass-2 ties within {TIE_ULPS} "
+                                 f"ulps: {out}")
+    return dict(cpu_setup_s=setup_s, tie_rtol=tol, levels=levels,
+                differing_nodes=sum(lv["differing_nodes"] for lv in levels),
+                max_tie_gap=max(lv.get("max_tie_gap", 0.0)
+                                for lv in levels))
+
+
 # ---------------------------------------------------------------------------
 
 def card_line() -> str:
@@ -1151,7 +1229,7 @@ def main() -> int:
 def run_all() -> int:
     import torch
 
-    from repro_torch.kernels import backend
+    from repro_torch.kernels import autotune, backend
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1194,11 +1272,16 @@ def run_all() -> int:
           f"{copy_bandwidth() / 1e12:.3f} TB/s")
     cases = build_cases(run, "cuda")
     per = check_kernels(cases, peaks)
+    lanes_sweep(cases)
 
     by_path["tune"], _ = tune_path(run, sigs.seen, "cuda")
     check_path_launches("tune", by_path["tune"], TUNED)
     print("threads bitwise " + json.dumps(check_threads_bitwise(cases)))
-    tuned_vs_static_kernels(cases)
+    rows = tuned_vs_static_kernels(cases)
+    slower = [r for r in rows if r["beyond_margin"]]
+    print("tune winners slower than 256 beyond the margin " + json.dumps(
+        dict(margin=autotune.EVENT_MARGIN, count=len(slower), of=len(rows),
+             cases=[f"{r['kernel']} {r['case']}" for r in slower])))
     print("tune resolve host us per call "
           + json.dumps(resolve_cost_us(run)))
     tuned_vs_static_steps(run, "cuda", EXPECT_ITERS)
@@ -1207,6 +1290,8 @@ def run_all() -> int:
 
     check = cpu_vs_cuda(CHECK_M, CHECK_COARSE)
     print("cpu vs cuda " + json.dumps(check))
+    print(f"m={MAIN_M} aggregates card vs cpu "
+          + json.dumps(aggregates_vs_cpu(run)))
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks)))
     print(json.dumps({"ok": True, "device": {

@@ -18,19 +18,24 @@ module closes that loop as the reference does:
   untuned launch; no file is read), "cache" (default) -> a cached winner
   when one exists, "sweep" -> measure on a miss and record the winner;
 * sweeps time each candidate on synthetic operands of the signature's
-  shape through ``repro_torch.obs.metrics.MetricsRegistry.measure`` (the
-  first call files under ``.../compile``, the rest under ``.../steady``;
-  each call synchronises the card) and keep the best *steady* time (min
-  over repeats);
+  shape.  On the card each is scored by CUDA events (``device_ms``: 10
+  launches queued behind a sleep kernel, median of 5 batches), and a
+  candidate replaces the static 256 only when it beats 256 by more than
+  ``EVENT_MARGIN`` (a host clock cannot rank differences under ~5% or
+  launches under ~0.1 ms).  On the CPU
+  (the plain versions) each goes through
+  ``repro_torch.obs.metrics.MetricsRegistry.measure`` (the first call
+  files under ``.../compile``, the rest under ``.../steady``) and the best
+  *steady* time (min over repeats) wins;
 * winners persist as JSON keyed by ``machine_key(device)`` then
   ``family|signature``, at ``REPRO_TORCH_TUNE_CACHE`` or
   ``~/.cache/repro_torch/autotune.json``.
 
 Signatures are the reference's keys (block shape, ELL width ``kmax``, the
 panel width ``k`` of ``block_spmm``, dtype) plus ``items``: the launch's
-work-item count, one thread each — block rows (``block_spmv``, the vector
-``fused_smoother``), rows x k (``block_spmm``, the panel
-``fused_smoother``), rows x bs (``pbjacobi``), tile rows x br x bc
+work-item count — block rows (``block_spmv``, a sub-warp each; the
+vector ``fused_smoother``, a thread each), rows x k (``block_spmm``, the
+panel ``fused_smoother``), rows x bs (``pbjacobi``), tile rows x br x bc
 (``fused_pair_gemm``) — rounded up to a power of two.  On Hopper the best
 block size depends on how many blocks a launch spreads over the card's
 132 SMs (836 block rows in blocks of 256 occupy 4 of them); a TPU grid ran
@@ -57,6 +62,7 @@ import itertools
 import json
 import os
 import platform
+import statistics
 import tempfile
 import time
 from pathlib import Path
@@ -78,6 +84,17 @@ CANDIDATES = {
     for family in ("block_spmv", "block_spmm", "pbjacobi", "fused_smoother",
                    "fused_pair_gemm")
 }
+
+#: on the card, the share by which a candidate's CUDA-event time must beat
+#: the static 256's for the sweep to record it: ``device_ms`` of one
+#: launch repeated in one process moves by a few percent (up to 4% between
+#: readings in turns on an H100), so a smaller gain is not told apart from
+#: noise
+EVENT_MARGIN = 0.05
+
+#: ``device_ms``: cycles of ``torch.cuda._sleep`` ahead of each batch
+#: (~10 ms on an H100, enough for the host to queue the batch behind it)
+SLEEP_CYCLES = 20_000_000
 
 #: seconds between two ``stat`` calls on the cache file: the port resolves
 #: at every launch (~700 a hot step), and a ``stat`` can cost tens of
@@ -347,6 +364,28 @@ def _param_grid(family: str):
             for vals in itertools.product(*(cands[n] for n in names))]
 
 
+def device_ms(fn, launches: int = 10, reps: int = 5) -> float:
+    """Median device milliseconds per call of ``fn()`` on the card:
+    ``launches`` calls queued behind a sleep kernel between two CUDA
+    events, so the card runs them back to back and the host's enqueue time
+    is not counted (as long as the host queues the batch within the
+    sleep)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def sweep(family: str, signature: dict, *, nbr: int | None = None,
           repeats: int = 3, device="cuda", record_winner: bool = True
           ) -> dict:
@@ -354,12 +393,15 @@ def sweep(family: str, signature: dict, *, nbr: int | None = None,
     winner under that device's machine key.
 
     Operands are synthetic, at the signature's ``items`` (``nbr`` rows
-    when given).  Each candidate is measured through
-    ``MetricsRegistry.measure`` — the first call files under
-    ``.../compile``, the following ``repeats`` under ``.../steady`` — and
-    scored by its *min* steady seconds.  On the CPU every candidate runs
-    the same plain version.  Returns ``{"params", "best_us", "table"}``
-    (``table`` maps the candidate key to its best microseconds).
+    when given).  On the card each candidate is scored by ``device_ms``
+    (CUDA events), and the winner is the static ``DEFAULT_THREADS``
+    unless the fastest candidate beats it by more than ``EVENT_MARGIN``.
+    On the CPU, where every candidate runs the same plain version, each is
+    measured through ``MetricsRegistry.measure`` — the first call files
+    under ``.../compile``, the following ``repeats`` under ``.../steady``
+    — and scored by its *min* steady seconds.  Returns ``{"params",
+    "best_us", "table"}`` (``table`` maps the candidate key to its best
+    microseconds).
     """
     if family not in CANDIDATES:
         raise ValueError(f"unknown autotune family {family!r}")
@@ -373,13 +415,20 @@ def sweep(family: str, signature: dict, *, nbr: int | None = None,
     for params in _param_grid(family):
         fn = _make_runner(family, params, ops)
         key = ",".join(f"{k}={v}" for k, v in sorted(params.items()))
-        name = f"tune/{family}/{key}"
-        for _ in range(repeats + 1):
-            reg.measure(name, fn)
-        us = reg.get(name + "/steady").snapshot()["min"] * 1e6
+        if dev.type == "cuda":
+            us = device_ms(fn) * 1e3
+        else:
+            name = f"tune/{family}/{key}"
+            for _ in range(repeats + 1):
+                reg.measure(name, fn)
+            us = reg.get(name + "/steady").snapshot()["min"] * 1e6
         table[key] = us
         if best is None or us < best[1]:
             best = (params, us)
+    static = {"threads": DEFAULT_THREADS}
+    static_us = table[f"threads={DEFAULT_THREADS}"]
+    if dev.type == "cuda" and best[1] >= static_us * (1 - EVENT_MARGIN):
+        best = (static, static_us)
     won = {"params": best[0], "best_us": best[1], "table": table}
     if record_winner:
         record(family, signature, best[0], best_us=best[1], device=dev)

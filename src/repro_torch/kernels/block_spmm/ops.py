@@ -10,11 +10,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.block_csr import BlockELL
-from repro_torch.kernels import autotune, backend
+from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
 
 SHAPES = ((3, 3), (3, 6), (6, 6))
-_ARGS = (backend.P,) * 4 + (backend.I,) * 6 + (backend.P,)
+_ARGS = (backend.P,) * 4 + (backend.I,) * 7 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -25,9 +25,11 @@ def block_spmm_ell(indices: torch.Tensor, data: torch.Tensor,
                    threads: int | None = None) -> torch.Tensor:
     """Y = A X with A in padded BlockELL form: int32 ``(nbr, kmax)``
     indices, ``(nbr, kmax, br, bc)`` data, ``(nbc, bc, k)`` X -> ``(nbr,
-    br, k)``.  ``threads`` (one per (block row, column)) ``None`` resolves
-    through the autotuner (static default 256).  CPU tensors take the
-    plain version; CUDA tensors the kernel."""
+    br, k)``.  Each block row takes ``ell_rows.lanes(br, bc, kmax)`` lanes,
+    as in ``block_spmv``, so column j is bitwise ``block_spmv`` of column
+    j; ``threads`` per CUDA block, ``None`` resolved through the autotuner
+    (static default 256), only sets how many rows share a block.  CPU
+    tensors take the plain version; CUDA tensors the kernel."""
     global launches
     name = "block_spmm"
     if x_panels.ndim != 3 or x_panels.shape[2] <= 0:
@@ -39,6 +41,7 @@ def block_spmm_ell(indices: torch.Tensor, data: torch.Tensor,
     threads = autotune.launch_threads(
         name, autotune.signature(data.dtype, nbr * k, br=br, bc=bc,
                                  kmax=kmax, k=k), threads, data.device)
+    lanes = ell_rows.lanes(br, bc, kmax)
     if not cuda:
         return block_spmm_ell_ref(indices, data, x_panels)
     if (br, bc) not in SHAPES:
@@ -50,11 +53,25 @@ def block_spmm_ell(indices: torch.Tensor, data: torch.Tensor,
                          f"disagree")
     backend.check_kernel_args(name, dict(data=data, x=x_panels),
                               dict(indices=indices))
+    ell_rows.check_payload(name, data)
+    y = launch_lanes(indices, data, x_panels, lanes, threads)
+    launches += 1
+    return y
+
+
+def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
+                 x_panels: torch.Tensor, lanes: int,
+                 threads: int) -> torch.Tensor:
+    """The kernel at an explicit ``lanes`` (the wrapper passes
+    ``ell_rows.lanes``; the card tests and ``chip_smoke.py`` sweep it).
+    Takes checked CUDA tensors, counts no launch; the C entry point
+    refuses a ``lanes`` that is not a power of two <= 32."""
+    nbr, kmax, br, bc = data.shape
+    k = x_panels.shape[2]
     y = torch.empty((nbr, br, k), dtype=data.dtype, device=data.device)
     backend.launch("repro_block_spmm_f64", _ARGS, backend.ptr(indices),
                    backend.ptr(data), backend.ptr(x_panels), backend.ptr(y),
-                   nbr, kmax, br, bc, k, threads)
-    launches += 1
+                   nbr, kmax, br, bc, k, lanes, threads)
     return y
 
 

@@ -8,11 +8,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.block_csr import BlockELL
-from repro_torch.kernels import autotune, backend
+from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
 
 SHAPES = ((3, 3), (3, 6), (6, 6))
-_ARGS = (backend.P,) * 4 + (backend.I,) * 5 + (backend.P,)
+_ARGS = (backend.P,) * 4 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -23,9 +23,10 @@ def block_spmv_ell(indices: torch.Tensor, data: torch.Tensor,
                    threads: int | None = None) -> torch.Tensor:
     """y = A x with A in padded BlockELL form: int32 ``(nbr, kmax)``
     indices, ``(nbr, kmax, br, bc)`` data, ``(nbc, bc)`` x -> ``(nbr, br)``.
-    ``threads`` (one per block row) ``None`` resolves through the
-    autotuner (static default 256).  CPU tensors take the plain version;
-    CUDA tensors the kernel."""
+    Each block row takes ``ell_rows.lanes(br, bc, kmax)`` lanes;
+    ``threads`` per CUDA block, ``None`` resolved through the autotuner
+    (static default 256), only sets how many rows share a block.  CPU
+    tensors take the plain version; CUDA tensors the kernel."""
     global launches
     name = "block_spmv"
     cuda = backend.on_cuda(name, indices=indices, data=data, x=x_blocks)
@@ -33,6 +34,7 @@ def block_spmv_ell(indices: torch.Tensor, data: torch.Tensor,
     threads = autotune.launch_threads(
         name, autotune.signature(data.dtype, nbr, br=br, bc=bc, kmax=kmax),
         threads, data.device)
+    lanes = ell_rows.lanes(br, bc, kmax)
     if not cuda:
         return block_spmv_ell_ref(indices, data, x_blocks)
     if (br, bc) not in SHAPES:
@@ -44,11 +46,24 @@ def block_spmv_ell(indices: torch.Tensor, data: torch.Tensor,
                          f"disagree")
     backend.check_kernel_args(name, dict(data=data, x=x_blocks),
                               dict(indices=indices))
+    ell_rows.check_payload(name, data)
+    y = launch_lanes(indices, data, x_blocks, lanes, threads)
+    launches += 1
+    return y
+
+
+def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
+                 x_blocks: torch.Tensor, lanes: int,
+                 threads: int) -> torch.Tensor:
+    """The kernel at an explicit ``lanes`` (the wrapper passes
+    ``ell_rows.lanes``; the card tests and ``chip_smoke.py`` sweep it).
+    Takes checked CUDA tensors, counts no launch; the C entry point
+    refuses a ``lanes`` that is not a power of two <= 32."""
+    nbr, kmax, br, bc = data.shape
     y = torch.empty((nbr, br), dtype=data.dtype, device=data.device)
     backend.launch("repro_block_spmv_f64", _ARGS, backend.ptr(indices),
                    backend.ptr(data), backend.ptr(x_blocks), backend.ptr(y),
-                   nbr, kmax, br, bc, threads)
-    launches += 1
+                   nbr, kmax, br, bc, lanes, threads)
     return y
 
 

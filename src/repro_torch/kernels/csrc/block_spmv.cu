@@ -8,41 +8,57 @@
 // Bound: bytes.  Every (br x bc) payload block and its int32 column index
 // are read once (2*br*bc flops per block, far below the card's
 // flop-per-byte balance); x blocks are gathered (mostly from L2) and y is
-// written once.  Design (first, plain): one thread per block row loops over
-// its kmax slots, gathers the bc-wide x block by the slot's index, and
-// accumulates br outputs in registers with FMAs (ell_row_apply, shared
-// with block_spmm and fused_smoother).  Padded slots are zero blocks
-// pointing at column 0, so they add exact zeros and need no mask.
-// Thread-per-row reads each row's payload with a stride of kmax*br*bc
-// doubles between neighbouring threads, and wide, short coarse levels
-// launch few threads: a later redesign maps a warp to a row.
+// written once.  Design: a sub-warp of `lanes` lanes owns one block row
+// (ell_row_lanes, shared with block_spmm).  Lane l walks the slots l,
+// l + lanes, ... and neighbouring lanes read neighbouring slots, so the
+// row's payload streams in lanes * br * bc consecutive doubles and the
+// slot loop a lane runs in sequence is kmax / lanes long instead of kmax.
+// The partials meet in a fixed xor butterfly, and the sub-warp's first
+// lanes write the br outputs once.  `lanes` comes from the caller, a
+// function of (br, bc, kmax) alone (kernels/ell_rows.py): wide sub-warps
+// for the wide coarse rows, narrow ones for the fine level.  `threads`
+// (threads per block) sets threads / lanes rows per block and nothing
+// else, so the reduction order of a row does not depend on it.  Padded
+// slots are zero blocks pointing at column 0: they add exact zeros and
+// need no mask.  A lane reads each block row of its slot in 16-byte pairs
+// where the block width is even (payloads must then be 16-byte aligned).
 #include "ell_row.cuh"
 
 namespace {
 
 template <int BR, int BC>
-__global__ void spmv_kernel(const int* __restrict__ idx,
+__global__ void __launch_bounds__(1024) spmv_kernel(const int* __restrict__ idx,
                             const double* __restrict__ data,
                             const double* __restrict__ x,
-                            double* __restrict__ y, int nbr, int kmax) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= nbr) return;
-  double acc[BR];
-  repro::ell_row_apply<BR, BC>(idx + static_cast<long long>(r) * kmax,
-                               data + static_cast<long long>(r) * kmax * BR *
-                                          BC,
-                               x, 1, kmax, acc);
-  double* yr = y + static_cast<long long>(r) * BR;
+                            double* __restrict__ y, int nbr, int kmax,
+                            int lanes) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const long long r = t >> (__ffs(lanes) - 1);
+  const int lane = threadIdx.x & (lanes - 1);
+  const bool live = r < nbr;
+  // rows past nbr run no slot but still join the butterfly
+  const long long rr = live ? r : 0;
+  double acc[BR][1];
+  repro::ell_row_lanes<BR, BC, 1>(idx + rr * kmax, data + rr * kmax * BR * BC,
+                                  x, 1, 1, live ? kmax : 0, lane, lanes, acc);
+  repro::lanes_sum<BR, 1>(acc, lanes);
+  if (!live) return;
+  double* yr = y + r * BR;
 #pragma unroll
-  for (int a = 0; a < BR; ++a) yr[a] = acc[a];
+  for (int a = 0; a < BR; ++a)
+    if ((a & (lanes - 1)) == lane) yr[a] = acc[a][0];
 }
 
 template <int BR, int BC>
 int launch(const int* idx, const double* data, const double* x, double* y,
-           int nbr, int kmax, int threads, cudaStream_t stream) {
+           int nbr, int kmax, int lanes, int threads, cudaStream_t stream) {
+  if (!repro::payload_ok<BC>(data)) return repro::bad_shape();
   if (nbr == 0) return repro::last_error();
-  spmv_kernel<BR, BC><<<repro::blocks_for(nbr, threads), threads, 0,
-                        stream>>>(idx, data, x, y, nbr, kmax);
+  spmv_kernel<BR, BC><<<repro::blocks_for(static_cast<long long>(nbr) * lanes,
+                                          threads),
+                        threads, 0, stream>>>(idx, data, x, y, nbr, kmax,
+                                              lanes);
   return repro::last_error();
 }
 
@@ -50,17 +66,17 @@ int launch(const int* idx, const double* data, const double* x, double* y,
 
 REPRO_API int repro_block_spmv_f64(const void* indices, const void* data,
                                    const void* x, void* y, int nbr, int kmax,
-                                   int br, int bc, int threads,
+                                   int br, int bc, int lanes, int threads,
                                    void* stream) {
   auto i = static_cast<const int*>(indices);
   auto d = static_cast<const double*>(data);
   auto xv = static_cast<const double*>(x);
   auto yv = static_cast<double*>(y);
   auto s = static_cast<cudaStream_t>(stream);
-  const int t = threads;
-  if (!repro::threads_ok(t)) return repro::bad_shape();
-  if (br == 3 && bc == 3) return launch<3, 3>(i, d, xv, yv, nbr, kmax, t, s);
-  if (br == 3 && bc == 6) return launch<3, 6>(i, d, xv, yv, nbr, kmax, t, s);
-  if (br == 6 && bc == 6) return launch<6, 6>(i, d, xv, yv, nbr, kmax, t, s);
+  const int t = threads, l = lanes;
+  if (!repro::threads_ok(t) || !repro::lanes_ok(l)) return repro::bad_shape();
+  if (br == 3 && bc == 3) return launch<3, 3>(i, d, xv, yv, nbr, kmax, l, t, s);
+  if (br == 3 && bc == 6) return launch<3, 6>(i, d, xv, yv, nbr, kmax, l, t, s);
+  if (br == 6 && bc == 6) return launch<6, 6>(i, d, xv, yv, nbr, kmax, l, t, s);
   return repro::bad_shape();
 }

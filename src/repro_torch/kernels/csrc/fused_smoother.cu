@@ -13,8 +13,8 @@
 // Design (first, plain): one thread per block row for a vector, one per
 // (block row, column) for a panel with consecutive threads on consecutive
 // columns (coalesced panel reads, A blocks broadcast within the warp).
-// Both kernels run smoother_row: A x through ell_row_apply (the
-// block_spmv body), then the bs x bs dinv matvec and the recurrence in
+// Both kernels run smoother_row: A x through ell_row_apply (a thread
+// walks a row's slots), then the bs x bs dinv matvec and the recurrence in
 // registers, the recurrence with explicit roundings (__dmul_rn/__dadd_rn,
 // never contracted to an FMA), so a panel column is bitwise the vector
 // step.  x' is written out of place: the TPU kernel updates x while

@@ -332,3 +332,127 @@ def test_invalid_threads_raise(dev, threads):
         p = backend.ptr
         backend.launch("repro_pbjacobi_f64", pbj_ops._ARGS, p(dinv), p(r),
                        p(r), p(w), p(torch.empty_like(r)), 4, 3, threads)
+
+
+#: ragged (nbr, kmax, br, bc): kmax not a multiple of the lanes, kmax
+#: below them, kmax 1 and 490 (A2's width), nbr not a multiple of the
+#: rows per block, nbr 1
+RAGGED = [(37, 7, 3, 3), (5, 3, 6, 6), (70, 27, 3, 3), (1, 1, 3, 6),
+          (9, 490, 6, 6), (1, 490, 6, 6), (33, 19, 6, 6), (1, 5, 3, 3)]
+LANES = (1, 2, 4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("nbr,kmax,br,bc", RAGGED)
+def test_lanes_kernels_at_ragged_shapes(dev, nbr, kmax, br, bc):
+    """Every lanes value at ragged shapes: against the plain versions,
+    every ``threads`` candidate bitwise the 256-thread launch, and each
+    panel column bitwise the vector launch with the same lanes."""
+    g = torch.Generator(device=dev).manual_seed(90 + nbr + kmax + br * bc)
+    f64 = dict(dtype=torch.float64, device=dev)
+    nbc = 23
+    idx = torch.randint(0, nbc, (nbr, kmax), generator=g, device=dev,
+                        dtype=torch.int32)
+    data = torch.randn(nbr, kmax, br, bc, generator=g, **f64)
+    x = torch.randn(nbc, bc, generator=g, **f64)
+    panels = [torch.randn(nbc, bc, k, generator=g, **f64)
+              for k in (3, 9, 16)]
+    spmv, spmm = spmv_ops.launch_lanes, spmm_ops.launch_lanes
+    # 1024 threads: block_spmm's build limited to 64 registers a thread
+    threads = autotune.CANDIDATES["block_spmv"]["threads"] + (1024,)
+    for lanes in LANES:
+        y = spmv(idx, data, x, lanes, 256)
+        _close(y, block_spmv_ell_ref(idx, data, x))
+        for X in panels:
+            Y = spmm(idx, data, X, lanes, 256)
+            _close(Y, block_spmm_ell_ref(idx, data, X))
+            for j in range(X.shape[2]):
+                assert torch.equal(Y[:, :, j], spmv(
+                    idx, data, X[:, :, j].contiguous(), lanes, 256)), \
+                    (lanes, X.shape[2], j)
+            for t in threads:
+                assert torch.equal(spmm(idx, data, X, lanes, t), Y)
+        for t in threads:
+            assert torch.equal(spmv(idx, data, x, lanes, t), y)
+    torch.cuda.synchronize()
+
+
+def test_wrappers_launch_the_lanes_map(dev):
+    """The wrappers' launches are the explicit launches at
+    ``ell_rows.lanes(br, bc, kmax)``."""
+    from repro_torch.kernels import ell_rows
+    g = torch.Generator(device=dev).manual_seed(95)
+    f64 = dict(dtype=torch.float64, device=dev)
+    for kmax, br, bc in ((27, 3, 3), (8, 3, 6), (45, 6, 6), (490, 6, 6)):
+        idx = torch.randint(0, 50, (60, kmax), generator=g, device=dev,
+                            dtype=torch.int32)
+        data = torch.randn(60, kmax, br, bc, generator=g, **f64)
+        x = torch.randn(50, bc, generator=g, **f64)
+        X = torch.randn(50, bc, 4, generator=g, **f64)
+        lanes = ell_rows.lanes(br, bc, kmax)
+        assert torch.equal(spmv_ops.block_spmv_ell(idx, data, x),
+                           spmv_ops.launch_lanes(idx, data, x, lanes, 256))
+        assert torch.equal(spmm_ops.block_spmm_ell(idx, data, X),
+                           spmm_ops.launch_lanes(idx, data, X, lanes, 256))
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 12, 64, -4])
+def test_c_entries_refuse_bad_lanes(dev, lanes):
+    f64 = dict(dtype=torch.float64, device=dev)
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    data = torch.zeros((4, 2, 3, 3), **f64)
+    x, X = torch.zeros((1, 3), **f64), torch.zeros((1, 3, 2), **f64)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmv_ops.launch_lanes(idx, data, x, lanes, 256)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmm_ops.launch_lanes(idx, data, X, lanes, 256)
+
+
+def test_c_entries_refuse_misaligned_even_width_payloads(dev):
+    """Even-width blocks are read in 16-byte pairs."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    data = torch.zeros(1 + 4 * 2 * 18, **f64)[1:].view(4, 2, 3, 6)
+    x, X = torch.zeros((1, 6), **f64), torch.zeros((1, 6, 2), **f64)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmv_ops.launch_lanes(idx, data, x, 4, 256)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmm_ops.launch_lanes(idx, data, X, 4, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        spmv_ops.block_spmv_ell(idx, data, x)
+
+
+#: signatures whose winners, picked by the host clock, lost to the static
+#: 256 by CUDA events (PERF.md), and the level-2 vector launches
+SWEPT = [
+    ("block_spmv", dict(br=6, bc=6, kmax=490), 836),
+    ("block_spmm", dict(br=6, bc=6, kmax=490, k=16), 836 * 16),
+    ("block_spmm", dict(br=6, bc=6, kmax=45, k=16), 1331 * 16),
+    ("fused_smoother", dict(br=6, bc=6, kmax=490, k=16), 836 * 16),
+    ("fused_smoother", dict(br=6, bc=6, kmax=490), 836),
+    ("pbjacobi", dict(bs=6), 1331 * 6),
+    ("pbjacobi", dict(bs=6), 836 * 6),
+]
+
+
+@pytest.mark.parametrize("family,keys,items", SWEPT)
+def test_no_cached_winner_is_slower_than_the_static_launch(
+        dev, tmp_path, monkeypatch, family, keys, items):
+    """The sweep scores by CUDA events and keeps 256 unless a candidate
+    beats it by more than ``EVENT_MARGIN``: timed again in turns, no
+    winner is slower than 256 beyond that margin."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+    autotune.clear_memo()
+    sig = autotune.signature(torch.float64, items, **keys)
+    won = autotune.sweep(family, sig, device=dev)
+    t = won["params"]["threads"]
+    assert autotune.lookup(family, sig, "threads", dev) == t
+    assert t == autotune.DEFAULT_THREADS or won["best_us"] < \
+        won["table"]["threads=256"] * (1 - autotune.EVENT_MARGIN)
+    ops = autotune._synthetic(family, sig, autotune._rows(family, sig), dev)
+    static = autotune._make_runner(family, {"threads": 256}, ops)
+    tuned = autotune._make_runner(family, {"threads": t}, ops)
+    s1, t1, t2, s2 = (autotune.device_ms(f) for f in (static, tuned, tuned,
+                                                      static))
+    assert (t1 + t2) <= (s1 + s2) * (1 + autotune.EVENT_MARGIN), \
+        (t, s1, t1, t2, s2)
+    autotune.clear_memo()

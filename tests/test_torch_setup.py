@@ -143,3 +143,50 @@ def test_block_containers_match():
         if square:
             np.testing.assert_array_equal(tA.diagonal_blocks().numpy(),
                                           np.asarray(A.diagonal_blocks()))
+
+
+#: pass-2 ties the m=32 check lets flip: gaps up to this many ulps of the
+#: reference's strongest weight (measured: at most 3.7)
+TIE_ULPS = 8
+
+
+@pytest.mark.slow
+def test_m32_aggregates_match_the_reference_up_to_traced_ties():
+    """The paper's configuration, ``ElasticityConfig(m=32)``, greedy with
+    ``coarse_size=100`` (~45 s, ~7 GB for the reference).  Levels, nnzb,
+    ``n_agg`` and the level 0-1 aggregates bitwise; from level 2 on the
+    two operators differ by rounding, and every node in another aggregate
+    must trace back to pass-2 ties within ``TIE_ULPS`` of the reference's
+    weights (cascades through later attachments and the undersized-
+    aggregate repair included)."""
+    from repro.core.strength import strength_graph as ref_strength
+    from repro_torch.core.aggregation import greedy_aggregate, \
+        trace_tie_flips
+    from repro_torch.core.strength import strength_graph
+    rp = ref_assemble(32, path="host")
+    ref = ref_gamg.setup(rp.A, rp.B, coarse_size=100, coarsener="greedy")
+    pp = assemble_elasticity(32, device="cpu")
+    port = gamg.setup(pp.A, pp.B, coarse_size=100)
+    assert ref.stats["level_rows"] == [95232, 7986, 5016, 114]
+    for key in ("level_rows", "level_nnzb", "level_bs"):
+        assert port.stats[key] == ref.stats[key], key
+    traced = []
+    for li, (rl, pl) in enumerate(zip(ref.levels, port.levels)):
+        assert pl.aggr.n_agg == rl.aggr.n_agg, li
+        if li < 2:
+            np.testing.assert_array_equal(pl.aggr.node_to_agg,
+                                          rl.aggr.node_to_agg)
+            continue
+        ga = ref_strength(rl.A0, ref.theta)
+        gb = strength_graph(pl.A0, port.theta)
+        min_size = -(-port.nns_dim // pl.A0.br)
+        # each package's covering is the greedy run on its own graph
+        np.testing.assert_array_equal(
+            greedy_aggregate(ga, min_size).node_to_agg, rl.aggr.node_to_agg)
+        np.testing.assert_array_equal(
+            greedy_aggregate(gb, min_size).node_to_agg, pl.aggr.node_to_agg)
+        out = trace_tie_flips(ga, gb, min_size,
+                              TIE_ULPS * np.finfo(np.float64).eps)
+        assert out["same_edges"] and out["traced"], (li, out)
+        traced.append(out)
+    print("m=32 level 2+ aggregates:", traced)
