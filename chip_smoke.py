@@ -33,25 +33,27 @@ It checks that each kernel ran on its path, then holds every kernel
 against its plain PyTorch version at the paths' shapes (max relative error
 1e-12 at f64; kernels reorder sums), checks that ``block_spmm`` and the
 panel ``fused_smoother`` are bitwise per column against ``block_spmv`` and
-the vector step, times kernel, plain version and a one-call PyTorch
-yardstick beside the kernel's bound (device time per call: a batch of
-calls queued behind a sleep kernel between CUDA events; the single-launch
-time, host enqueue included, beside it), and compares the port on the
-CPU with the port on the card at m=7 (bitwise levels and
-aggregates, equal CG iterations, solutions within 1e-9, vector and k=4
-panel solves).  For the tuned kernels it then launches every ``threads``
-candidate at the m=32 shapes and requires the output bitwise equal to
-the 256-thread launch, times winner against default with CUDA events, and
-runs a hot step and a k=16 panel solve static, tuned, tuned, static
-(equal iterations, bitwise solutions), and profiles one tuned hot step.
-Last, it sets the port up on the CPU at m=32 and compares the card's
-aggregates with it: levels, nnzb and ``n_agg`` equal, and every node in
-another aggregate traced back to greedy pass-2 ties within ``TIE_ULPS``
-of the CPU's weights (the two operators differ by rounding; m=7 stays
-bitwise).  ``block_spmv`` and ``block_spmm`` give each block row a
-sub-warp of ``ell_rows.lanes(br, bc, kmax)`` lanes, printed with each of
-their ``kernel case`` lines; a ``lanes sweep`` line per case times every
-lanes value the C entries take beside the map's choice.
+the vector step and that with ``dinv = I`` and ``coef = [0, 1]`` the
+smoother's ``d'`` is bitwise ``b - block_spmv(x)`` on every level, times
+kernel, plain version and a one-call PyTorch yardstick beside the kernel's
+bound (device time per call: a batch of calls queued behind a sleep kernel
+between CUDA events; the single-launch time, host enqueue included, beside
+it), and compares the port on the CPU with the port on the card at m=7
+(bitwise levels and aggregates, equal CG iterations, solutions within
+1e-9, vector and k=4 panel solves). For the tuned kernels it then launches
+every ``threads`` candidate at the m=32 shapes and requires the output
+bitwise equal to the 256-thread launch, times winner against default with
+CUDA events, and runs a hot step and a k=16 panel solve static, tuned,
+tuned, static (equal iterations, bitwise solutions), and profiles one
+tuned hot step. Last, it sets the port up on the CPU at m=32 and compares
+the card's aggregates with it: levels, nnzb and ``n_agg`` equal, and every
+node in another aggregate traced back to greedy pass-2 ties within
+``TIE_ULPS`` of the CPU's weights (the two operators differ by rounding;
+m=7 stays bitwise). ``block_spmv``, ``block_spmm`` and ``fused_smoother``
+give each block row a sub-warp of ``ell_rows.lanes(br, bc, kmax)`` lanes,
+printed with each of their ``kernel case`` lines; a ``lanes sweep`` line
+per case times every lanes value the C entries take beside the map's
+choice.
 The second-to-last line is the per-kernel JSON record and the last line
 ``{"ok": true, "device": ...}``.  Any failure raises (exit code not 0).
 Without a CUDA device, or outside a checkout, it exits with code 2 before
@@ -327,7 +329,12 @@ class PathCounts:
 
 
 def _rel(got, want) -> float:
-    """max |got - want| / max |want| of two tensors on any devices."""
+    """max |got - want| / max |want| of two tensors, or of two tuples of
+    tensors taken together, on any devices."""
+    import torch
+    if isinstance(got, tuple):
+        got, want = (torch.cat([t.reshape(-1) for t in v]) for v in (got,
+                                                                     want))
     got, want = got.double().cpu(), want.double().cpu()
     scale = float(want.abs().max()) if want.numel() else 0.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
@@ -483,8 +490,9 @@ class Case:
         self.kernel, self.label = kernel, label
         self.run, self.plain, self.library = run, plain, library
         self.nbytes, self.flops = nbytes, flops
-        # block_spmv / block_spmm: the map's lanes, and the kernel at any
-        # lanes (256 threads) for the sweep of the map's choice
+        # the ELL kernels (block_spmv, block_spmm, fused_smoother): the
+        # map's lanes, and the kernel at any lanes (256 threads) for the
+        # sweep of the map's choice
         self.lanes, self.at_lanes = lanes, at_lanes
 
 
@@ -588,29 +596,24 @@ def build_cases(run: dict, device) -> list:
         a = lv.a_ell
         bs = a.br
         nnz = int(a.mask.sum())
-        b, x, d = (randn(a.nbr, bs) for _ in range(3))
+        nl = lanes(bs, bs, a.kmax)
         coef = torch.tensor([0.3, 0.7], **f64)
-        args = (a.indices, a.data, lv.dinv, b, x, d, coef)
-        cases.append(Case(
-            "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs})",
-            lambda threads=None, args=args: smooth.smoother_step_ell(
-                *args, threads=threads),
-            lambda args=args: smoother_step_ref(*args),
-            nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
-            + 5 * a.nbr * bs * 8,
-            flops=2 * nnz * bs * bs + 2 * a.nbr * bs * bs + 4 * a.nbr * bs))
-        k = PANEL_KS[0]
-        b, x, d = (randn(a.nbr, bs, k) for _ in range(3))
-        args = (a.indices, a.data, lv.dinv, b, x, d, coef)
-        cases.append(Case(
-            "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs}) k={k}",
-            lambda threads=None, args=args: smooth.smoother_step_ell(
-                *args, threads=threads),
-            lambda args=args: smoother_step_ref(*args),
-            nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
-            + 5 * a.nbr * bs * k * 8,
-            flops=k * (2 * nnz * bs * bs + 2 * a.nbr * bs * bs
-                       + 4 * a.nbr * bs)))
+        for k in (None, PANEL_KS[0]):
+            cols = () if k is None else (k,)
+            b, x, d = (randn(a.nbr, bs, *cols) for _ in range(3))
+            args = (a.indices, a.data, lv.dinv, b, x, d, coef)
+            cases.append(Case(
+                "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs})"
+                + ("" if k is None else f" k={k}"),
+                lambda threads=None, args=args: smooth.smoother_step_ell(
+                    *args, threads=threads),
+                lambda args=args: smoother_step_ref(*args),
+                nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
+                + 5 * a.nbr * bs * (k or 1) * 8,
+                flops=(k or 1) * (2 * nnz * bs * bs + 2 * a.nbr * bs * bs
+                                  + 4 * a.nbr * bs),
+                lanes=nl, at_lanes=lambda n, args=args:
+                smooth.launch_lanes(*args, n, DEFAULT_THREADS)))
         # pbjacobi at the level's dinv shape; torch.baddbmm computes the
         # same x + omega * dinv @ r in one call
         r, x = randn(a.nbr, bs), randn(a.nbr, bs)
@@ -714,7 +717,9 @@ def check_bitwise(run: dict, device) -> dict:
     """Each column of ``block_spmm`` is bitwise ``block_spmv`` of that
     column, on every level operator and prolongator at every panel width;
     a width-1 panel is bitwise the vector apply; each column of the panel
-    smoother step is bitwise the vector step."""
+    smoother step is bitwise the vector step; and with ``dinv = I`` and
+    ``coef = [0, 1]`` the smoother's ``d'`` is bitwise ``b -
+    block_spmv(x)``, vector and each panel column, on every level."""
     import torch
 
     from repro_torch.core.spmv import apply_ell
@@ -724,7 +729,8 @@ def check_bitwise(run: dict, device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(1)
     f64 = dict(dtype=torch.float64, device=device)
-    checked = dict(spmm_columns=0, apply_width1=0, smoother_columns=0)
+    checked = dict(spmm_columns=0, apply_width1=0, smoother_columns=0,
+                   identity_residuals=0)
 
     def same(got, want, what):
         if not torch.equal(got, want):
@@ -758,6 +764,21 @@ def check_bitwise(run: dict, device) -> dict:
             same(xp[:, :, j], xv, f"panel smoother A{li} column {j} x'")
             same(dp[:, :, j], dv, f"panel smoother A{li} column {j} d'")
             checked["smoother_columns"] += 1
+        eye = torch.eye(bs, **f64).expand(a.nbr, bs, bs).contiguous()
+        step = torch.tensor([0.0, 1.0], **f64)
+        _, dp = smooth.smoother_step_ell(a.indices, a.data, eye, b, x, d,
+                                         step)
+        for j in range(k):
+            bj, xj, dj = (v[:, :, j].contiguous() for v in (b, x, d))
+            res = bj - spmv.block_spmv_ell(a.indices, a.data, xj)
+            same(dp[:, :, j], res, f"identity smoother A{li} column {j} d' "
+                 f"against b - A x")
+            if j == 0:
+                same(smooth.smoother_step_ell(a.indices, a.data, eye, bj, xj,
+                                              dj, step)[1], res,
+                     f"identity smoother A{li} vector d' against b - A x")
+                checked["identity_residuals"] += 1
+            checked["identity_residuals"] += 1
     return checked
 
 
@@ -813,10 +834,10 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
 
 
 def lanes_sweep(cases: list) -> None:
-    """``block_spmv`` and ``block_spmm`` at every lanes value a C entry
-    takes, at the paths' shapes and 256 threads: each held against the
-    plain version, timed with CUDA events beside the map's choice (the
-    map is no knob; this shows what it leaves on the table)."""
+    """``block_spmv``, ``block_spmm`` and ``fused_smoother`` at every lanes
+    value a C entry takes, at the paths' shapes and 256 threads: each held
+    against the plain version, timed with CUDA events beside the map's
+    choice (the map is no knob; this shows what it leaves on the table)."""
     from repro_torch.kernels.autotune import device_ms
     for c in cases:
         if c.at_lanes is None:

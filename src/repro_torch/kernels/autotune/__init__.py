@@ -33,8 +33,8 @@ module closes that loop as the reference does:
 
 Signatures are the reference's keys (block shape, ELL width ``kmax``, the
 panel width ``k`` of ``block_spmm``, dtype) plus ``items``: the launch's
-work-item count — block rows (``block_spmv``, a sub-warp each; the
-vector ``fused_smoother``, a thread each), rows x k (``block_spmm``, the
+work-item count — block rows (``block_spmv`` and the vector
+``fused_smoother``, a sub-warp each), rows x k (``block_spmm``, the
 panel ``fused_smoother``), rows x bs (``pbjacobi``), tile rows x br x bc
 (``fused_pair_gemm``) — rounded up to a power of two.  On Hopper the best
 block size depends on how many blocks a launch spreads over the card's

@@ -4,40 +4,15 @@
 // points x at the first column it wants and passes ld = k, so entry b of
 // column j of an x block sits at b * ld + j (ld = 1 for a vector).
 //
-// ell_row_apply (one thread per row) is fused_smoother's body.
-// ell_row_lanes + lanes_sum (a sub-warp per row) are block_spmv's and
-// block_spmm's: both kernels run them, so column j of a block_spmm result
-// is bitwise block_spmv of column j.
+// ell_row_lanes + lanes_sum (a sub-warp per row) are the row body of
+// block_spmv, block_spmm and fused_smoother: all three run them, so at the
+// same lanes column j of a block_spmm result is bitwise block_spmv of
+// column j, and the smoother's A x is bitwise block_spmv's.
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
-
-// acc[a] = sum over the row's kmax slots, then over b, of
-// blk[slot][a][b] * x[col(slot)][b], as FMAs into acc[a] in that order.
-// Padded slots are zero blocks at column 0 and add exact zeros.
-template <int BR, int BC>
-__device__ __forceinline__ void ell_row_apply(const int* __restrict__ ri,
-                                              const double* __restrict__ rd,
-                                              const double* __restrict__ x,
-                                              int ld, int kmax,
-                                              double (&acc)[BR]) {
-#pragma unroll
-  for (int a = 0; a < BR; ++a) acc[a] = 0.0;
-  for (int s = 0; s < kmax; ++s) {
-    const double* xb = x + static_cast<long long>(ri[s]) * BC * ld;
-    double xv[BC];
-#pragma unroll
-    for (int b = 0; b < BC; ++b) xv[b] = xb[static_cast<long long>(b) * ld];
-    const double* blk = rd + static_cast<long long>(s) * BR * BC;
-#pragma unroll
-    for (int a = 0; a < BR; ++a) {
-#pragma unroll
-      for (int b = 0; b < BC; ++b) acc[a] = fma(blk[a * BC + b], xv[b], acc[a]);
-    }
-  }
-}
 
 // Lanes per row: a power of two that divides the warp.
 inline bool lanes_ok(int lanes) {
@@ -72,12 +47,12 @@ __device__ __forceinline__ void load_block_row(const double* __restrict__ p,
 // One lane's share of a block row owned by a sub-warp of `lanes` lanes
 // (aligned within the warp): the slots s = lane, lane + lanes, ... below
 // kmax, ascending.  acc[a][j] = sum over those slots, then over b, of
-// blk[s][a][b] * x[col(s)][b][j], as FMAs in that order, for the first
-// ncol of KC columns (the rest stay 0): ell_row_apply's chain on the
-// lane's slots.  The chain of one (a, j) does not depend on KC, so a
-// panel column runs the vector's chain.  Neighbouring lanes read
-// neighbouring slots, so a sub-warp reads lanes * br * bc consecutive
-// doubles of the row per step.
+// blk[s][a][b] * x[col(s)][b][j], as FMAs into acc[a][j] in that order
+// (padded slots are zero blocks at column 0 and add exact zeros), for the
+// first ncol of KC columns (the rest stay 0).  The chain of one (a, j)
+// does not depend on KC, so a panel column runs the vector's chain.
+// Neighbouring lanes read neighbouring slots, so a sub-warp reads
+// lanes * br * bc consecutive doubles of the row per step.
 template <int BR, int BC, int KC>
 __device__ __forceinline__ void ell_row_lanes(const int* __restrict__ ri,
                                               const double* __restrict__ rd,

@@ -1,15 +1,16 @@
 """The lanes map of the blocked ELL kernels (``block_spmv``,
-``block_spmm``).
+``block_spmm``, ``fused_smoother``).
 
-Both kernels give each block row a sub-warp of ``lanes`` lanes
+All three kernels give each block row a sub-warp of ``lanes`` lanes
 (``csrc/ell_row.cuh``): lane ``l`` walks the slots ``l, l + lanes, ...``
 and the partial sums meet in a fixed butterfly, so ``lanes`` fixes the
 order in which a row's products are summed.  It is therefore a function
 of the operator's shape alone — the block shape and the ELL width
 ``kmax`` — and never a tuning knob: the autotuner's ``threads`` (threads
 per CUDA block) sets how many rows share a block (``threads // lanes``)
-and leaves every result bitwise the same.  Both wrappers call ``lanes``,
-so a panel column runs the vector's order.
+and leaves every result bitwise the same.  All three wrappers call
+``lanes``, so a panel column runs the vector's order and the smoother's
+``A x`` is ``block_spmv``'s.
 """
 from __future__ import annotations
 

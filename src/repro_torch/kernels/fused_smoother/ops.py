@@ -9,12 +9,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.block_csr import BlockELL
-from repro_torch.kernels import autotune, backend
+from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
 
 SHAPES = (3, 6)
-_ARGS = (backend.P,) * 9 + (backend.I,) * 4 + (backend.P,)
-_PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 5 + (backend.P,)
+_ARGS = (backend.P,) * 9 + (backend.I,) * 5 + (backend.P,)
+_PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -27,10 +27,13 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors or
     ``(nbr, bs, k)`` panels; A square in padded BlockELL form, ``dinv
     (nbr, bs, bs)``, ``coef`` a two-element device tensor ``[c1, c2]``
-    shared by all columns.  ``x'`` is a new tensor (out of place).
-    ``threads`` (one per block row and column) ``None`` resolves through
-    the autotuner (static default 256; a panel's signature has its k).
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    shared by all columns.  ``x'`` is a new tensor (out of place).  Each
+    block row takes ``ell_rows.lanes(bs, bs, kmax)`` lanes, as in
+    ``block_spmv``, so the step's ``A x`` is bitwise ``block_spmv``'s and a
+    panel column bitwise the vector step; ``threads`` per CUDA block,
+    ``None`` resolved through the autotuner (static default 256; a panel's
+    signature has its k), only sets how many rows share a block.  CPU
+    tensors take the plain version; CUDA tensors the kernel."""
     global launches
     name = "fused_smoother"
     cuda = backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
@@ -42,6 +45,7 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     threads = autotune.launch_threads(
         name, autotune.signature(data.dtype, nbr * keys.get("k", 1),
                                  **keys), threads, data.device)
+    lanes = ell_rows.lanes(bs, bs2, kmax)
     if not cuda:
         return smoother_step_ref(indices, data, dinv, b_blocks, x_blocks,
                                  d_blocks, coef)
@@ -61,6 +65,23 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     backend.check_kernel_args(
         name, dict(data=data, dinv=dinv, b=b_blocks, x=x_blocks, d=d_blocks,
                    coef=coef), dict(indices=indices))
+    ell_rows.check_payload(name, data)
+    out = launch_lanes(indices, data, dinv, b_blocks, x_blocks, d_blocks,
+                       coef, lanes, threads)
+    launches += 1
+    return out
+
+
+def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
+                 dinv: torch.Tensor, b_blocks: torch.Tensor,
+                 x_blocks: torch.Tensor, d_blocks: torch.Tensor,
+                 coef: torch.Tensor, lanes: int, threads: int):
+    """``(x', d')`` from the kernel at an explicit ``lanes`` (the wrapper
+    passes ``ell_rows.lanes``; the card tests and ``chip_smoke.py`` sweep
+    it).  Takes checked CUDA tensors, counts no launch; the C entry points
+    refuse a ``lanes`` that is not a power of two <= 32."""
+    nbr, kmax, bs, _ = data.shape
+    vec = tuple(b_blocks.shape)
     x_new = torch.empty(vec, dtype=data.dtype, device=data.device)
     d_new = torch.empty(vec, dtype=data.dtype, device=data.device)
     p = backend.ptr
@@ -68,11 +89,10 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
             p(d_blocks), p(coef), p(x_new), p(d_new))
     if len(vec) == 2:
         backend.launch("repro_fused_smoother_f64", _ARGS, *ptrs, nbr, kmax,
-                       bs, threads)
+                       bs, lanes, threads)
     else:
         backend.launch("repro_fused_smoother_panel_f64", _PANEL_ARGS, *ptrs,
-                       nbr, kmax, bs, vec[2], threads)
-    launches += 1
+                       nbr, kmax, bs, vec[2], lanes, threads)
     return x_new, d_new
 
 

@@ -456,3 +456,141 @@ def test_no_cached_winner_is_slower_than_the_static_launch(
     assert (t1 + t2) <= (s1 + s2) * (1 + autotune.EVENT_MARGIN), \
         (t, s1, t1, t2, s2)
     autotune.clear_memo()
+
+
+def _smoother_operands(dev, seed, nbr, kmax, bs, ks=(), nbc=None):
+    """A square smoother operator and its vectors: ``(indices, data, dinv,
+    coef)`` and ``(b, x, d)`` triples for the vector and each panel width
+    in ``ks``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    nbc = nbr if nbc is None else nbc
+    idx = torch.randint(0, nbc, (nbr, kmax), generator=g, device=dev,
+                        dtype=torch.int32)
+    op = (idx, torch.randn(nbr, kmax, bs, bs, generator=g, **f64),
+          torch.randn(nbr, bs, bs, generator=g, **f64),
+          torch.tensor([0.25, 0.8], **f64))
+    vecs = {k: tuple(torch.randn((nbr, bs) + ((k,) if k else ()),
+                                 generator=g, **f64) for _ in range(3))
+            for k in (None,) + tuple(ks)}
+    return op, vecs
+
+
+def _step(op, v, lanes=None, threads=256):
+    idx, data, dinv, coef = op
+    if lanes is None:
+        return smooth_ops.smoother_step_ell(idx, data, dinv, *v, coef,
+                                            threads=threads)
+    return smooth_ops.launch_lanes(idx, data, dinv, *v, coef, lanes,
+                                   threads)
+
+
+@pytest.mark.parametrize("nbr,kmax,br,bc",
+                         [s for s in RAGGED if s[2] == s[3]])
+def test_smoother_lanes_at_ragged_shapes(dev, nbr, kmax, br, bc):
+    """The smoother at every lanes value at ragged shapes (kmax not a
+    multiple of the lanes, kmax below them, nbr not a multiple of the rows
+    per block): vector and panels (k 1, 3, 16, 17) against the plain
+    version, each panel column bitwise the vector launch with the same
+    lanes, every ``threads`` candidate bitwise the 256-thread launch."""
+    op, vecs = _smoother_operands(dev, 100 + nbr + kmax + br, nbr, kmax, br,
+                                  ks=(1, 3, 16, 17))
+    idx, data, dinv, coef = op
+    threads = autotune.CANDIDATES["fused_smoother"]["threads"] + (1024,)
+    for lanes in LANES:
+        for k, v in vecs.items():
+            got = _step(op, v, lanes)
+            _close(got, smoother_step_ref(idx, data, dinv, *v, coef))
+            for t in threads:
+                for a, b in zip(_step(op, v, lanes, t), got):
+                    assert torch.equal(a, b), (lanes, k, t)
+            for j in range(k or 0):
+                col = _step(op, tuple(w[:, :, j].contiguous() for w in v),
+                            lanes)
+                for a, b in zip(got, col):
+                    assert torch.equal(a[:, :, j], b), (lanes, k, j)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bs,kmax", [(3, 7), (3, 27), (6, 45), (6, 490)])
+def test_smoother_identity_step_is_the_spmv_residual(dev, bs, kmax):
+    """With ``dinv = I`` and ``coef = [0, 1]`` the step's ``d'`` is bitwise
+    ``b - block_spmv_ell(A, x)``, for the vector and each panel column:
+    the smoother's ``A x`` is ``block_spmv``'s at the same lanes."""
+    op, vecs = _smoother_operands(dev, 110 + bs + kmax, 61, kmax, bs,
+                                  ks=(5,))
+    idx, data, _, _ = op
+    f64 = dict(dtype=torch.float64, device=dev)
+    eye = torch.eye(bs, **f64).expand(61, bs, bs).contiguous()
+    ident = (idx, data, eye, torch.tensor([0.0, 1.0], **f64))
+    b, x, d = vecs[None]
+    _, dn = _launch_once(smooth_ops, lambda: _step(ident, (b, x, d)))
+    assert torch.equal(dn, b - spmv_ops.block_spmv_ell(idx, data, x))
+    b, x, d = vecs[5]
+    _, dn = _step(ident, (b, x, d))
+    for j in range(5):
+        assert torch.equal(dn[:, :, j], b[:, :, j] - spmv_ops.block_spmv_ell(
+            idx, data, x[:, :, j].contiguous())), j
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+@pytest.mark.parametrize("k", [1, 3, 16, 17])
+def test_smoother_panel_columns_are_the_vector_step(dev, bs, k):
+    """Each column of a width-k panel step is bitwise the vector step (the
+    panel takes chunks of 1, 2, 4 or 8 columns by k and bs)."""
+    op, vecs = _smoother_operands(dev, 120 + bs + k, 300, 45, bs, ks=(k,))
+    v = vecs[k]
+    got = _launch_once(smooth_ops, lambda: _step(op, v))
+    _close(got, smoother_step_ref(*op[:3], *v, op[3]))
+    for j in range(k):
+        xj, dj = _step(op, tuple(w[:, :, j].contiguous() for w in v))
+        assert torch.equal(got[0][:, :, j], xj)
+        assert torch.equal(got[1][:, :, j], dj)
+
+
+def test_smoother_wrapper_launches_the_lanes_map(dev):
+    from repro_torch.kernels import ell_rows
+    for seed, (kmax, bs) in enumerate(((27, 3), (45, 6), (490, 6))):
+        op, vecs = _smoother_operands(dev, 130 + seed, 60, kmax, bs, ks=(4,))
+        lanes = ell_rows.lanes(bs, bs, kmax)
+        for v in vecs.values():
+            for a, b in zip(_step(op, v), _step(op, v, lanes)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [None, 16])
+def test_smoother_step_allocates_only_its_outputs(dev, monkeypatch, k):
+    """The port's half of the reference's jaxpr pin against full-length
+    intermediates: one step on A2-sized operands (836 rows of 490 6x6
+    slots) raises the peak allocation by no more than ``x'`` and ``d'``
+    plus 1 MiB; ``r`` and ``z`` never reach device memory."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE", "off")
+    op, vecs = _smoother_operands(dev, 140, 836, 490, 6, ks=(16,))
+    v = vecs[k]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    x_new, d_new = _launch_once(smooth_ops, lambda: _step(op, v, threads=None))
+    rise = torch.cuda.max_memory_allocated(dev) - before
+    assert rise <= x_new.nbytes + d_new.nbytes + (1 << 20), rise
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 12, 64, -4])
+def test_smoother_c_entries_refuse_bad_lanes(dev, lanes):
+    op, vecs = _smoother_operands(dev, 150, 4, 2, 3, ks=(2,))
+    for v in vecs.values():
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _step(op, v, lanes)
+
+
+def test_smoother_c_entries_refuse_misaligned_payloads(dev):
+    """6x6 blocks are read in 16-byte pairs."""
+    op, vecs = _smoother_operands(dev, 160, 4, 2, 6, ks=(2,))
+    idx, data, dinv, coef = op
+    flat = torch.zeros(1 + data.numel(), dtype=torch.float64, device=dev)
+    off = flat[1:].view(data.shape)
+    for v in vecs.values():
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _step((idx, off, dinv, coef), v, 4)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _step((idx, off, dinv, coef), v)
