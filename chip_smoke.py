@@ -29,7 +29,11 @@ with ``REPRO_TORCH_TUNE=off`` (the static 256-thread launch):
    shape, records the winners, and runs the CLI's ``smoke`` round trip
    on the card.
 
-It checks that each kernel ran on its path, then holds every kernel
+After the main path it prints a ``coarse operators`` line: SHA-256 of the
+setup's coarse operators and prolongators (all products of
+``fused_pair_gemm``) and of the last hot-step solution, required equal to
+``EXPECT_COARSE_SHA``.  It checks that each kernel ran on its path, then
+holds every kernel
 against its plain PyTorch version at the paths' shapes (max relative error
 1e-12 at f64; kernels reorder sums), checks that ``block_spmm`` and the
 panel ``fused_smoother`` are bitwise per column against ``block_spmv`` and
@@ -53,7 +57,9 @@ m=7 stays bitwise). ``block_spmv``, ``block_spmm`` and ``fused_smoother``
 give each block row a sub-warp of ``ell_rows.lanes(br, bc, kmax)`` lanes,
 printed with each of their ``kernel case`` lines; a ``lanes sweep`` line
 per case times every lanes value the C entries take beside the map's
-choice.
+choice.  Each ``fused_pair_gemm`` case line carries ``gather_bytes`` (valid
+slots x lhs and rhs block bytes) and ``before_ms``, its static time before
+the staged redesign.
 The second-to-last line is the per-kernel JSON record and the last line
 ``{"ok": true, "device": ...}``.  Any failure raises (exit code not 0).
 Without a CUDA device, or outside a checkout, it exits with code 2 before
@@ -62,6 +68,7 @@ printing a result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import shutil
@@ -89,6 +96,22 @@ CHECKED_BURSTS = (3, 5)         # per column against dedicated solves
 PANEL_KS = (16, 4)              # block_spmm cases
 TUNE_K = 16                     # the tuned-vs-static panel solve
 OMEGA = 0.6                     # pbjacobi cases (the autotuner's omega)
+# SHA-256 (first 16 hex digits) of the card's m=32 setup operators and
+# prolongators and of the last main-path hot-step solution, as the
+# thread-per-element fused_pair_gemm produced them; any later kernel must
+# reproduce them bit for bit (None: printed, not checked)
+EXPECT_COARSE_SHA = {"A1": "1d2d80d209e5f844", "A2": "4564b2e3d97d46ba",
+                     "A3": "ae5480626751045d", "P0": "242d9e8d4d6f8dbe",
+                     "P1": "76983f98ab971769", "P2": "efe15001676b62a3",
+                     "x": "6cfa8419b2e88538"}
+# fused_pair_gemm static device ms per case before the staged redesign
+# (NVIDIA H100 80GB HBM3, 700.00 W), shown beside each case's time
+BEFORE_PAIR_GEMM_MS = {"level0 AP 813662x6": 0.3015,
+                       "level0 R(AP) 143555x15": 0.2423,
+                       "level1 AP 372548x4": 0.2888,
+                       "level1 R(AP) 791472x6": 0.9601,
+                       "level2 AP 136093x21": 0.4769,
+                       "level2 R(AP) 536x409": 0.4204}
 
 # Datasheet peaks of the card the port runs on, the H100 SXM ("NVIDIA H100
 # 80GB HBM3"): HBM bytes/s and fp64 FLOP/s outside the tensor cores.
@@ -312,6 +335,37 @@ def check_main_path(run: dict) -> None:
                         f"{phase}")
 
 
+def _sha(t) -> str:
+    arr = t.detach().contiguous().cpu().numpy()
+    h = hashlib.sha256(f"{arr.dtype} {arr.shape}".encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()[:16]
+
+
+def coarse_fingerprint(run: dict) -> dict:
+    """SHA-256 of the setup's coarse operators (A1.., the coarsest one
+    last), its prolongators (P0..) and the last hot-step solution: every
+    one of them runs through ``fused_pair_gemm``, so a kernel that moves a
+    single rounding changes a hash."""
+    setupd = run["solver"].setup_data
+    out = {f"A{li}": _sha(ls.A0.data)
+           for li, ls in enumerate(setupd.levels) if li}
+    out[f"A{len(setupd.levels)}"] = _sha(setupd.coarse_struct.data)
+    out.update({f"P{li}": _sha(ls.P.data)
+                for li, ls in enumerate(setupd.levels)})
+    out["x"] = _sha(run["records"][-1]["x"])
+    return out
+
+
+def check_fingerprint(run: dict) -> dict:
+    got = coarse_fingerprint(run)
+    if EXPECT_COARSE_SHA is not None and got != EXPECT_COARSE_SHA:
+        differ = sorted(k for k in got if got[k] != EXPECT_COARSE_SHA.get(k))
+        raise AssertionError(f"coarse operators not bitwise the expected "
+                             f"ones: {differ} differ ({got})")
+    return dict(sha256_16=got, checked=EXPECT_COARSE_SHA is not None)
+
+
 class PathCounts:
     """Kernel launches of one path: the sum of the count deltas around the
     path's own calls (checks made in between do not count)."""
@@ -486,10 +540,13 @@ class Case:
     tuned kernel's ``run`` takes ``threads=`` (None resolves it)."""
 
     def __init__(self, kernel, label, run, plain, nbytes, flops,
-                 library=None, lanes=None, at_lanes=None):
+                 library=None, lanes=None, at_lanes=None, extra=None):
         self.kernel, self.label = kernel, label
         self.run, self.plain, self.library = run, plain, library
         self.nbytes, self.flops = nbytes, flops
+        # printed with the case (fused_pair_gemm: gather bytes, the time
+        # before the redesign)
+        self.extra = extra or {}
         # the ELL kernels (block_spmv, block_spmm, fused_smoother): the
         # map's lanes, and the kernel at any lanes (256 threads) for the
         # sweep of the map's choice
@@ -663,6 +720,9 @@ def build_cases(run: dict, device) -> list:
             nbytes = (_unique_count(ta, tm) * br * bk * 8
                       + _unique_count(tb, tm) * bk * bc * 8
                       + ta.numel() * 9 + sp.tile_rows * br * bc * 8)
+            # what the tile plan gathers when every pair reads its own
+            # blocks: valid slots x (lhs + rhs block bytes)
+            gather = int(tm.sum()) * (br * bk + bk * bc) * 8
             cases.append(Case(
                 "fused_pair_gemm",
                 f"level{li} {tag} {sp.tile_rows}x{sp.pair_kmax} "
@@ -672,7 +732,10 @@ def build_cases(run: dict, device) -> list:
                 lambda gargs=gargs: fused_pair_gemm_ref(*gargs),
                 nbytes=nbytes, flops=2 * sp.npairs * br * bk * bc,
                 library=lambda lhs=lhs, rhs=rhs: torch.einsum(
-                    "skij,skjl->sil", lhs, rhs)))
+                    "skij,skjl->sil", lhs, rhs),
+                extra=dict(gather_bytes=gather, before_ms=BEFORE_PAIR_GEMM_MS
+                           .get(f"level{li} {tag} {sp.tile_rows}x"
+                                f"{sp.pair_kmax}"))))
             if not sp.tile_identity:
                 part = gemm.fused_pair_gemm(*gargs)
                 toffs = device_array(sp, "tile_offsets", device, torch.int32)
@@ -816,6 +879,7 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
                     max_rel_err=rel, bound_ms=bound, bytes=c.nbytes)
         if c.lanes is not None:
             line["lanes"] = c.lanes
+        line.update(c.extra)
         if timed:
             k_ms, p_ms = device_ms(c.run), device_ms(c.plain)
             l_ms = device_ms(c.library) if c.library is not None else None
@@ -1010,6 +1074,8 @@ def tuned_vs_static_kernels(cases: list, verbose: bool = True) -> list:
                    tuned_pair=[t1, t2],
                    beyond_margin=t1 + t2 > (s1 + s2) * (
                        1 + autotune.EVENT_MARGIN))
+        if c.extra.get("before_ms") is not None:
+            row["before_ms"] = c.extra["before_ms"]
         rows.append(row)
         if verbose:
             print("tune kernel " + json.dumps(row))
@@ -1278,6 +1344,7 @@ def run_all() -> int:
         per_step = run["records"][-1]["launches"]
         print("main path launches " + json.dumps(by_path["main"]))
         print("launches per hot step " + json.dumps(per_step))
+        print("coarse operators " + json.dumps(check_fingerprint(run)))
         profile_hot_step(run)
 
         by_path["serve"] = serve_path(run, "cuda", EXPECT_ITERS)

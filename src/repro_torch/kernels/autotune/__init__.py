@@ -36,7 +36,8 @@ panel width ``k`` of ``block_spmm``, dtype) plus ``items``: the launch's
 work-item count — block rows (``block_spmv`` and the vector
 ``fused_smoother``, a sub-warp each), rows x k (``block_spmm``, the
 panel ``fused_smoother``), rows x bs (``pbjacobi``), tile rows x br x bc
-(``fused_pair_gemm``) — rounded up to a power of two.  On Hopper the best
+(``fused_pair_gemm``'s output elements; a thread owns a strip of bc of
+them) — rounded up to a power of two.  On Hopper the best
 block size depends on how many blocks a launch spreads over the card's
 132 SMs (836 block rows in blocks of 256 occupy 4 of them); a TPU grid ran
 its steps in order on one core whatever the tile, so the reference needed

@@ -24,9 +24,10 @@ def fused_pair_gemm(a_data: torch.Tensor, b_data: torch.Tensor,
     """One partial ``(br, bc)`` block per tile row: the sum over the row's
     valid slots of ``a_data[tile_a] @ b_data[tile_b]``, gathered in the
     kernel.  ``tile_a``/``tile_b`` int32 ``(rows, kmax)``, ``tile_mask``
-    bool.  ``threads`` (one per output element) ``None`` resolves through
-    the autotuner (static default 256).  CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    bool.  ``threads`` per CTA (one per output row of a tile row's block;
+    the CTA stages its rows' blocks in shared memory) ``None`` resolves
+    through the autotuner (static default 256); every value gives the same
+    bits.  CPU tensors take the plain version; CUDA tensors the kernel."""
     global launches
     name = "fused_pair_gemm"
     cuda = backend.on_cuda(name, a=a_data, b=b_data, tile_a=tile_a,

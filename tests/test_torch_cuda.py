@@ -117,6 +117,122 @@ def test_pair_gemm_kernel(dev, br, bk, bc):
     _close(got, fused_pair_gemm_ref(a, b, ta, tb, mask))
 
 
+def test_fused_pair_gemm_allocates_only_its_output(dev, monkeypatch):
+    """The port's half of the reference's jaxpr pin against a pair-product
+    intermediate: one launch on level-2-AP-sized operands (136,093 tile
+    rows of 21 6x6 slots) raises the peak allocation by no more than its
+    output plus 1 MiB; neither the gathered operands nor the
+    ``(npairs, 6, 6)`` pair products reach device memory."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE", "off")
+    g = torch.Generator(device=dev).manual_seed(170)
+    f64 = dict(dtype=torch.float64, device=dev)
+    rows, kmax, na, nb = 136_093, 21, 409_640, 15_884
+    a = torch.randn(na, 6, 6, generator=g, **f64)
+    b = torch.randn(nb, 6, 6, generator=g, **f64)
+    ta = torch.randint(0, na, (rows, kmax), generator=g, device=dev,
+                       dtype=torch.int32)
+    tb = torch.randint(0, nb, (rows, kmax), generator=g, device=dev,
+                       dtype=torch.int32)
+    mask = torch.rand(rows, kmax, generator=g, device=dev) < 0.9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = _launch_once(gemm_ops, lambda: gemm_ops.fused_pair_gemm(
+        a, b, ta, tb, mask))
+    rise = torch.cuda.max_memory_allocated(dev) - before
+    assert out.shape == (rows, 6, 6)
+    assert rise <= out.nbytes + (1 << 20), rise
+
+
+def _pair_operands(dev, seed, rows, kmax, shape, lhs):
+    """A tile plan of ``rows`` x ``kmax`` slots over (na, br, bk) lhs and
+    (nb, bk, bc) rhs blocks.  ``lhs``: "narrow" keeps each run of 40 rows
+    inside a 40-block range of the lhs (staged as one range), "random"
+    spreads it over all 5,000 blocks (gathered per pair), "odd" uses only
+    odd lhs indices (3x3 blocks then start 8-byte aligned).  Slots are
+    masked at random, rows 3..9 entirely; slot (0, 0) reads the last lhs
+    and rhs block."""
+    br, bk, bc = shape
+    na, nb = 5000, 3000
+    rng = np.random.default_rng(seed)
+    if lhs == "narrow":
+        base = np.minimum((np.arange(rows) // 40) * 7, na - 40)
+        ta = base[:, None] + rng.integers(0, 40, (rows, kmax))
+    else:
+        ta = rng.integers(0, na, (rows, kmax))
+        if lhs == "odd":
+            ta |= 1
+    tb = rng.integers(0, nb, (rows, kmax))
+    mask = rng.random((rows, kmax)) < 0.7
+    mask[3:10] = False
+    ta[0, 0], tb[0, 0], mask[0, 0] = na - 1, nb - 1, True
+
+    def t(x, dt):
+        return torch.as_tensor(x).to(device=dev, dtype=dt)
+    return (t(rng.standard_normal((na, br, bk)), torch.float64),
+            t(rng.standard_normal((nb, bk, bc)), torch.float64),
+            t(ta, torch.int32), t(tb, torch.int32), t(mask, torch.bool))
+
+
+#: (rows, kmax, shape, lhs) on a 132-SM card at 256 threads.  Rows of up to
+#: 32 slots take the direct path at 40 rows a CTA (80 for 3-row blocks;
+#: 11 for 3,001 rows), longer ones the cp.async ring at 2 rows a CTA for
+#: 537 rows, 11 for 3,001 and 22 for 6,000, in chunks of 10 slots a row
+#: (21 for (6,3,6)).
+#: Covered: tile-row counts that do not divide the rows per CTA, kmax 1,
+#: the last direct and first ring width, a chunk multiple -1 / +1, the
+#: level-2 R(AP) width 409, several index windows (100 slots at 22 rows a
+#: CTA, 1,000 at 2), lhs ranges staged and too large to stage, odd 3x3
+#: lhs indices
+PAIR_RAGGED = [(11111, 6, (6, 6, 6), "narrow"), (11111, 6, (3, 3, 6), "odd"),
+               (11111, 4, (3, 3, 6), "narrow"),
+               (11111, 2, (6, 3, 6), "random"), (5, 1, (3, 3, 6), "odd"),
+               (3001, 32, (6, 6, 6), "random"), (3001, 33, (6, 6, 6), "narrow"),
+               (537, 409, (6, 6, 6), "random"), (537, 39, (6, 6, 6), "narrow"),
+               (537, 41, (6, 6, 6), "random"), (537, 43, (6, 3, 6), "random"),
+               (537, 41, (6, 3, 6), "narrow"), (6000, 100, (6, 6, 6), "narrow"),
+               (6000, 100, (3, 3, 6), "random"),
+               (600, 1000, (6, 6, 6), "narrow"),
+               (600, 1000, (3, 3, 6), "random")]
+
+
+@pytest.mark.parametrize("rows,kmax,shape,lhs", PAIR_RAGGED)
+def test_fused_pair_gemm_at_ragged_shapes(dev, rows, kmax, shape, lhs):
+    """The staged kernel against the plain version at ragged plans, every
+    ``threads`` candidate (and 1024) bitwise the 256-thread launch; rows
+    with every slot masked are an exact 0.0."""
+    ops = _pair_operands(dev, 180 + rows + kmax, rows, kmax, shape, lhs)
+    want = _launch_once(gemm_ops, lambda: gemm_ops.fused_pair_gemm(
+        *ops, threads=256))
+    _close(want, fused_pair_gemm_ref(*ops))
+    assert torch.equal(want[3:10], torch.zeros_like(want[3:10]))
+    assert not torch.signbit(want[3:10]).any()
+    for t in autotune.CANDIDATES["fused_pair_gemm"]["threads"] + (1024,):
+        assert torch.equal(gemm_ops.fused_pair_gemm(*ops, threads=t),
+                           want), t
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 6), (6, 3, 6), (6, 6, 6)])
+def test_fused_pair_gemm_copies_misaligned_operands(dev, shape):
+    """Operands at an 8-byte offset take the 8-byte copies and give the
+    bits of the aligned launch."""
+    ops = _pair_operands(dev, 190, 700, 9, shape, "narrow")
+    a, b = ops[:2]
+    want = gemm_ops.fused_pair_gemm(*ops)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        return view
+    for a2, b2 in ((shifted(a), b), (a, shifted(b)),
+                   (shifted(a), shifted(b))):
+        assert a2.data_ptr() % 16 or b2.data_ptr() % 16
+        assert torch.equal(gemm_ops.fused_pair_gemm(a2, b2, *ops[2:]), want)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
 @pytest.mark.parametrize("k", [2, 5, 16])
 def test_spmm_kernel_bitwise_per_column(dev, br, bc, k):
