@@ -6,11 +6,13 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` and drives four paths of the port on the paper's
-configuration ``ElasticityConfig(m=32)``, each with the launch counts set
-to 0 just before it and read just after.  The autotuner's cache is a fresh
-temporary file (``REPRO_TORCH_TUNE_CACHE``), and the first three paths run
-with ``REPRO_TORCH_TUNE=off`` (the static 256-thread launch):
+kernels/csrc`` and drives six paths of the port, each with the launch
+counts set to 0 just before it and read just after.  The autotuner's cache
+is a fresh temporary file (``REPRO_TORCH_TUNE_CACHE``), and every path but
+the tune path runs with ``REPRO_TORCH_TUNE=off`` (the static 256-thread
+launch).  The first four run the paper's configuration
+``ElasticityConfig(m=32)`` on the host assembly path and the greedy
+coarsener, which its pinned numbers were taken on:
 
 1. the main path — blocked-COO assembly, cold GAMG setup, then 3 hot steps
    of reassembly, ``update_operator`` (the PtAP chain) and the AMG-PCG
@@ -27,7 +29,31 @@ with ``REPRO_TORCH_TUNE=off`` (the static 256-thread launch):
    sweeps the ``threads`` knob of every (family, signature) the main and
    serve paths launched, plus ``pbjacobi`` at every level's ``dinv``
    shape, records the winners, and runs the CLI's ``smoke`` round trip
-   on the card.
+   on the card;
+5. the MIS path — the reference's defaults as ``examples/quickstart.py``
+   runs them (device assembly, the device Luby-MIS coarsener,
+   ``coarse_size=40``) at m=12: levels ``[4752, 1212, 918, 66]``,
+   aggregates per level ``[202, 153, 11]`` and equal to the port's on the
+   CPU, 3 hot steps of 9 iterations whose solutions the same steps on the
+   CPU setup match within 1e-9;
+6. the coefficient path — ``ElasticityConfig(m=32)`` as built (device
+   assembly, its assembler bound to the solver; the main path's levels),
+   then ``examples/heterogeneous.py``'s four inclusion contrasts through
+   ``update_coefficients`` and a solve each (healthy), the
+   device-assembled A within 1e-12 of the host path's, and a server's
+   ``update_coefficients`` and burst.
+
+The MIS and coefficient paths hold every kernel against its plain
+version at their own shapes (``mis kernel case`` / ``coeff kernel case``
+lines).  Last, ``chip_smoke.py --h2d-witness`` runs in a child process
+(a fresh process, whose profiler records memcpy events): one profiler
+session holds the coefficient path's four updates and, before and after
+them, three 8 MiB control copies (``.to``, ``torch.as_tensor`` of an
+array, ``torch.tensor`` of a list, the last out of the aten count's
+sight).  Each control must read its size in the profiler's memcpy
+bytes, and each update must move between its two per-element fields and
+those plus 4 KB host to device by both the profiler and the aten count
+(``repro_torch.obs.transfer``).
 
 After the main path it prints a ``coarse operators`` line: SHA-256 of the
 setup's coarse operators and prolongators (all products of
@@ -44,7 +70,15 @@ bound (device time per call: a batch of calls queued behind a sleep kernel
 between CUDA events; the single-launch time, host enqueue included, beside
 it), and compares the port on the CPU with the port on the card at m=7
 (bitwise levels and aggregates, equal CG iterations, solutions within
-1e-9, vector and k=4 panel solves). For the tuned kernels it then launches
+1e-9, vector and k=4 panel solves) and runs ``heterogeneous.py`` at m=7 on
+both (levels ``[882, 204]``, iterations 9, 10, 14, 17).  Every kernel case
+carries ``floor_ms``: the empty kernel (``csrc/launch_floor.cu``) at the
+case's grid, as the kernel library notes it for the case's one launch
+(``autotune.launch_record``).  The ``launch floor`` and ``pbjacobi
+cases`` lines give the pbjacobi cases' static and tuned
+times beside their floors and byte bound, and require the outputs at every
+``threads`` value to hash to ``EXPECT_PBJ_SHA`` (the first pbjacobi
+kernel's).  For the tuned kernels it then launches
 every ``threads`` candidate at the m=32 shapes and requires the output
 bitwise equal to the 256-thread launch, times winner against default with
 CUDA events, and runs a hot step and a k=16 panel solve static, tuned,
@@ -96,6 +130,27 @@ CHECKED_BURSTS = (3, 5)         # per column against dedicated solves
 PANEL_KS = (16, 4)              # block_spmm cases
 TUNE_K = 16                     # the tuned-vs-static panel solve
 OMEGA = 0.6                     # pbjacobi cases (the autotuner's omega)
+# quickstart's setting (device assembly, the MIS coarsener, coarse_size
+# 40) at the largest m the reference's MIS reaches (ROADMAP Queue 3 item
+# 5): the reference's levels, aggregates per level and iterations
+MIS_M, MIS_COARSE = 12, 40
+EXPECT_MIS_ROWS = [4752, 1212, 918, 66]
+EXPECT_MIS_NAGG = [202, 153, 11]
+EXPECT_MIS_ITERS = 9
+# examples/heterogeneous.py: inclusion contrasts, and the reference's
+# levels and iterations at m=7 (MIS, coarse_size 40)
+CONTRASTS = (1.0, 10.0, 100.0, 1000.0)
+HETERO_M, HETERO_COARSE = 7, 40
+EXPECT_HETERO_ROWS = [882, 204]
+EXPECT_HETERO_ITERS = [9, 10, 14, 17]
+H2D_SLACK = 4096        # bytes a coefficient update may move beyond E, nu
+H2D_FLAG = "--h2d-witness"      # the child process of h2d_check
+# SHA-256 (first 16 hex digits) of the pbjacobi cases' outputs (L0, L1,
+# L2 at the main path's dinv) as the first kernel produced them (omega
+# read from device memory); every later kernel, at every threads value,
+# must reproduce them (None: printed, not checked)
+EXPECT_PBJ_SHA = {"L0": "e8fbc9c01e21ec0f", "L1": "77f796e092eb2dc0",
+                  "L2": "2bd5d4b5cc866401"}
 # SHA-256 (first 16 hex digits) of the card's m=32 setup operators and
 # prolongators and of the last main-path hot-step solution, as the
 # thread-per-element fused_pair_gemm produced them; any later kernel must
@@ -141,6 +196,9 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/pbjacobi.cu",
         replaces="src/repro/kernels/pbjacobi/pbjacobi.py:35"),
 }
+#: the kernels of every hot step: assembly, recompute, solve
+MAIN_KERNELS = ("block_seg_sum", "fused_pair_gemm", "fused_smoother",
+                "block_spmv")
 #: the kernels with a ``threads`` knob (the autotuner's families)
 TUNED = ("block_spmv", "block_spmm", "pbjacobi", "fused_smoother",
          "fused_pair_gemm")
@@ -213,15 +271,14 @@ def main_path(m: int, device, coarse_size: int | None = None,
         cfg = ElasticityConfig(m=m, coarse_size=coarse_size)
     t0 = time.perf_counter()
     prob = assemble_elasticity(cfg.m, order=cfg.order, E=cfg.E, nu=cfg.nu,
-                               device=device)
+                               path="host", device=device)
     sync(device)
     t_asm = time.perf_counter() - t0
     t0 = time.perf_counter()
     solver = GAMGSolver(prob.A, prob.B, theta=cfg.theta,
                         smoother=cfg.smoother, degree=cfg.degree,
-                        coarse_size=cfg.coarse_size,
-                        coarsener=cfg.coarsener, rtol=cfg.rtol,
-                        maxiter=cfg.maxiter)
+                        coarse_size=cfg.coarse_size, coarsener="greedy",
+                        rtol=cfg.rtol, maxiter=cfg.maxiter)
     sync(device)
     t_setup = time.perf_counter() - t0
     stats = solver.setup_data.stats
@@ -524,6 +581,370 @@ def pairs_path(run: dict, device, expect_iters: int,
     return counts.total
 
 
+def h2d_witness() -> int:
+    """``chip_smoke.py --h2d-witness``, run by ``h2d_check`` in a process
+    of its own: the profiler records memcpy events in a fresh process and
+    may not once a process has run other profiled work.  One profiler
+    session, opened before any other work, holds a ``record_function``
+    range for each of three control copies, each of the coefficient
+    path's four updates (``ElasticityConfig(m=32)`` as built) and the
+    three controls again; prints one JSON line of the bytes each range
+    moved host to device by the profiler's memcpy events and by
+    ``obs.transfer.count_h2d``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.fem.assemble import inclusion_fields
+    from repro_torch.kernels import backend
+    from repro_torch.obs.transfer import count_h2d
+
+    backend.build_library()
+    n = 2 ** 20
+    host, arr, lst = torch.ones(n, dtype=torch.float64), np.ones(n), \
+        [1.0] * n
+    # the aten count sees the first, and (in the torch versions tried) the
+    # second; the third copies inside the constructor, out of its sight
+    controls = {
+        "to": lambda: host.to("cuda"),
+        "as_tensor": lambda: torch.as_tensor(arr, device="cuda"),
+        "tensor": lambda: torch.tensor(lst, dtype=torch.float64,
+                                       device="cuda")}
+    aten = {}
+
+    def ranged(name, fn):
+        torch.cuda.synchronize()
+        with record_function(f"h2d {name}"):
+            aten[name] = count_h2d(fn)[1]
+            torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k, fn in controls.items():
+            ranged(f"control {k}", fn)
+        prob, solver = ElasticityConfig(m=MAIN_M).build(device="cuda")
+        for c in CONTRASTS:
+            E, nu = inclusion_fields(prob.mesh, E_inclusion=c)
+            ranged(f"update {c}", lambda: solver.update_coefficients(E, nu))
+        for k, fn in controls.items():
+            ranged(f"control {k} after", fn)
+    by_range, outside = _h2d_by_range(prof)
+    print("h2d witness " + json.dumps(dict(
+        control_bytes=n * 8, n_elements=prob.mesh.n_elements,
+        outside_ranges=outside,
+        ranges={k: dict(aten=v, profiler=by_range.get(f"h2d {k}", 0))
+                for k, v in aten.items()})))
+    return 0
+
+
+def _h2d_by_range(prof) -> tuple:
+    """Host-to-device memcpy bytes of a profiler session by the
+    ``record_function`` range whose host span holds the copy's runtime
+    call (joined on the correlation id), and the bytes outside every
+    range."""
+    events = _trace(prof)
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("h2d ")]
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    out, outside = {}, 0
+    for e in events:
+        if e.get("cat") != "gpu_memcpy" or "HtoD" not in e.get("name", ""):
+            continue
+        if "bytes" not in e.get("args", {}):
+            raise AssertionError(f"memcpy event without bytes: {e}")
+        ts = calls.get(e["args"].get("correlation"), e["ts"])
+        hit = [r["name"] for r in ranges
+               if r["ts"] <= ts <= r["ts"] + r["dur"]]
+        if hit:
+            out[hit[0]] = out.get(hit[0], 0) + int(e["args"]["bytes"])
+        else:
+            outside += int(e["args"]["bytes"])
+    return out, outside
+
+
+def _h2d_witness_run() -> dict:
+    """One ``h2d_witness`` child process; its record."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          H2D_FLAG], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("h2d witness ")]
+    if out.returncode or not lines:
+        raise AssertionError(f"h2d witness exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return json.loads(lines[-1][len("h2d witness "):])
+
+
+def h2d_check(tries: int = 3) -> dict:
+    """Runs ``h2d_witness`` in a child process and holds its numbers: each
+    control read by the profiler at its size, before and after the
+    updates (a witness that reads 0 fails), the ``to`` control by the
+    aten count too, and each update between the two fields and the two
+    fields plus ``H2D_SLACK`` bytes by both counts.  A child whose
+    profiler missed a control copy measured nothing, so another child
+    runs (at most ``tries`` in all); the updates are held only in a child
+    whose every control read its size."""
+    for attempt in range(1, tries + 1):
+        rec = _h2d_witness_run()
+        size = rec["control_bytes"]
+        blind = [k for k, got in rec["ranges"].items()
+                 if k.startswith("control") and got["profiler"] != size]
+        if not blind:
+            break
+        print("h2d witness blind " + json.dumps(dict(
+            attempt=attempt, controls={k: rec["ranges"][k] for k in blind})))
+    else:
+        raise AssertionError(f"h2d witness: the profiler missed control "
+                             f"copies in {tries} child processes: {blind}")
+    rec["attempts"] = attempt
+    ranges = rec["ranges"]
+    fields = 2 * rec["n_elements"] * 8
+    for name, got in ranges.items():
+        if name.startswith("control"):
+            if name.startswith("control to") and got["aten"] != size:
+                raise AssertionError(f"h2d {name}: the aten count read "
+                                     f"{got['aten']} bytes of {size}")
+        elif not all(fields <= got[k] <= fields + H2D_SLACK
+                     for k in ("profiler", "aten")):
+            raise AssertionError(f"h2d {name}: {got} bytes host to device;"
+                                 f" expected {fields} to "
+                                 f"{fields + H2D_SLACK}")
+    return rec
+
+
+def _trace(prof) -> list:
+    """The events of a profiler's chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    return trace["traceEvents"] if isinstance(trace, dict) else trace
+
+
+def _mis_problem(device, m: int = MIS_M, coarse_size: int = MIS_COARSE):
+    """Quickstart's setting: device assembly, cold setup with the MIS
+    coarsener; returns the problem, the solver and the seconds taken."""
+    from repro_torch.core.gamg import GAMGSolver
+    from repro_torch.fem.assemble import assemble_elasticity
+    sync(device)
+    t0 = time.perf_counter()
+    prob = assemble_elasticity(m, device=device)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=coarse_size,
+                        coarsener="mis", rtol=1e-8, maxiter=200)
+    sync(device)
+    return prob, solver, time.perf_counter() - t0
+
+
+def _edge_margins(A, theta: float, edges) -> list:
+    """For each ``(i, j)`` edge, how far block (i, j) or (j, i) of ``A``
+    lies from the strength threshold ``theta * sqrt(|a_ii| |a_jj|)``, in
+    ulps of the threshold (the nearer of the two directions)."""
+    import numpy as np
+    norms = A.block_norms().cpu().numpy()
+    rows = A.row_of_nnz()
+    cols = A.indices.astype(np.int64)
+    diag = np.full(A.nbr, np.inf)
+    on = rows == cols
+    diag[rows[on]] = norms[on]
+    out = []
+    for i, j in edges:
+        best = np.inf
+        for a, b in ((i, j), (j, i)):
+            hit = np.flatnonzero((rows == a) & (cols == b))
+            if len(hit):
+                thr = theta * np.sqrt(diag[a] * diag[b])
+                ulps = abs(norms[hit[0]] - thr) / (np.finfo(float).eps * thr)
+                best = min(best, float(ulps))
+        out.append(dict(edge=[int(i), int(j)], margin_ulps=best))
+    return out
+
+
+def _aggregates_card_vs_cpu(card, cpu) -> list:
+    """Level by level, the card's MIS aggregates against the CPU's: equal,
+    or every strength edge the two graphs disagree on printed with its
+    margin to the threshold; a margin above ``TIE_ULPS``, or equal graphs
+    with other aggregates, fails."""
+    import numpy as np
+
+    from repro_torch.core.strength import strength_graph
+    out = []
+    for li, (a, b) in enumerate(zip(cpu.levels, card.levels)):
+        if np.array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg):
+            out.append(dict(level=li, equal=True))
+            continue
+        ga, gb = (strength_graph(ls.A0, cpu.theta) for ls in (a, b))
+        ea, eb = ({(int(r), int(c)) for r, c in zip(
+            np.repeat(np.arange(g.n), np.diff(g.indptr)), g.indices)}
+            for g in (ga, gb))
+        edges = sorted({tuple(sorted(e)) for e in ea ^ eb})
+        margins = _edge_margins(a.A0, cpu.theta, edges)
+        print("mis strength edges card vs cpu " + json.dumps(dict(
+            level=li, edges=margins)))
+        worst = max((m["margin_ulps"] for m in margins), default=None)
+        if worst is None or worst > TIE_ULPS:
+            raise AssertionError(
+                f"level {li}: MIS aggregates differ card vs CPU; strength "
+                f"graphs differ by {len(edges)} edges, largest margin "
+                f"{worst} ulps (limit {TIE_ULPS})")
+        out.append(dict(level=li, equal=False, edges=len(edges),
+                        max_margin_ulps=worst))
+    return out
+
+
+def mis_path(device="cuda", verbose: bool = True) -> tuple:
+    """Quickstart's setting on the card at m=12: device assembly, the MIS
+    cold setup, 3 hot steps; levels, aggregates per level and iterations
+    are the reference's, the aggregates equal the port's on the CPU, and
+    the same 3 steps on the CPU setup give the same iterations and
+    solutions within ``SOLUTION_TOL``.  Every kernel of the path is held
+    against its plain version at the path's own shapes.  Returns the
+    path's kernel launches and the kernel checks."""
+    from repro_torch.robust.health import HEALTHY
+    counts = PathCounts()
+    reset_counts()
+    (prob, solver, setup_s), _ = counts.run(lambda: _mis_problem(device))
+    sd = solver.setup_data
+    n_agg = [ls.aggr.n_agg for ls in sd.levels]
+    if sd.stats["level_rows"] != EXPECT_MIS_ROWS or n_agg != EXPECT_MIS_NAGG:
+        raise AssertionError(f"mis path: levels {sd.stats['level_rows']}, "
+                             f"n_agg {n_agg}; expected {EXPECT_MIS_ROWS}, "
+                             f"{EXPECT_MIS_NAGG}")
+    steps, xs = [], []
+    for step in range(3):
+        t0 = time.perf_counter()
+        a = counts.run(lambda: prob.reassemble(1.0 + 0.1 * step))[0]
+        counts.run(lambda: solver.update_operator(a.data))
+        res, _ = counts.run(lambda: solver.solve(prob.b))
+        sync(device)
+        steps.append(dict(iters=res.iters, relres=float(res.relres),
+                          step_ms=1e3 * (time.perf_counter() - t0)))
+        xs.append(res.x)
+        if res.iters != EXPECT_MIS_ITERS or \
+                int(res.health.status) != HEALTHY:
+            raise AssertionError(f"mis path step {step}: {res.iters} "
+                                 f"iterations (expected {EXPECT_MIS_ITERS}),"
+                                 f" status {int(res.health.status)}")
+    per = check_kernels(build_cases(dict(prob=prob, solver=solver), device),
+                        PEAKS, timed=False, label="mis ")
+    cpu_prob, cpu, cpu_s = _mis_problem("cpu")
+    if cpu.setup_data.stats["level_rows"] != sd.stats["level_rows"]:
+        raise AssertionError(f"mis path: CPU levels "
+                             f"{cpu.setup_data.stats['level_rows']}")
+    agg = _aggregates_card_vs_cpu(sd, cpu.setup_data)
+    for step, x in enumerate(xs):
+        a = cpu_prob.reassemble(1.0 + 0.1 * step)
+        cpu.update_operator(a.data)
+        res = cpu.solve(cpu_prob.b)
+        rel = _rel(x, res.x)
+        steps[step].update(cpu_iters=res.iters, rel_diff_cpu=rel)
+        if res.iters != steps[step]["iters"] or not rel <= SOLUTION_TOL:
+            raise AssertionError(f"mis path step {step}: {res.iters} "
+                                 f"iterations on the CPU, solutions differ "
+                                 f"by {rel:.3e} (limit {SOLUTION_TOL})")
+    if verbose:
+        print("mis path " + json.dumps(dict(
+            m=MIS_M, coarse_size=MIS_COARSE, level_rows=sd.stats["level_rows"],
+            n_agg=n_agg, mis_rounds=sd.stats["mis_rounds"],
+            cold_setup_s=setup_s, cpu_setup_s=cpu_s,
+            cpu_mis_rounds=cpu.setup_data.stats["mis_rounds"],
+            aggregates_card_vs_cpu=agg, steps=steps,
+            kernel_cases={k: v["cases"] for k, v in per.items()},
+            launches=counts.total)))
+    return counts.total, per
+
+
+def coefficient_path(device="cuda", verbose: bool = True) -> tuple:
+    """``ElasticityConfig(m=32)`` as built (device assembly, greedy,
+    coarse_size 100, the assembler bound; the main path's levels), then
+    ``heterogeneous.py``'s four inclusion contrasts through
+    ``update_coefficients`` and a solve each, and a server's
+    ``update_coefficients`` and burst.  Every kernel of the path is held
+    against its plain version on the last update's hierarchy (the bytes
+    an update moves are ``h2d_check``'s).  Returns the path's kernel
+    launches and the kernel checks."""
+    import numpy as np
+
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.fem.assemble import assemble_elasticity, \
+        inclusion_fields
+    from repro_torch.multirhs import AMGSolveServer
+    from repro_torch.robust.health import HEALTHY
+
+    cfg = ElasticityConfig(m=MAIN_M)
+    counts = PathCounts()
+    reset_counts()
+    t0 = time.perf_counter()
+    (prob, solver), _ = counts.run(lambda: cfg.build(device=device))
+    sync(device)
+    build_s = time.perf_counter() - t0
+    if prob.assembler is None or solver.assembler is not prob.assembler:
+        raise AssertionError("coefficient path: no bound device assembler")
+    if solver.setup_data.stats["level_rows"] != EXPECT_LEVEL_ROWS:
+        raise AssertionError(f"coefficient path: levels "
+                             f"{solver.setup_data.stats['level_rows']}, "
+                             f"expected {EXPECT_LEVEL_ROWS}")
+    host = assemble_elasticity(cfg.m, order=cfg.order, E=cfg.E, nu=cfg.nu,
+                               path="host", device=device)
+    a_rel = _rel(prob.A.data, host.A.data)
+    del host
+    if not a_rel <= REL_TOL:
+        raise AssertionError(f"device-assembled A vs host path: {a_rel:.3e}")
+    steps = []
+    for contrast in CONTRASTS:
+        E, nu = inclusion_fields(prob.mesh, E_inclusion=contrast)
+        sync(device)
+        t0 = time.perf_counter()
+        counts.run(lambda: solver.update_coefficients(E, nu))
+        sync(device)
+        upd_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res, _ = counts.run(lambda: solver.solve(prob.b))
+        sync(device)
+        solve_ms = 1e3 * (time.perf_counter() - t0)
+        if int(res.health.status) != HEALTHY or not bool(res.converged):
+            raise AssertionError(f"contrast {contrast}: status "
+                                 f"{int(res.health.status)}, converged "
+                                 f"{bool(res.converged)}")
+        steps.append(dict(contrast=contrast, iters=res.iters,
+                          relres=float(res.relres), update_ms=upd_ms,
+                          solve_ms=solve_ms))
+    per = check_kernels(build_cases(dict(prob=prob, solver=solver), device),
+                        PEAKS, timed=False, label="coeff ")
+    srv, _ = counts.run(lambda: AMGSolveServer(
+        solver.setup_data, prob.A.data, buckets=BUCKETS,
+        assembler=prob.assembler))
+    E, nu = inclusion_fields(prob.mesh, E_inclusion=CONTRASTS[-1])
+    counts.run(lambda: srv.update_coefficients(E, nu))
+    rng = np.random.default_rng(19)
+    rhs = [prob.b.cpu().numpy()] + [rng.standard_normal(prob.n)
+                                    for _ in range(3)]
+    reports, _ = counts.run(lambda: srv.serve(rhs))
+    bad = [(r.request_id, r.status) for r in reports
+           if r.status != "ok" or not r.converged]
+    if bad or reports[0].iters != steps[-1]["iters"]:
+        raise AssertionError(f"coefficient server: reports not ok {bad}, or "
+                             f"b took {reports[0].iters} iterations against "
+                             f"the solver's {steps[-1]['iters']}")
+    if verbose:
+        print("coefficient path " + json.dumps(dict(
+            m=MAIN_M, level_rows=solver.setup_data.stats["level_rows"],
+            build_s=build_s, device_vs_host_A_rel=a_rel,
+            value_stream_bytes=int(prob.values.numel() * 8), steps=steps,
+            server=dict(reports=len(reports),
+                        iters=[r.iters for r in reports],
+                        stats={k: srv.stats[k] for k in (
+                            "coefficient_updates", "recomputes",
+                            "batches")},
+                        coeff_update_s=srv.metrics()
+                        .coeff_update_seconds.snapshot()["sum"]),
+            kernel_cases={k: v["cases"] for k, v in per.items()},
+            launches=counts.total)))
+    return counts.total, per
+
+
 def check_path_launches(name: str, launches: dict, kernels) -> None:
     for k in kernels:
         if launches[k] <= 0:
@@ -551,6 +972,8 @@ class Case:
         # map's lanes, and the kernel at any lanes (256 threads) for the
         # sweep of the map's choice
         self.lanes, self.at_lanes = lanes, at_lanes
+        # the empty kernel's device ms at this case's grid
+        self.floor_ms = None
 
 
 def _unique_count(idx, mask=None) -> int:
@@ -683,7 +1106,8 @@ def build_cases(run: dict, device) -> list:
             nbytes=a.nbr * bs * bs * 8 + 3 * a.nbr * bs * 8,
             flops=a.nbr * bs * (2 * bs + 2),
             library=lambda lv=lv, r=r, x=x: torch.baddbmm(
-                x[..., None], lv.dinv, r[..., None], alpha=OMEGA)[..., 0]))
+                x[..., None], lv.dinv, r[..., None], alpha=OMEGA)[..., 0],
+            extra=dict(nbr=a.nbr, bs=bs)))
 
     # --- fused_pair_gemm on both Galerkin products of every level, and the
     # block_seg_sum row-split combine where rows split -----------------------
@@ -845,15 +1269,19 @@ def check_bitwise(run: dict, device) -> dict:
     return checked
 
 
-def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
-    """Hold every case's kernel against its plain version; time it."""
+def check_kernels(cases: list, peaks: tuple, timed: bool = True,
+                  label: str = "") -> dict:
+    """Hold every case's kernel against its plain version; time it.  Each
+    case's line starts with ``label`` (the path, where it is not the
+    main one)."""
     import torch
 
     from repro_torch.kernels.autotune import device_ms
     bw, fp = peaks
     per = {name: dict(cases=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
                       ms_single=0.0, plain_ms=0.0, bound_ms=0.0,
-                      library_ms=0.0, library_all=True, bytes=0, flops=0)
+                      floor_ms=0.0, library_ms=0.0, library_all=True,
+                      bytes=0, flops=0)
            for name in KERNELS}
     for c in cases:
         got, want = c.run(), c.plain()
@@ -875,8 +1303,10 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
         row["bound_ms"] += bound
         row["bytes"] += c.nbytes
         row["flops"] += c.flops
+        row["floor_ms"] += c.floor_ms or 0.0
         line = dict(kernel=c.kernel, case=c.label, max_abs_err=err,
-                    max_rel_err=rel, bound_ms=bound, bytes=c.nbytes)
+                    max_rel_err=rel, bound_ms=bound, floor_ms=c.floor_ms,
+                    bytes=c.nbytes)
         if c.lanes is not None:
             line["lanes"] = c.lanes
         line.update(c.extra)
@@ -893,8 +1323,37 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True) -> dict:
                 row["library_ms"] += l_ms
             line.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                         ms_single=s_ms)
-        print("kernel case " + json.dumps(line))
+        print(f"{label}kernel case " + json.dumps(line))
     return per
+
+
+def fold_errors(per: dict, other: dict) -> None:
+    """The largest errors of another path's kernel checks into ``per``
+    (the record's times stay the main path's cases')."""
+    for name, row in other.items():
+        for key in ("max_abs_err", "max_rel_err"):
+            per[name][key] = max(per[name][key], row[key])
+
+
+def attach_floors(cases: list) -> None:
+    """Each case's launch geometry, as the kernel library notes it for the
+    one launch a call makes (``autotune.launch_record``), and the empty
+    kernel's time at that geometry (``extra["grid"]``, ``floor_ms``)."""
+    import torch
+
+    from repro_torch.kernels.autotune import launch_floor_ms, launch_record
+    for c in cases:
+        torch.cuda.synchronize()
+        before = launch_record()[0]
+        c.run()
+        torch.cuda.synchronize()
+        launches, blocks, threads = launch_record()
+        if launches - before != 1:
+            raise AssertionError(f"{c.kernel} {c.label}: "
+                                 f"{launches - before} library launches in "
+                                 f"one call")
+        c.extra["grid"] = [blocks, threads]
+        c.floor_ms = launch_floor_ms(blocks, threads)
 
 
 def lanes_sweep(cases: list) -> None:
@@ -1082,6 +1541,52 @@ def tuned_vs_static_kernels(cases: list, verbose: bool = True) -> list:
     return rows
 
 
+def pbjacobi_phase(cases: list, peaks: tuple) -> dict:
+    """The pbjacobi cases (each level's dinv): every ``threads`` candidate
+    bitwise the 256-thread launch, whose SHA-256 must equal
+    ``EXPECT_PBJ_SHA``; static and tuned device ms beside the byte bound
+    and the empty kernel's time at the kernel's grid and at the first
+    kernel's (one thread per element, 256 a CTA)."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.autotune import device_ms, launch_floor_ms
+    shas, rows, floors = {}, [], []
+    for c in (c for c in cases if c.kernel == "pbjacobi"):
+        level = c.label.split()[0]
+        want = c.run(threads=autotune.DEFAULT_THREADS)
+        for t in autotune.CANDIDATES["pbjacobi"]["threads"]:
+            if not torch.equal(c.run(threads=t), want):
+                raise AssertionError(f"pbjacobi {c.label}: threads={t} "
+                                     f"differs from 256")
+        shas[level] = _sha(want)
+        nbr, bs = c.extra["nbr"], c.extra["bs"]
+        first = -(-nbr * bs // autotune.DEFAULT_THREADS)
+        floors.append(dict(case=level, grid=c.extra["grid"],
+                           floor_ms=c.floor_ms,
+                           first_grid=[first, autotune.DEFAULT_THREADS],
+                           first_floor_ms=launch_floor_ms(
+                               first, autotune.DEFAULT_THREADS)))
+        static = device_ms(lambda c=c: c.run(threads=autotune
+                                             .DEFAULT_THREADS))
+        with tune_mode("cache"):
+            tuned = device_ms(c.run)
+        rows.append(dict(case=c.label, static_ms=static, tuned_ms=tuned,
+                         bound_ms=1e3 * c.nbytes / peaks[0],
+                         floor_ms=c.floor_ms, bytes=c.nbytes))
+    print("launch floor " + json.dumps(floors))
+    out = dict(cases=rows, sha256_16=shas,
+               checked=EXPECT_PBJ_SHA is not None,
+               sum_static_ms=sum(r["static_ms"] for r in rows),
+               sum_tuned_ms=sum(r["tuned_ms"] for r in rows),
+               sum_floor_ms=sum(r["floor_ms"] for r in rows),
+               sum_bound_ms=sum(r["bound_ms"] for r in rows))
+    print("pbjacobi cases " + json.dumps(out))
+    if EXPECT_PBJ_SHA is not None and shas != EXPECT_PBJ_SHA:
+        raise AssertionError(f"pbjacobi outputs not bitwise the first "
+                             f"kernel's: {shas} against {EXPECT_PBJ_SHA}")
+    return out
+
+
 def tuned_vs_static_steps(run: dict, device, expect_iters: int,
                           verbose: bool = True) -> dict:
     """One hot step (reassembly, ``update_operator``, solve) and one
@@ -1198,6 +1703,50 @@ def cpu_vs_cuda(m: int, coarse_size: int) -> dict:
     return out
 
 
+def hetero_cpu_vs_cuda(devices=("cpu", "cuda")) -> dict:
+    """``examples/heterogeneous.py`` at m=7 (device assembly, MIS,
+    coarse_size 40) on the CPU and on the card: the reference's levels
+    and iterations on both, equal aggregates, solutions within 1e-9."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gamg import GAMGSolver
+    from repro_torch.fem.assemble import assemble_elasticity, \
+        inclusion_fields
+    runs = []
+    for d in devices:
+        prob = assemble_elasticity(HETERO_M, device=d)
+        solver = GAMGSolver(prob.A, prob.B, coarse_size=HETERO_COARSE,
+                            rtol=1e-8, maxiter=100)
+        solver.bind_assembler(prob.assembler)
+        iters, xs = [], []
+        for contrast in CONTRASTS:
+            solver.update_coefficients(*inclusion_fields(
+                prob.mesh, E_inclusion=contrast))
+            res = solver.solve(prob.b)
+            iters.append(res.iters)
+            xs.append(res.x.cpu())
+        sd = solver.setup_data
+        runs.append((sd, iters, xs))
+        if sd.stats["level_rows"] != EXPECT_HETERO_ROWS or \
+                iters != EXPECT_HETERO_ITERS:
+            raise AssertionError(
+                f"heterogeneous m={HETERO_M} on {d}: levels "
+                f"{sd.stats['level_rows']}, iterations {iters}; expected "
+                f"{EXPECT_HETERO_ROWS}, {EXPECT_HETERO_ITERS}")
+    (s_cpu, iters, x_cpu), (s_gpu, _, x_gpu) = runs
+    for li, (a, b) in enumerate(zip(s_cpu.levels, s_gpu.levels)):
+        if not np.array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg):
+            raise AssertionError(f"heterogeneous level {li}: aggregates "
+                                 f"differ")
+    rel = [float(torch.linalg.vector_norm(c - g) / torch.linalg.vector_norm(c))
+           for c, g in zip(x_cpu, x_gpu)]
+    if not max(rel) <= SOLUTION_TOL:
+        raise AssertionError(f"heterogeneous: solutions differ by {rel}")
+    return dict(level_rows=s_cpu.stats["level_rows"], iters=iters,
+                rel_diff=rel)
+
+
 def aggregates_vs_cpu(run: dict) -> dict:
     """The card's m=32 setup against the port's on the CPU: levels, nnzb
     and ``n_agg`` equal; where a level's aggregates differ, every
@@ -1214,9 +1763,9 @@ def aggregates_vs_cpu(run: dict) -> dict:
     cfg = ElasticityConfig(m=MAIN_M)
     t0 = time.perf_counter()
     prob = assemble_elasticity(cfg.m, order=cfg.order, E=cfg.E, nu=cfg.nu,
-                               device="cpu")
+                               path="host", device="cpu")
     cpu = gamg.setup(prob.A, prob.B, theta=cfg.theta,
-                     coarse_size=cfg.coarse_size, coarsener=cfg.coarsener)
+                     coarse_size=cfg.coarse_size, coarsener="greedy")
     setup_s = time.perf_counter() - t0
     card = run["solver"].setup_data
     for key in ("level_rows", "level_nnzb", "level_bs"):
@@ -1286,7 +1835,7 @@ def kernel_record(per: dict, by_path: dict, per_step: dict,
             max_rel_err=row["max_rel_err"], ms=row["ms"],
             kernel_ms=row["ms"], ms_single=row["ms_single"],
             plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"],
+            bound_ms=row["bound_ms"], floor_ms=row["floor_ms"],
             bound_by="bytes" if by_bytes else "operations",
             library_ms=row["library_ms"] if row["library_all"] else None))
     return {"kernels": record}
@@ -1308,7 +1857,7 @@ def main() -> int:
                                                "autotune.json")
     try:
         with tune_mode("off"):
-            return run_all()
+            return h2d_witness() if H2D_FLAG in sys.argv[1:] else run_all()
     finally:
         shutil.rmtree(tune_dir, ignore_errors=True)
 
@@ -1359,6 +1908,7 @@ def run_all() -> int:
           f"{peaks[1] / 1e12:.1f} TFLOP/s fp64; measured copy_ "
           f"{copy_bandwidth() / 1e12:.3f} TB/s")
     cases = build_cases(run, "cuda")
+    attach_floors(cases)
     per = check_kernels(cases, peaks)
     lanes_sweep(cases)
 
@@ -1370,6 +1920,7 @@ def run_all() -> int:
     print("tune winners slower than 256 beyond the margin " + json.dumps(
         dict(margin=autotune.EVENT_MARGIN, count=len(slower), of=len(rows),
              cases=[f"{r['kernel']} {r['case']}" for r in slower])))
+    pbjacobi_phase(cases, peaks)
     print("tune resolve host us per call "
           + json.dumps(resolve_cost_us(run)))
     tuned_vs_static_steps(run, "cuda", EXPECT_ITERS)
@@ -1377,9 +1928,18 @@ def run_all() -> int:
         profile_hot_step(run, label="tuned ")
 
     check = cpu_vs_cuda(CHECK_M, CHECK_COARSE)
+    check["heterogeneous"] = hetero_cpu_vs_cuda()
     print("cpu vs cuda " + json.dumps(check))
     print(f"m={MAIN_M} aggregates card vs cpu "
           + json.dumps(aggregates_vs_cpu(run)))
+
+    by_path["mis"], mis_per = mis_path()
+    check_path_launches("mis", by_path["mis"], MAIN_KERNELS)
+    by_path["coeff"], coeff_per = coefficient_path()
+    check_path_launches("coeff", by_path["coeff"], MAIN_KERNELS)
+    for other in (mis_per, coeff_per):
+        fold_errors(per, other)
+    print("coefficient h2d " + json.dumps(h2d_check()))
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks)))
     print(json.dumps({"ok": True, "device": {

@@ -22,22 +22,30 @@ class ElasticityConfig:
     smoother: str = "chebyshev"  # pbjacobi-preconditioned (paper default)
     degree: int = 2
     coarse_size: int = 100
-    coarsener: str = "greedy"
+    coarsener: str = "greedy"    # "mis" = device Luby-MIS (paper Sec. 6)
     rtol: float = 1e-8           # unpreconditioned residual norm
     maxiter: int = 200
+    # assembly path: "device" (batched quadrature + DeviceAssembler —
+    # enables the update_coefficients hot loop) or "host" (numpy golden
+    # path)
+    assembly: str = "device"
 
     def build(self, device="cuda"):
-        """Assemble the problem (host element blocks) and the solver (cold
-        setup) on ``device``."""
+        """Assemble the problem and the solver (cold setup) on ``device``;
+        on the device assembly path the solver's coefficient hot loop is
+        bound to the problem's assembler."""
         from repro_torch.core.gamg import GAMGSolver
         from repro_torch.fem.assemble import assemble_elasticity
         prob = assemble_elasticity(self.m, order=self.order, E=self.E,
-                                   nu=self.nu, path="host", device=device)
+                                   nu=self.nu, path=self.assembly,
+                                   device=device)
         solver = GAMGSolver(prob.A, prob.B, theta=self.theta,
                             smoother=self.smoother, degree=self.degree,
                             coarse_size=self.coarse_size,
                             coarsener=self.coarsener, rtol=self.rtol,
                             maxiter=self.maxiter)
+        if prob.assembler is not None:
+            solver.bind_assembler(prob.assembler)
         return prob, solver
 
 

@@ -1,5 +1,5 @@
-"""Aggregation — the greedy host coarsener (numpy twin of
-``repro.core.aggregation``).
+"""Aggregation — the greedy host coarsener and the device Luby-MIS
+coarsener (torch twin of ``repro.core.aggregation``).
 
 The paper keeps the aggregation graph phase on the host (Sec. 3.2): it is
 irregular, serial-leaning work, built once and reused across every solve.
@@ -17,15 +17,28 @@ Pass 2's ``argmax`` decides on block-norm weights, and on a structured
 mesh two aggregates' strongest edges to a straggler can tie up to
 rounding: operators that differ by a few ulps may then cover differently.
 ``trace_tie_flips`` checks that every such difference comes from those
-ties.  The reference's device Luby-MIS coarsener is queued in ROADMAP.md.
+ties.
+
+``mis_aggregate_device`` is the paper's future-work device coarsener
+(MATCOARSENMISKOKKOS, Sec. 6), ``gamg.setup``'s default: deterministic
+Luby rounds over integer hash weights (``luby_mis_device``), then MIS
+roots claim their neighbours within two hops.  It runs with torch ops on
+the device of the strength graph's ELL (``graph_to_ell``); the weights are
+integer hashes, so no float tie can flip a choice and the card and the
+CPU give the same aggregates bit for bit.  The reference's uint32 hash
+and uint64 keys are emulated in int64 (torch's uint32 arithmetic is
+incomplete): every product is reduced ``& 0xFFFFFFFF``, and the keys
+``w * n + i`` fit for ``n < 2**31``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.strength import StrengthGraph
+from repro_torch.kernels.backend import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,3 +154,136 @@ def trace_tie_flips(graph_a, graph_b, min_size: int,
                traced=bool(np.array_equal(replay.node_to_agg,
                                           agg_b.node_to_agg)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device Luby-MIS coarsener (paper Sec. 6 future work)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)``: the product
+    is split at 16 bits of ``c`` so no partial product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _hash_weights(n: int, seed: int, device="cuda") -> torch.Tensor:
+    """Deterministic per-vertex hash weights (Luby round priorities): the
+    reference's uint32 hash, as int64 values in ``[0, 2**32)``.  Like the
+    reference (``jnp.uint32(seed * 2654435761 + 1)``), a seed whose
+    offset leaves uint32 raises."""
+    device = resolve_device(device)
+    off = seed * 2654435761 + 1
+    if not 0 <= off <= _MASK32:
+        raise OverflowError(f"seed {seed}: offset {off} out of bounds for "
+                            f"uint32")
+    x = (torch.arange(n, dtype=torch.int64, device=device) + off) & _MASK32
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _luby_rounds(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor,
+                 seed: int = 0):
+    """``luby_mis_device`` and the number of rounds it ran."""
+    n = nbr_idx.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} vertices: the int64 keys w*n+i need "
+                         f"n < 2**31")
+    dev = nbr_idx.device
+    idx = nbr_idx.long()
+    w = _hash_weights(n, seed, dev)
+    my_key = w * n + torch.arange(n, dtype=torch.int64, device=dev)
+    nbr_key = w[idx] * n + idx
+    # state: 0 undecided, 1 in MIS, 2 excluded
+    state = torch.zeros(n, dtype=torch.int32, device=dev)
+    it = 0
+    while it < n + 2 and bool((state == 0).any()):
+        undecided = state == 0
+        # a vertex enters the MIS if it is undecided and its key beats
+        # every undecided neighbour's (ties broken by index)
+        n_undecided = (state[idx] == 0) & nbr_mask
+        beats = torch.where(n_undecided, nbr_key > my_key[:, None], True)
+        winner = undecided & beats.all(dim=1)
+        state = torch.where(winner, 1, state)
+        # exclude neighbours of fresh winners
+        nbr_in_mis = ((state[idx] == 1) & nbr_mask).any(dim=1)
+        state = torch.where((state == 0) & nbr_in_mis, 2, state)
+        it += 1
+    return (state == 1).to(torch.int32), it
+
+
+def luby_mis_device(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor,
+                    seed: int = 0) -> torch.Tensor:
+    """Maximal independent set by deterministic Luby rounds on the device
+    of ``nbr_idx``.
+
+    nbr_idx:  (n, kmax) padded neighbour lists (ELL of the strength graph)
+    nbr_mask: (n, kmax) validity
+    returns   (n,) int32: 1 = in the MIS, 0 = excluded
+
+    Rounds run until no vertex is undecided (one host check a round),
+    capped at ``n + 2`` as in the reference."""
+    return _luby_rounds(nbr_idx, nbr_mask, seed)[0]
+
+
+def _attach(in_mis: torch.Tensor, nbr_idx: torch.Tensor,
+            nbr_mask: torch.Tensor) -> torch.Tensor:
+    """MIS roots claim their neighbourhoods within two hops; leftovers get
+    fresh ids."""
+    idx = nbr_idx.long()
+    root_id = torch.cumsum(in_mis, 0) - 1            # dense ids for roots
+    agg = torch.where(in_mis == 1, root_id, -1)
+    for _ in range(2):                                # two hops
+        # an unclaimed node adopts its largest aggregated neighbour's id
+        nbr_agg = torch.where(nbr_mask, agg[idx], -1)
+        best = nbr_agg.max(dim=1).values
+        agg = torch.where((agg < 0) & (best >= 0), best, agg)
+    leftover = agg < 0
+    fresh = torch.cumsum(leftover.long(), 0) - 1 + agg.max() + 1
+    return torch.where(leftover, fresh, agg).to(torch.int32)
+
+
+def mis_aggregate_device(nbr_idx: torch.Tensor,
+                         nbr_mask: torch.Tensor) -> torch.Tensor:
+    """MIS roots claim their neighbourhoods — device aggregation.
+
+    Returns the (n,) int32 aggregate id per node (roots numbered densely),
+    non-adjacent leftovers attached to a root within two hops.  The Luby
+    rounds run seed 0, as the reference's do whatever ``seed`` it is
+    given, so the port takes no seed here."""
+    return mis_aggregate_rounds(nbr_idx, nbr_mask)[0]
+
+
+def mis_aggregate_rounds(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor):
+    """``mis_aggregate_device`` and the Luby rounds it took."""
+    in_mis, rounds = _luby_rounds(nbr_idx, nbr_mask)
+    return _attach(in_mis, nbr_idx, nbr_mask), rounds
+
+
+def aggregation_from_device(agg_dev: torch.Tensor) -> Aggregation:
+    """Dense aggregate ids on the host from the device coarsener's ids."""
+    agg = agg_dev.cpu().numpy().astype(np.int64)
+    uniq, agg = np.unique(agg, return_inverse=True)
+    return Aggregation(node_to_agg=agg.astype(np.int64), n_agg=len(uniq))
+
+
+def graph_to_ell(graph: StrengthGraph, device="cuda"):
+    """Pad the strength graph to ELL on ``device`` (the card unless the
+    caller asks for the CPU) for the device coarsener: int32 neighbour ids
+    (0 in the padding) and a bool mask."""
+    device = resolve_device(device)
+    counts = np.diff(graph.indptr)
+    kmax = max(int(counts.max()) if len(counts) else 0, 1)
+    idx = np.zeros((graph.n, kmax), dtype=np.int32)
+    mask = np.zeros((graph.n, kmax), dtype=bool)
+    r = np.repeat(np.arange(graph.n), counts)
+    within = np.arange(graph.nedges) - np.repeat(graph.indptr[:-1], counts)
+    idx[r, within] = graph.indices
+    mask[r, within] = True
+    return (torch.as_tensor(idx).to(device),
+            torch.as_tensor(mask).to(device))

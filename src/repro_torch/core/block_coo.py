@@ -81,14 +81,22 @@ def set_values_coo(plan: BlockCOOPlan, values: torch.Tensor) -> BlockCSR:
     ``values``: ``(n_input, br, bc)`` blocks, one per declared coordinate,
     in declaration order — PETSc's MatSetValuesCOO value stream.
     """
+    return BlockCSR.from_arrays(plan.indptr, plan.indices,
+                                set_values_coo_data(plan, values), plan.nbc)
+
+
+def set_values_coo_data(plan: BlockCOOPlan, values: torch.Tensor
+                        ) -> torch.Tensor:
+    """The numeric phase's ``(nnzb, br, bc)`` payload alone (the
+    coefficient hot loop feeds it straight to ``gamg.recompute``): the
+    ``block_seg_sum`` kernel on CUDA, its plain version on the CPU."""
     expected = (plan.n_input, plan.br, plan.bc)
     if tuple(values.shape) != expected:
         raise ValueError(f"value stream shape {tuple(values.shape)} != "
                          f"{expected} (one ({plan.br}, {plan.bc}) block per "
                          f"declared coordinate, in declaration order)")
     dev = values.device
-    data = seg_ops.block_seg_sum(
+    return seg_ops.block_seg_sum(
         values.contiguous(),
         device_array(plan, "offsets", dev, torch.int32),
         device_array(plan, "perm", dev, torch.int32))
-    return BlockCSR.from_arrays(plan.indptr, plan.indices, data, plan.nbc)

@@ -1,12 +1,17 @@
 """GAMG — smoothed-aggregation AMG with the paper's hot/cold split (torch
 twin of ``repro.core.gamg``).
 
-``setup``      cold phase: strength graph, greedy aggregation, tentative +
-               smoothed prolongators, every SpGEMM/transpose/ELL plan — on
-               the block format, host symbolic, device numeric.
+``setup``      cold phase: strength graph, aggregation (the device
+               Luby-MIS coarsener by default, the host greedy covering on
+               request), tentative + smoothed prolongators, every
+               SpGEMM/transpose/ELL plan — on the block format, host
+               symbolic, device numeric.
 ``recompute``  hot phase: new fine-operator values, same structure; every
                level operator is rebuilt through the cached PtAP plans,
                plus ``dinv``, ``lam_max`` and the coarse Cholesky.
+``make_coeff_recompute``  the coefficient hot loop: per-element material
+               fields -> device assembly (``fem.device_stiffness``) ->
+               ``recompute``; only the two fields cross to the device.
 ``hier_solve`` hot KSPSolve: AMG-preconditioned CG.
 
 Reuse model = PETSc ``-pc_gamg_reuse_interpolation true``: aggregates and
@@ -21,7 +26,13 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import Aggregation, greedy_aggregate
+from repro_torch.core.aggregation import (
+    Aggregation,
+    aggregation_from_device,
+    graph_to_ell,
+    greedy_aggregate,
+    mis_aggregate_rounds,
+)
 from repro_torch.core.block_csr import (
     BlockCSR,
     BlockELL,
@@ -109,14 +120,17 @@ class GAMGSetup:
 def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
           max_levels: int = 10, coarse_size: int = 100,
           smoother: str = "chebyshev", degree: int = 2,
-          coarsener: str = "greedy", precision: str = "f64",
+          coarsener: str = "mis", precision: str = "f64",
           restriction: str = "transpose_free") -> GAMGSetup:
     """Cold GAMG setup on the block format (no scalar expansion).
 
-    ``coarsener="greedy"`` is the host Vanek covering; the reference's
-    device Luby-MIS (``"mis"``, its default) is not ported yet and raises,
-    as do reduced precisions and ``restriction="stored"``.  The hierarchy
+    ``coarsener="mis"`` (default, as in the reference) aggregates by the
+    device Luby-MIS coarsener on ``A.data``'s device, then merges
+    undersized aggregates on the host; ``"greedy"`` is the host Vanek
+    covering, the paper's coarsener.  Reduced precisions and
+    ``restriction="stored"`` are not ported and raise.  The hierarchy
     lives on ``A.data``'s device; ``B`` must be on the same device.
+    ``stats["mis_rounds"]`` holds the Luby rounds of each MIS level.
     """
     precision = PrecisionPolicy.from_name(precision)
     if A.br != A.bc:
@@ -124,10 +138,9 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
     if restriction != "transpose_free":
         raise ValueError(f"invalid restriction mode {restriction!r}: "
                          f"repro_torch restricts transpose-free")
-    if coarsener != "greedy":
-        raise ValueError(f"invalid coarsener {coarsener!r}: repro_torch has "
-                         f"'greedy' (the device Luby-MIS coarsener is "
-                         f"queued in ROADMAP.md)")
+    if coarsener not in ("mis", "greedy"):
+        raise ValueError(f"invalid coarsener {coarsener!r}: "
+                         f"expected 'mis' or 'greedy'")
     if B.device != A.device:
         raise ValueError(f"B on {B.device}, A on {A.device}")
     levels: List[LevelSetup] = []
@@ -135,10 +148,19 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
     nns = int(Bcur.shape[1])
     stats = {"level_rows": [A.nbr * A.br], "level_nnzb": [A.nnzb],
              "level_bs": [A.br], "conversions_to_scalar": 0}
+    if coarsener == "mis":
+        stats["mis_rounds"] = []
     while Acur.nbr > coarse_size and len(levels) < max_levels - 1:
         bs = Acur.br
         graph = strength_graph(Acur, theta)
-        aggr = greedy_aggregate(graph, min_size=-(-nns // bs))
+        if coarsener == "mis":
+            idx, mask = graph_to_ell(graph, A.device)
+            agg, rounds = mis_aggregate_rounds(idx, mask)
+            stats["mis_rounds"].append(rounds)
+            aggr = _repair_small_aggregates(aggregation_from_device(agg),
+                                            graph, min_size=-(-nns // bs))
+        else:
+            aggr = greedy_aggregate(graph, min_size=-(-nns // bs))
         if aggr.n_agg >= Acur.nbr:        # no coarsening possible
             break
         Ptent, Bc = tentative_prolongator(aggr, Bcur, bs)
@@ -161,6 +183,29 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
                      nns_dim=nns, smoother=smoother, degree=degree,
                      theta=theta, coarsener=coarsener, stats=stats,
                      precision=precision)
+
+
+def _repair_small_aggregates(aggr: Aggregation, graph, min_size: int
+                             ) -> Aggregation:
+    """Merge undersized MIS aggregates into neighbours (host, cold): an
+    aggregate of fewer than ``min_size`` block rows would leave the
+    tentative prolongator rank deficient."""
+    agg = aggr.node_to_agg.copy()
+    sizes = np.bincount(agg, minlength=aggr.n_agg)
+    indptr, indices = graph.indptr, graph.indices
+    for i in range(len(agg)):
+        a = agg[i]
+        if sizes[a] >= min_size:
+            continue
+        nbrs = indices[indptr[i]:indptr[i + 1]]
+        cand = nbrs[agg[nbrs] != a] if len(nbrs) else nbrs
+        if len(cand):
+            t = agg[cand[0]]
+            sizes[t] += sizes[a]
+            sizes[a] = 0
+            agg[agg == a] = t
+    uniq, agg = np.unique(agg, return_inverse=True)
+    return Aggregation(node_to_agg=agg.astype(np.int64), n_agg=len(uniq))
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +285,50 @@ def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
     return Hierarchy(levels=tuple(states), coarse_chol=chol)
 
 
+def _check_assembler(setupd: GAMGSetup, assembler) -> None:
+    """The assembler's COO plan must produce the setup's fine operator: a
+    mismatched plan would "converge" against a garbage operator."""
+    nnzb = setupd.levels[0].A0.nnzb if setupd.levels \
+        else setupd.coarse_struct.nnzb
+    if assembler.plan.nnzb != nnzb:
+        raise ValueError(
+            f"assembler plan does not match the setup's fine operator: "
+            f"plan has {assembler.plan.nnzb} output blocks, the fine "
+            f"level has {nnzb}")
+    if assembler.device != setupd.device:
+        raise ValueError(f"assembler on {assembler.device}, hierarchy on "
+                         f"{setupd.device}")
+
+
+def make_coeff_recompute(setupd: GAMGSetup, assembler):
+    """Coefficient hot path: ``(E, nu) -> Hierarchy``.
+
+    Device FEM assembly (batched quadrature -> cached blocked-COO scatter,
+    ``fem.device_stiffness.DeviceAssembler.coo_data``) followed by the
+    state-gated PtAP recompute, all on the hierarchy's device: given
+    fields already there, nothing crosses from the host."""
+    _check_assembler(setupd, assembler)
+
+    def coeff_recompute(E, nu):
+        return recompute(setupd, assembler.coo_data(E, nu))
+
+    return coeff_recompute
+
+
+def make_coeff_solve(setupd: GAMGSetup, assembler, rtol: float = 1e-8,
+                     maxiter: int = 200):
+    """Fused march step: ``(E, nu, b, x0) -> CGResult`` — device
+    assembly, the recompute and the warm-started AMG-PCG solve (``x0``
+    the previous step's iterate; zeros for a cold start)."""
+    _check_assembler(setupd, assembler)
+
+    def coeff_solve(E, nu, b, x0):
+        hier = recompute(setupd, assembler.coo_data(E, nu))
+        return hier_solve(setupd, hier, b, x0, rtol=rtol, maxiter=maxiter)
+
+    return coeff_solve
+
+
 def hier_solve(setupd: GAMGSetup, hier: Hierarchy, b: torch.Tensor,
                x0: torch.Tensor | None = None, *, rtol: float = 1e-8,
                maxiter: int = 200) -> CGResult:
@@ -265,10 +354,31 @@ class GAMGSolver:
         self.setup_data = setup(A, B, **opts)
         self.hierarchy = recompute(self.setup_data, A.data)
         self.n_recomputes = 0
+        self.assembler = None
 
     def update_operator(self, a_fine_data: torch.Tensor) -> None:
         """Hot path: new operator values, same structure (Newton step)."""
         self.hierarchy = recompute(self.setup_data, a_fine_data)
+        self.n_recomputes += 1
+
+    def bind_assembler(self, assembler) -> None:
+        """Attach a ``fem.device_stiffness.DeviceAssembler``, enabling
+        ``update_coefficients``; a plan that does not match the fine
+        operator raises here."""
+        self._coeff_recompute = make_coeff_recompute(self.setup_data,
+                                                     assembler)
+        self.assembler = assembler
+
+    def update_coefficients(self, E, nu) -> None:
+        """Hot path: new material fields (per-element arrays or scalars),
+        same mesh and structure — device assembly, then the PtAP chain."""
+        if self.assembler is None:
+            raise ValueError(
+                "update_coefficients needs a bound DeviceAssembler: "
+                "call bind_assembler(problem.assembler) (device assembly "
+                "path) first")
+        E, nu = self.assembler.as_fields(E, nu)
+        self.hierarchy = self._coeff_recompute(E, nu)
         self.n_recomputes += 1
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None

@@ -22,6 +22,7 @@ from repro_torch.core.gamg import GAMGSetup, LevelSetup
 from repro_torch.core.ptap import ptap_symbolic
 from repro_torch.core.vcycle import Hierarchy, LevelState
 from repro_torch.fem.assemble import ElasticityProblem, coo_plan
+from repro_torch.fem.device_stiffness import DeviceAssembler
 from repro_torch.fem.hex_elasticity import hex_mesh
 from repro_torch.kernels.backend import resolve_device
 
@@ -39,32 +40,51 @@ def bcsr_from_numpy(indptr, indices, data, nbc: int, *,
 
 
 def problem_from_numpy(m: int, *, values, b, B, order: int = 1,
+                       E_field=None, nu_field=None,
                        device="cuda") -> ElasticityProblem:
     """An ``ElasticityProblem`` on the ``m^3`` grid (z=0 face clamped) with
     the given value stream, load ``b`` and near-null space ``B``; mesh and
-    COO plan are rebuilt on the host and ``A`` assembled from ``values``."""
+    COO plan are rebuilt on the host and ``A`` assembled from ``values``.
+
+    With per-element ``E_field`` and ``nu_field`` (a device-path problem)
+    the problem also gets its ``DeviceAssembler`` and those fields, so
+    ``update_coefficients`` and ``GAMGSolver.bind_assembler`` work on it;
+    ``values`` is taken as given either way."""
     dev = resolve_device(device)
     mesh = hex_mesh(m, order)
     plan, free = coo_plan(mesh)
     vals = _t(values, dev, torch.float64)
+    assembler = E = nu = None
+    if (E_field is None) != (nu_field is None):
+        raise ValueError("pass both E_field and nu_field, or neither")
+    if E_field is not None:
+        assembler = DeviceAssembler.build(mesh, plan, dev)
+        E, nu = assembler.as_fields(np.asarray(E_field),
+                                    np.asarray(nu_field))
     return ElasticityProblem(A=set_values_coo(plan, vals),
                              b=_t(b, dev, torch.float64),
                              B=_t(B, dev, torch.float64), mesh=mesh,
-                             free_nodes=free, coo_plan=plan, values=vals)
+                             free_nodes=free, coo_plan=plan, values=vals,
+                             assembler=assembler, E_field=E, nu_field=nu)
 
 
 def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
                      smoother: str = "chebyshev", degree: int = 2,
                      theta: float = 0.08, nns_dim: int = 6,
-                     device="cuda") -> GAMGSetup:
+                     coarsener: str = "mis", device="cuda") -> GAMGSetup:
     """A ``GAMGSetup`` from per-level arrays.
 
     Each entry of ``levels`` holds ``A0`` and ``P`` as dicts of
     ``indptr, indices, data, nbc``, the aggregates ``node_to_agg`` and the
     damping ``omega``; ``coarse`` is the coarsest operator as such a dict.
     The PtAP, ELL and transpose-apply plans are rebuilt from the
-    structures by the port's symbolic phases.
+    structures by the port's symbolic phases.  ``coarsener`` names the
+    coarsener that made the aggregates (``"mis"``, the default, or
+    ``"greedy"``), as ``setup`` records it.
     """
+    if coarsener not in ("mis", "greedy"):
+        raise ValueError(f"invalid coarsener {coarsener!r}: "
+                         f"expected 'mis' or 'greedy'")
     dev = resolve_device(device)
     out = []
     for lv in levels:
@@ -86,7 +106,7 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
     bs_fine = out[0].A0.br if out else Ac.br
     return GAMGSetup(levels=out, coarse_struct=Ac, bs_fine=bs_fine,
                      nns_dim=nns_dim, smoother=smoother, degree=degree,
-                     theta=theta, coarsener="greedy", stats=stats)
+                     theta=theta, coarsener=coarsener, stats=stats)
 
 
 def _ell(d: dict, dev) -> BlockELL:

@@ -387,6 +387,25 @@ def device_ms(fn, launches: int = 10, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def launch_record() -> tuple:
+    """``(launches, blocks, threads)``: how many kernels the library's entry
+    points have launched in this process, and the grid of the latest, as
+    the C side notes them just before each launch (no profiler needed)."""
+    import ctypes
+    out = (ctypes.c_longlong * 3)()
+    backend.kernel("repro_launch_record", (backend.P,))(out)
+    return tuple(int(v) for v in out)
+
+
+def launch_floor_ms(blocks: int, threads: int) -> float:
+    """``device_ms`` of the empty kernel (``csrc/launch_floor.cu``) at a
+    ``blocks`` x ``threads`` grid: the card's floor for one launch of that
+    shape, set beside kernels that run a few microseconds."""
+    args = (backend.I, backend.I, backend.P)
+    return device_ms(lambda: backend.launch("repro_empty_kernel", args,
+                                            blocks, threads))
+
+
 def sweep(family: str, signature: dict, *, nbr: int | None = None,
           repeats: int = 3, device="cuda", record_winner: bool = True
           ) -> dict:

@@ -11,9 +11,9 @@ plain C interface.  ``build_library`` compiles each source with its own
 ``nvcc -c`` for ``sm_90a`` (all started together), links them with one
 ``nvcc -shared`` into one ``.so`` keyed by a hash of the sources, under
 ``kernels/_build/`` (listed in ``.gitignore``); ``library`` loads it with
-``ctypes`` at first use.  Pointers and the stream travel as ``c_void_p``
-and sizes as ``c_int``; each C entry point returns ``cudaGetLastError()``
-and ``launch`` raises if it is not 0.
+``ctypes`` at first use.  Pointers and the stream travel as ``c_void_p``,
+sizes as ``c_int`` and scalars as ``c_double``; each C entry point
+returns ``cudaGetLastError()`` and ``launch`` raises if it is not 0.
 
 Path knobs (re-read per call; the port's own variable names, so settings
 made for the JAX reference never reach it):
@@ -157,6 +157,7 @@ def library() -> ctypes.CDLL:
 
 P = ctypes.c_void_p   # pointers and the stream
 I = ctypes.c_int      # sizes
+D = ctypes.c_double   # scalars passed by value
 
 
 @functools.lru_cache(maxsize=None)

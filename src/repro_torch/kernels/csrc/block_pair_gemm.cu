@@ -45,8 +45,9 @@ int launch(const double* lhs, const double* rhs, double* out, int npairs,
            cudaStream_t stream) {
   const long long n = static_cast<long long>(npairs) * BR * BC;
   if (n == 0) return repro::last_error();
-  block_pair_gemm_kernel<BR, BK, BC><<<repro::blocks_for(n, repro::kThreads),
-                                       repro::kThreads, 0, stream>>>(
+  const unsigned blocks = repro::blocks_for(n, repro::kThreads);
+  repro::note_launch(blocks, repro::kThreads);
+  block_pair_gemm_kernel<BR, BK, BC><<<blocks, repro::kThreads, 0, stream>>>(
       lhs, rhs, out, n);
   return repro::last_error();
 }

@@ -63,6 +63,7 @@ int launch_kc(const int* idx, const double* data, const double* x, double* y,
               cudaStream_t stream) {
   const unsigned blocks =
       repro::blocks_for(static_cast<long long>(nbr) * lanes, threads);
+  repro::note_launch(blocks, threads);
   if (threads > 512)
     spmm_kernel<BR, BC, KC, 1024><<<blocks, threads, 0, stream>>>(
         idx, data, x, y, nbr, kmax, k, lanes);

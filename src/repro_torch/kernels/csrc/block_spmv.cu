@@ -55,10 +55,11 @@ int launch(const int* idx, const double* data, const double* x, double* y,
            int nbr, int kmax, int lanes, int threads, cudaStream_t stream) {
   if (!repro::payload_ok<BC>(data)) return repro::bad_shape();
   if (nbr == 0) return repro::last_error();
-  spmv_kernel<BR, BC><<<repro::blocks_for(static_cast<long long>(nbr) * lanes,
-                                          threads),
-                        threads, 0, stream>>>(idx, data, x, y, nbr, kmax,
-                                              lanes);
+  const unsigned blocks =
+      repro::blocks_for(static_cast<long long>(nbr) * lanes, threads);
+  repro::note_launch(blocks, threads);
+  spmv_kernel<BR, BC><<<blocks, threads, 0, stream>>>(idx, data, x, y, nbr,
+                                                      kmax, lanes);
   return repro::last_error();
 }
 

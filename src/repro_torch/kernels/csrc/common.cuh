@@ -23,6 +23,11 @@ inline unsigned blocks_for(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
+// Counts a launch and keeps its grid on the host (launch_floor.cu holds
+// the record): every entry point calls it just before its kernel launch,
+// so the empty kernel can be timed at the geometry a call really took.
+void note_launch(unsigned blocks, int threads);
+
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 inline int bad_shape() { return static_cast<int>(cudaErrorInvalidValue); }

@@ -450,6 +450,7 @@ int launch(const double* a, const double* b, const int* ta, const int* tb,
                       reinterpret_cast<uintptr_t>(b) % 16 == 0;
   const unsigned grid = repro::blocks_for(rows, p.rows_per_cta);
   const int smem = static_cast<int>(p.smem);
+  repro::note_launch(grid, threads);
   if (p.direct) {
     auto kern = pair_gemm_direct<BR, BK, BC>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

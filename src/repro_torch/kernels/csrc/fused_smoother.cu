@@ -99,6 +99,7 @@ int launch_kc(const int* idx, const double* data, const double* dinv,
               int kmax, int k, int lanes, int threads, cudaStream_t stream) {
   const long long groups = static_cast<long long>(nbr) * ((k + KC - 1) / KC);
   const unsigned blocks = repro::blocks_for(groups * lanes, threads);
+  repro::note_launch(blocks, threads);
   if (threads > 512)
     smoother_kernel<BS, KC, 1024><<<blocks, threads, 0, stream>>>(
         idx, data, dinv, b, x, d, coef, x_out, d_out, nbr, kmax, k, lanes);

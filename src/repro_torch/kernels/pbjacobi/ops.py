@@ -12,7 +12,8 @@ from repro_torch.kernels import autotune, backend
 from repro_torch.kernels.pbjacobi.ref import pbjacobi_update_ref
 
 SHAPES = (3, 6)
-_ARGS = (backend.P,) * 5 + (backend.I,) * 3 + (backend.P,)
+_ARGS = (backend.P,) * 4 + (backend.D,) + (backend.P,) + (backend.I,) * 3 \
+    + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -22,8 +23,9 @@ def pbjacobi_update(dinv: torch.Tensor, r_blocks: torch.Tensor,
                     x_blocks: torch.Tensor, omega, *,
                     threads: int | None = None) -> torch.Tensor:
     """``x + omega * D^-1 r`` over ``(nbr, bs)`` block vectors, ``dinv``
-    ``(nbr, bs, bs)``; ``omega`` a number or a one-element tensor on the
-    operands' device (read there, so no launch waits on the host).
+    ``(nbr, bs, bs)``; ``omega`` a number (passed to the kernel by value)
+    or a one-element tensor on the operands' device (read there, so no
+    launch waits on the host).
     ``threads=None`` resolves through the autotuner (static default 256).
     CPU tensors take the plain version; CUDA tensors the kernel."""
     global launches
@@ -43,19 +45,18 @@ def pbjacobi_update(dinv: torch.Tensor, r_blocks: torch.Tensor,
                          f"{tuple(r_blocks.shape)}, {tuple(x_blocks.shape)} "
                          f"disagree or have no kernel instantiation (bs in "
                          f"{SHAPES})")
-    if w is None:
-        w = torch.full((1,), float(omega), dtype=dinv.dtype,
-                       device=dinv.device)
-    elif w.numel() != 1:
-        raise ValueError(f"{name}: omega must hold one value, got shape "
-                         f"{tuple(w.shape)}")
-    w = w.reshape(1)
+    if w is not None:
+        if w.numel() != 1:
+            raise ValueError(f"{name}: omega must hold one value, got "
+                             f"shape {tuple(w.shape)}")
+        w = w.reshape(1)
     backend.check_kernel_args(name, dict(dinv=dinv, r=r_blocks, x=x_blocks,
                                          omega=w))
     out = torch.empty_like(x_blocks)
     p = backend.ptr
     backend.launch("repro_pbjacobi_f64", _ARGS, p(dinv), p(r_blocks),
-                   p(x_blocks), p(w), p(out), nbr, bs, threads)
+                   p(x_blocks), p(w), 0.0 if w is not None else float(omega),
+                   p(out), nbr, bs, threads)
     launches += 1
     return out
 

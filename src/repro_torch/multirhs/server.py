@@ -13,7 +13,10 @@ cached hierarchy and drains it in panels:
   residual (the per-column masking keeps those equal to a dedicated
   single-RHS solve);
 * ``update_operator`` refreshes the hierarchy through the hot recompute
-  (new values, same structure) without touching the buckets.
+  (new values, same structure) without touching the buckets;
+  ``update_coefficients`` (with ``assembler=``) does so from new
+  per-element material fields: device assembly, then the recompute, so a
+  client ships two ``(n_elements,)`` arrays, not a value stream.
 
 Requests arrive as numpy f64 and reports return numpy; each panel is
 built on the host and moved to the setup's device once per batch, and the
@@ -28,8 +31,7 @@ column's report says ``status="degraded"`` (usable best iterate) or
 ``status="failed"`` (solution zeroed), and its neighbours finish
 untouched.  Not ported yet, and refused with a ``ValueError`` when asked
 for: ``recover=`` (the bounded retry of flagged columns, ROADMAP Queue 1
-item 7) and ``assembler=`` with ``update_coefficients`` (device assembly,
-Queue 1 item 2).
+item 7).
 """
 from __future__ import annotations
 
@@ -81,10 +83,6 @@ class AMGSolveServer:
                 "recover= is not ported yet: the bounded retry of flagged "
                 "columns waits for robust/recover.py (ROADMAP Queue 1 item "
                 "7)")
-        if assembler is not None:
-            raise ValueError(
-                "assembler= is not ported yet: device assembly and "
-                "update_coefficients wait for ROADMAP Queue 1 item 2")
         buckets_in = [int(k) for k in buckets]
         if not buckets_in:
             raise ValueError("buckets must be a non-empty sequence of "
@@ -107,6 +105,11 @@ class AMGSolveServer:
         self._solve = make_block_solve(setupd, rtol=rtol, maxiter=maxiter,
                                        record_history=self._record_history)
         self.hierarchy = gamg.recompute(setupd, self._on_device(a_fine_data))
+        # optional device-assembly binding, built here so a mismatched
+        # plan fails at construction, not at the first update
+        self.assembler = assembler
+        self._coeff_recompute = None if assembler is None else \
+            gamg.make_coeff_recompute(setupd, assembler)
         self._pending: List[tuple] = []
         self._next_id = 0
         self.stats = {
@@ -140,6 +143,22 @@ class AMGSolveServer:
         with self._metrics.registry.timer("server/recompute_seconds") as t:
             self.hierarchy = t.block(gamg.recompute(self.setupd, a))
         self.stats["recomputes"] += 1
+
+    def update_coefficients(self, E, nu) -> None:
+        """Hot path: new material fields (per-element arrays or scalars):
+        device assembly through the cached COO plan, then the recompute.
+        Only the two fields cross to the device."""
+        if self.assembler is None:
+            raise ValueError(
+                "update_coefficients needs an assembler: construct the "
+                "server with assembler=problem.assembler (device assembly "
+                "path)")
+        E, nu = self.assembler.as_fields(E, nu)
+        with self._metrics.registry.timer(
+                "server/coeff_update_seconds") as t:
+            self.hierarchy = t.block(self._coeff_recompute(E, nu))
+        self.stats["recomputes"] += 1
+        self.stats["coefficient_updates"] += 1
 
     # ---- request stream --------------------------------------------------
     def _reject(self, msg: str, cause=None):

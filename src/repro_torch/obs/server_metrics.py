@@ -10,9 +10,8 @@ to answer "is the reuse model paying off".
 Always on: these are pure host clocks and Python counters around calls
 the server already makes (the solve wall clock stops after the results
 were copied to the host, which the server does anyway), so they add no
-device work.  ``coeff_update_seconds`` and ``retry_seconds`` stay
-registered under their names and stay empty until device assembly and
-recovery are ported (ROADMAP Queue 1 items 2 and 7).
+device work.  ``retry_seconds`` stays registered under its name and
+stays empty until recovery is ported (ROADMAP Queue 1 item 7).
 
 Instrument names (all under the server's private ``MetricsRegistry``):
 

@@ -17,8 +17,8 @@ from torch_helpers import CASE_IDS, CASES  # noqa: E402
 @pytest.fixture(scope="module", params=[c[0] for c in CASES], ids=CASE_IDS)
 def pair(request):
     m = request.param
-    return ref_assemble(m, path="host"), assemble_elasticity(m,
-                                                             device="cpu")
+    return ref_assemble(m, path="host"), assemble_elasticity(
+        m, path="host", device="cpu")
 
 
 def test_coo_plan_is_bitwise_the_reference(pair):

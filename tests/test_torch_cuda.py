@@ -298,8 +298,9 @@ def test_panel_solve_on_card_matches_cpu_and_vector(dev):
     B_host = None
     runs = {}
     for d in ("cpu", dev):
-        prob = assemble_elasticity(7, device=d)
-        solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+        prob = assemble_elasticity(7, path="host", device=d)
+        solver = GAMGSolver(prob.A, prob.B, coarse_size=12,
+                            coarsener="greedy")
         if B_host is None:
             B_host = np.random.default_rng(7).standard_normal((prob.n, 4))
         B = torch.as_tensor(B_host).to(d)
@@ -318,8 +319,8 @@ def test_panel_solve_on_card_matches_cpu_and_vector(dev):
 
 
 def test_pairs_path_matches_fused_on_card(dev, monkeypatch):
-    prob = assemble_elasticity(7, device=dev)
-    solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+    prob = assemble_elasticity(7, path="host", device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12, coarsener="greedy")
     a = prob.reassemble(1.2).data
     solver.update_operator(a)
     fused = solver.hierarchy
@@ -344,8 +345,9 @@ def test_unsupported_block_shape_raises(dev):
 def test_port_on_card_matches_port_on_cpu(dev):
     runs = {}
     for d in ("cpu", dev):
-        prob = assemble_elasticity(7, device=d)
-        solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+        prob = assemble_elasticity(7, path="host", device=d)
+        solver = GAMGSolver(prob.A, prob.B, coarse_size=12,
+                            coarsener="greedy")
         res = solver.solve(prob.b)
         runs[str(d)] = (solver.setup_data, res)
     (s_cpu, r_cpu), (s_gpu, r_gpu) = runs.values()
@@ -360,8 +362,8 @@ def test_port_on_card_matches_port_on_cpu(dev):
 def test_reference_paths_refuse_cuda_payloads(dev):
     """The plain 'reference' paths never run on the card."""
     from repro_torch.core.vcycle import apply_smoother
-    prob = assemble_elasticity(4, device=dev)
-    solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+    prob = assemble_elasticity(4, path="host", device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12, coarsener="greedy")
     cache = solver.setup_data.levels[0].ptap_cache
     with pytest.raises(ValueError, match="CPU-only"):
         from repro_torch.core.spgemm import spgemm_numeric_data
@@ -387,6 +389,112 @@ def test_pbjacobi_kernel(dev, bs, nbr):
     w = torch.tensor([0.7], **f64)
     assert torch.equal(_launch_once(pbj_ops, lambda: pbj_ops.pbjacobi_update(
         dinv, r, x, w)), got)
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+@pytest.mark.parametrize("nbr", [1, 37, 131, 1001])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off16"])
+def test_pbjacobi_kernel_at_ragged_and_misaligned_tiles(dev, bs, nbr,
+                                                        offset):
+    """Ragged row counts, and dinv / r / x starting 8 bytes off 16 (a view
+    one double into its buffer): every ``threads`` candidate, with omega
+    by value and as a device tensor, is bitwise the 256-thread launch on
+    aligned copies, which is within 1e-12 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(90 + bs + nbr)
+    f64 = dict(dtype=torch.float64, device=dev)
+    n = nbr * bs
+    dbuf = torch.randn(offset + n * bs, generator=g, **f64)
+    rbuf, xbuf = (torch.randn(offset + n, generator=g, **f64)
+                  for _ in range(2))
+    dinv = dbuf[offset:].view(nbr, bs, bs)
+    r, x = (b[offset:].view(nbr, bs) for b in (rbuf, xbuf))
+    assert (dinv.data_ptr() % 16 == 8) == bool(offset)
+    want = pbj_ops.pbjacobi_update(dinv.clone(), r.clone(), x.clone(), 0.7,
+                                   threads=256)
+    _close(want, pbjacobi_update_ref(dinv, r, x, 0.7))
+    w = torch.tensor([0.7], **f64)
+    for t in autotune.CANDIDATES["pbjacobi"]["threads"]:
+        for omega in (0.7, w):
+            got = _launch_once(pbj_ops, lambda: pbj_ops.pbjacobi_update(
+                dinv, r, x, omega, threads=t))
+            assert torch.equal(got, want), (t, type(omega))
+
+
+def test_pbjacobi_number_omega_is_one_launch(dev):
+    """A number omega travels by value: the call launches the kernel and
+    nothing else (no device write of omega first)."""
+    from torch.profiler import ProfilerActivity, profile
+    f64 = dict(dtype=torch.float64, device=dev)
+    dinv = torch.eye(6, **f64).expand(50, 6, 6).contiguous()
+    r, x = torch.ones(50, 6, **f64), torch.zeros(50, 6, **f64)
+    pbj_ops.pbjacobi_update(dinv, r, x, 0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = pbj_ops.pbjacobi_update(dinv, r, x, 0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.equal(out, torch.full_like(x, 0.5))
+    assert len(names) == 1 and "pbjacobi" in names[0], names
+
+
+@pytest.mark.parametrize("nbr,threads", [(1000, 128), (7, 32), (50, 1024)])
+def test_launch_record_notes_each_launch_and_its_grid(dev, nbr, threads):
+    """``autotune.launch_record`` counts one launch a wrapper call and
+    gives its grid (3 nbr outputs over ``threads``); the empty kernel that
+    times the floor is not noted."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    dinv = torch.eye(3, **f64).expand(nbr, 3, 3).contiguous()
+    r, x = torch.ones(nbr, 3, **f64), torch.zeros(nbr, 3, **f64)
+    before = autotune.launch_record()[0]
+    pbj_ops.pbjacobi_update(dinv, r, x, 0.5, threads=threads)
+    torch.cuda.synchronize()
+    assert autotune.launch_record() == (
+        before + 1, -(-3 * nbr // threads), threads)
+    autotune.launch_floor_ms(5, 64)
+    assert autotune.launch_record() == (
+        before + 1, -(-3 * nbr // threads), threads)
+
+
+def test_mis_aggregates_on_card_match_cpu(dev):
+    """The device Luby-MIS coarsener on the card, at m=7 (device
+    assembly, coarse_size 12): levels, rounds and aggregates equal the
+    port's on the CPU."""
+    from repro_torch.core import gamg
+    out = {}
+    for d in ("cpu", dev):
+        prob = assemble_elasticity(7, device=d)
+        out[str(d)] = gamg.setup(prob.A, prob.B, coarse_size=12,
+                                 coarsener="mis")
+    cpu, card = out.values()
+    assert card.stats["level_rows"] == cpu.stats["level_rows"] == \
+        [882, 204, 114, 18]
+    assert card.stats["mis_rounds"] == cpu.stats["mis_rounds"]
+    for a, b in zip(cpu.levels, card.levels):
+        np.testing.assert_array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg)
+
+
+def test_coefficient_update_moves_only_the_fields(dev):
+    """One coefficient update on the card copies at most the two
+    per-element fields (and 4 KB) host to device: every aten copy from a
+    CPU tensor to the card (``obs.transfer.count_h2d``; the kernel
+    library copies nothing itself), checked against a known copy first."""
+    from repro_torch.fem.assemble import inclusion_fields
+    from repro_torch.obs.transfer import count_h2d
+
+    def h2d(fn):
+        return count_h2d(fn)[1]
+
+    probe = torch.ones(1 << 16, dtype=torch.float64)
+    assert h2d(lambda: probe.to(dev)) == probe.numel() * 8
+    prob = assemble_elasticity(6, device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12)
+    solver.bind_assembler(prob.assembler)
+    E, nu = inclusion_fields(prob.mesh, E_inclusion=100.0)
+    solver.update_coefficients(E, nu)
+    ne = prob.mesh.n_elements
+    assert 2 * ne * 8 <= h2d(lambda: solver.update_coefficients(E, nu)) \
+        <= 2 * ne * 8 + 4096
 
 
 def _tuned_calls(dev):
@@ -447,7 +555,8 @@ def test_invalid_threads_raise(dev, threads):
     with pytest.raises(RuntimeError, match="CUDA error"):
         p = backend.ptr
         backend.launch("repro_pbjacobi_f64", pbj_ops._ARGS, p(dinv), p(r),
-                       p(r), p(w), p(torch.empty_like(r)), 4, 3, threads)
+                       p(r), p(w), 0.0, p(torch.empty_like(r)), 4, 3,
+                       threads)
 
 
 #: ragged (nbr, kmax, br, bc): kmax not a multiple of the lanes, kmax

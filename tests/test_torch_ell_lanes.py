@@ -184,8 +184,9 @@ def test_the_setup_agrees_with_itself_through_the_tracer():
     """On every level of a real hierarchy the tracer reproduces the
     setup's own aggregates with no flip."""
     from repro_torch.core.strength import strength_graph
-    prob = assemble_elasticity(7, device="cpu")
-    s = GAMGSolver(prob.A, prob.B, coarse_size=12).setup_data
+    prob = assemble_elasticity(7, path="host", device="cpu")
+    s = GAMGSolver(prob.A, prob.B, coarse_size=12,
+                   coarsener="greedy").setup_data
     for ls in s.levels:
         g = strength_graph(ls.A0, s.theta)
         min_size = -(-s.nns_dim // ls.A0.br)

@@ -40,7 +40,8 @@ def ref(request):
         res = solver.solve(prob.b)
         steps.append((int(res.iters), np.asarray(res.x)))
     levels, coarse = setup_to_numpy(solver.setup_data)
-    port_setup = setup_from_numpy(levels, coarse, device="cpu")
+    port_setup = setup_from_numpy(levels, coarse, coarsener="greedy",
+                                  device="cpu")
     return dict(m=m, coarse_size=coarse_size, rows=rows, iters=iters,
                 prob=prob, solver=solver, steps=steps, port_setup=port_setup)
 
@@ -87,9 +88,9 @@ def test_pcg_matches_reference(ref):
 
 
 def test_whole_slice_matches_reference(ref):
-    prob = assemble_elasticity(ref["m"], device="cpu")
-    solver = gamg.GAMGSolver(prob.A, prob.B,
-                             coarse_size=ref["coarse_size"])
+    prob = assemble_elasticity(ref["m"], path="host", device="cpu")
+    solver = gamg.GAMGSolver(prob.A, prob.B, coarse_size=ref["coarse_size"],
+                             coarsener="greedy")
     assert solver.setup_data.stats["level_rows"] == ref["rows"]
     for step, (iters, x) in enumerate(ref["steps"]):
         a = prob.reassemble(1.0 + 0.1 * step)
@@ -104,9 +105,9 @@ def test_whole_slice_matches_reference(ref):
 def test_warm_start_and_health(ref):
     """``x0`` at the solution converges in zero iterations; a zero rhs
     reports converged with relres 0 (the ``finfo.tiny`` floor)."""
-    prob = assemble_elasticity(ref["m"], device="cpu")
-    solver = gamg.GAMGSolver(prob.A, prob.B,
-                             coarse_size=ref["coarse_size"])
+    prob = assemble_elasticity(ref["m"], path="host", device="cpu")
+    solver = gamg.GAMGSolver(prob.A, prob.B, coarse_size=ref["coarse_size"],
+                             coarsener="greedy")
     res = solver.solve(prob.b)
     again = solver.solve(prob.b, x0=res.x)
     assert again.iters <= 1

@@ -59,9 +59,9 @@ def test_apply_smoother_pbjacobi_matches_reference(ref, path, k):
 
 
 def test_pbjacobi_solver_matches_reference(ref):
-    prob = assemble_elasticity(M, device="cpu")
+    prob = assemble_elasticity(M, path="host", device="cpu")
     solver = gamg.GAMGSolver(prob.A, prob.B, coarse_size=COARSE,
-                             smoother="pbjacobi")
+                             coarsener="greedy", smoother="pbjacobi")
     assert solver.setup_data.smoother == "pbjacobi"
     solver.update_operator(prob.reassemble(1.1).data)
     res = solver.solve(prob.b)

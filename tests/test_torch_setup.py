@@ -27,8 +27,9 @@ def setups(request):
     rp = ref_assemble(m, path="host")
     ref = ref_gamg.setup(rp.A, rp.B, coarse_size=coarse_size,
                          coarsener="greedy")
-    pp = assemble_elasticity(m, device="cpu")
-    port = gamg.setup(pp.A, pp.B, coarse_size=coarse_size)
+    pp = assemble_elasticity(m, path="host", device="cpu")
+    port = gamg.setup(pp.A, pp.B, coarse_size=coarse_size,
+                      coarsener="greedy")
     return ref, port, rows
 
 
@@ -97,7 +98,8 @@ def test_row_splits_are_exercised(setups):
 def test_setup_from_numpy_rebuilds_the_plans(setups):
     ref, port, _ = setups
     levels, coarse = setup_to_numpy(ref)
-    got = setup_from_numpy(levels, coarse, device="cpu")
+    got = setup_from_numpy(levels, coarse, coarsener="greedy",
+                           device="cpu")
     assert got.stats["level_rows"] == port.stats["level_rows"]
     for gl, pl in zip(got.levels, port.levels):
         for name in SPGEMM_FIELDS:
@@ -109,8 +111,8 @@ def test_setup_from_numpy_rebuilds_the_plans(setups):
 
 def test_unported_options_raise():
     A = assemble_elasticity(3, device="cpu")
-    with pytest.raises(ValueError, match="Luby-MIS"):
-        gamg.setup(A.A, A.B, coarsener="mis")
+    with pytest.raises(ValueError, match="invalid coarsener"):
+        gamg.setup(A.A, A.B, coarsener="bogus")
     with pytest.raises(ValueError, match="not ported yet"):
         gamg.setup(A.A, A.B, precision="f32")
     with pytest.raises(ValueError, match="transpose-free"):
@@ -165,8 +167,8 @@ def test_m32_aggregates_match_the_reference_up_to_traced_ties():
     from repro_torch.core.strength import strength_graph
     rp = ref_assemble(32, path="host")
     ref = ref_gamg.setup(rp.A, rp.B, coarse_size=100, coarsener="greedy")
-    pp = assemble_elasticity(32, device="cpu")
-    port = gamg.setup(pp.A, pp.B, coarse_size=100)
+    pp = assemble_elasticity(32, path="host", device="cpu")
+    port = gamg.setup(pp.A, pp.B, coarse_size=100, coarsener="greedy")
     assert ref.stats["level_rows"] == [95232, 7986, 5016, 114]
     for key in ("level_rows", "level_nnzb", "level_bs"):
         assert port.stats[key] == ref.stats[key], key
