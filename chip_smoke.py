@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` and drives six paths of the port, each with the launch
-counts set to 0 just before it and read just after.  The autotuner's cache
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives seven
+paths of the port, each with the launch counts set to 0 just before it
+and read just after.  The autotuner's cache
 is a fresh temporary file (``REPRO_TORCH_TUNE_CACHE``), and every path but
 the tune path runs with ``REPRO_TORCH_TUNE=off`` (the static 256-thread
 launch).  The first four run the paper's configuration
@@ -41,7 +42,24 @@ coarsener, which its pinned numbers were taken on:
    then ``examples/heterogeneous.py``'s four inclusion contrasts through
    ``update_coefficients`` and a solve each (healthy), the
    device-assembled A within 1e-12 of the host path's, and a server's
-   ``update_coefficients`` and burst.
+   ``update_coefficients`` and burst;
+7. the precision path (run last, after the byte witness below) — the
+   main path's configuration under the ``"f32"`` and then the ``"bf16"``
+   policy (``GAMGSolver(..., precision=)``; the
+   hierarchy at that dtype, the outer CG at f64 on the f64
+   ``a_fine_ell``): setup (levels ``[95232, 7986, 5016, 114]``), 3 hot
+   steps and a profiled one (iterations, relres, health, the solution's
+   difference from the f64 main path's; f32 must converge to 1e-8 every
+   step), the payload dtypes of every level, the hierarchy's bytes and an
+   ``update_operator``'s peak, a burst of 4 requests through
+   ``AMGSolveServer`` (whose Krylov operator must be bitwise the f64 fine
+   values' ELL), one ``pairs`` recompute held against the fused one, and
+   the autotuner's sweep of ``pbjacobi`` at that dtype.  Then every
+   kernel at that dtype's m=32 shapes against its plain version (within
+   2e-5 of the largest term at f32, 5e-2 at bf16, the reference's own
+   tolerances), the bitwise contracts of ``check_bitwise`` and every
+   ``threads`` candidate bitwise; each of the seven kernels must launch
+   at that dtype on the path.
 
 The MIS and coefficient paths hold every kernel against its plain
 version at their own shapes (``mis kernel case`` / ``coeff kernel case``
@@ -94,7 +112,11 @@ per case times every lanes value the C entries take beside the map's
 choice.  Each ``fused_pair_gemm`` case line carries ``gather_bytes`` (valid
 slots x lhs and rhs block bytes) and ``before_ms``, its static time before
 the staged redesign.
-The second-to-last line is the per-kernel JSON record and the last line
+The second-to-last line is the per-kernel JSON record (the f64 kernels
+under their names, the f32 and bf16 instantiations as ``<name>_f32`` and
+``<name>_bf16`` with the precision path's launches and cases; their
+bounds take the datasheet's fp32 FLOP/s, the rate they compute at) and
+the last line
 ``{"ok": true, "device": ...}``.  Any failure raises (exit code not 0).
 Without a CUDA device, or outside a checkout, it exits with code 2 before
 printing a result.  Imports nothing of JAX.
@@ -172,6 +194,9 @@ BEFORE_PAIR_GEMM_MS = {"level0 AP 813662x6": 0.3015,
 # 80GB HBM3"): HBM bytes/s and fp64 FLOP/s outside the tensor cores.
 CARD = "H100 80GB HBM3"
 PEAKS = (3.35e12, 34.0e12)
+#: fp32 FLOP/s outside the tensor cores: the f32 and bf16 instantiations
+#: compute at f32 (the datasheet's 67 TFLOP/s)
+F32_FLOPS = 67.0e12
 
 KERNELS = {
     "block_seg_sum": dict(
@@ -202,6 +227,11 @@ MAIN_KERNELS = ("block_seg_sum", "fused_pair_gemm", "fused_smoother",
 #: the kernels with a ``threads`` knob (the autotuner's families)
 TUNED = ("block_spmv", "block_spmm", "pbjacobi", "fused_smoother",
          "fused_pair_gemm")
+#: the precision path: the reduced-precision policies, and each one's
+#: kernel-vs-plain tolerance of the largest term (the reference's own,
+#: tests/test_kernels.py:41-48)
+PRECISIONS = {"f32": 2e-5, "bf16": 5e-2}
+PREC_BURST = 4           # requests of the precision path's serve burst
 
 
 def _ops():
@@ -220,6 +250,7 @@ def _ops():
 def reset_counts():
     for mod in _ops().values():
         mod.launches = 0
+        mod.launches_by_dtype = dict.fromkeys(mod.launches_by_dtype, 0)
 
 
 def read_counts() -> dict:
@@ -258,9 +289,11 @@ def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 def main_path(m: int, device, coarse_size: int | None = None,
-              steps: int = 3, verbose: bool = True) -> dict:
+              steps: int = 3, verbose: bool = True,
+              precision: str = "f64") -> dict:
     """Assemble, set up and run ``steps`` hot steps of the paper's loop
-    through the port's entry points; returns the objects and records."""
+    through the port's entry points under the ``precision`` policy;
+    returns the objects and records."""
     from repro_torch.configs.elasticity import ElasticityConfig
     from repro_torch.core.gamg import GAMGSolver
     from repro_torch.fem.assemble import assemble_elasticity
@@ -278,12 +311,14 @@ def main_path(m: int, device, coarse_size: int | None = None,
     solver = GAMGSolver(prob.A, prob.B, theta=cfg.theta,
                         smoother=cfg.smoother, degree=cfg.degree,
                         coarse_size=cfg.coarse_size, coarsener="greedy",
-                        rtol=cfg.rtol, maxiter=cfg.maxiter)
+                        rtol=cfg.rtol, maxiter=cfg.maxiter,
+                        precision=precision)
     sync(device)
     t_setup = time.perf_counter() - t0
     stats = solver.setup_data.stats
+    label = "" if precision == "f64" else f"{precision} "
     if verbose:
-        print(f"main path m={m}: n={prob.n} nnzb={prob.A.nnzb} "
+        print(f"{label}main path m={m}: n={prob.n} nnzb={prob.A.nnzb} "
               f"coo_inputs={prob.coo_plan.n_input} "
               f"assemble_s={t_asm:.3f} setup_s={t_setup:.3f} "
               f"level_rows={stats['level_rows']} "
@@ -320,7 +355,7 @@ def main_path(m: int, device, coarse_size: int | None = None,
         if verbose:
             shown = {k: (round(v, 3) if isinstance(v, float) and k != "relres"
                          else v) for k, v in rec.items() if k != "x"}
-            print("hot step " + json.dumps(shown))
+            print(f"{label}hot step " + json.dumps(shown))
     return dict(prob=prob, solver=solver, records=records, setup_s=t_setup,
                 assemble_s=t_asm, a_data=a_data)
 
@@ -356,13 +391,15 @@ def profile_hot_step(run: dict, top: int = 12, label: str = "") -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    print(f"profiled {label}hot step " + json.dumps(dict(
-        wall_ms=walls, device_busy_ms=busy_ms, device_events=len(kernels),
-        idle_share=1.0 - busy_ms / wall_ms)))
+    summary = dict(wall_ms=walls, device_busy_ms=busy_ms,
+                   device_events=len(kernels),
+                   idle_share=1.0 - busy_ms / wall_ms)
+    print(f"profiled {label}hot step " + json.dumps(summary))
     for name, (n, t) in rows:
         print(f"profile {label}kernel " + json.dumps(dict(
             name=name[:90], launches=n, device_ms=t,
             share=t / busy_ms if busy_ms else 0.0)))
+    return summary
 
 
 def _diff(after: dict, before: dict) -> dict:
@@ -579,6 +616,194 @@ def pairs_path(run: dict, device, expect_iters: int,
             pairs=pairs, fused=fused_rec, max_rel_err=worst, iters=res.iters,
             launches=counts.total)))
     return counts.total
+
+
+def read_counts_at(dt: str) -> dict:
+    """Kernel launches at payload dtype ``dt`` ("f64", "f32", "bf16")."""
+    return {name: mod.launches_by_dtype[dt] for name, mod in _ops().items()}
+
+
+def hierarchy_bytes(hier) -> int:
+    """Device bytes the numeric hierarchy holds (operators, transfers,
+    ``dinv``, the coarse factor and the Krylov copy of the finest
+    operator; the structure-only plans are not counted)."""
+    ts = [hier.coarse_chol]
+    for lv in hier.levels:
+        ts += [lv.a_ell.data, lv.a_ell.indices, lv.a_ell.mask, lv.p_ell.data,
+               lv.p_ell.indices, lv.p_ell.mask, lv.dinv, lv.lam_max]
+    if hier.a_fine_ell is not None:
+        f = hier.a_fine_ell
+        ts += [f.data, f.indices, f.mask]
+    seen, total = set(), 0
+    for t in ts:
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+    return total
+
+
+def precision_path(prec: str, f64_run: dict, peaks: tuple,
+                   device="cuda", m: int = MAIN_M) -> tuple:
+    """The main and serve paths under the reduced-precision policy
+    ``prec`` on ``ElasticityConfig(m=32)`` (greedy, ``coarse_size=100``):
+    setup, 3 hot steps and a profiled one, an ``update_operator`` with the
+    hierarchy's peak memory, a burst of ``PREC_BURST`` requests through
+    ``AMGSolveServer`` and one ``pairs`` recompute; then the autotuner's
+    sweep of ``pbjacobi`` at each level's ``dinv`` (its only caller), every
+    kernel at this dtype against its plain version, the bitwise contracts
+    and every ``threads`` candidate bitwise.  Returns the path's launches
+    at this dtype, the kernel checks and the launches of a hot step.  On
+    the CPU (a rehearsal at a small ``m``) it skips what needs the card:
+    the level check, profile, memory, timings and bitwise contracts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.pbjacobi import ops as pbj
+    from repro_torch.multirhs import AMGSolveServer
+    from repro_torch.robust.health import STATUS_NAMES
+
+    dtype = backend.resolve_precision(prec).hierarchy_dtype
+    dt = backend.PAYLOADS[dtype]
+    t_path = time.perf_counter()
+    reset_counts()
+    cuda = torch.device(device).type == "cuda"
+    run = main_path(m, device, precision=prec)
+    solver, prob = run["solver"], run["prob"]
+    setupd, hier = solver.setup_data, solver.hierarchy
+    stats = setupd.stats
+    if cuda and stats["level_rows"] != EXPECT_LEVEL_ROWS:
+        raise AssertionError(f"{prec}: level_rows {stats['level_rows']} != "
+                             f"{EXPECT_LEVEL_ROWS}")
+    payloads = {f"level{li}": dict(
+        a_ell=str(lv.a_ell.data.dtype), p_ell=str(lv.p_ell.data.dtype),
+        dinv=str(lv.dinv.dtype)) for li, lv in enumerate(hier.levels)}
+    payloads["coarse_chol"] = str(hier.coarse_chol.dtype)
+    payloads["a_fine_ell"] = str(hier.a_fine_ell.data.dtype)
+    if {v for lv in hier.levels for v in (lv.a_ell.data.dtype,
+                                          lv.p_ell.data.dtype,
+                                          lv.dinv.dtype)} != {dtype} \
+            or hier.coarse_chol.dtype != dtype \
+            or hier.a_fine_ell.data.dtype != torch.float64:
+        raise AssertionError(f"{prec}: payload dtypes {payloads}")
+    steps = []
+    for rec in run["records"]:
+        if prec == "f32" and not (rec["healthy"]
+                                  and rec["relres"] <= 1e-8):
+            raise AssertionError(f"{prec} step {rec['step']}: status "
+                                 f"{rec['status']}, relres {rec['relres']}")
+        steps.append(dict(step=rec["step"], iters=rec["iters"],
+                          relres=rec["relres"], status=rec["status"],
+                          reassemble_ms=rec["reassemble_ms"],
+                          update_operator_ms=rec["update_operator_ms"],
+                          solve_ms=rec["solve_ms"]))
+    x64 = f64_run["records"][-1]["x"]
+    x = run["records"][-1]["x"]
+    rel_x = _rel(x, x64) if bool(torch.isfinite(x).all()) else float("nan")
+    print(f"{prec} precision " + json.dumps(dict(
+        policy=setupd.precision.describe(), level_rows=stats["level_rows"],
+        payloads=payloads, steps=steps, solution_rel_diff_vs_f64=rel_x)))
+    prof = profile_hot_step(run, label=f"{prec} ") if cuda else {}
+    # the hierarchy's bytes, and the peak above the live set during an
+    # update_operator, beside the f64 run's
+    sync(device)
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    solver.update_operator(run["a_data"])
+    sync(device)
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    memory = dict(hierarchy_bytes=hierarchy_bytes(solver.hierarchy),
+                  f64_hierarchy_bytes=hierarchy_bytes(
+                      f64_run["solver"].hierarchy),
+                  update_operator_peak_bytes_above_live=peak)
+    print(f"{prec} memory " + json.dumps(memory))
+
+    # one burst through the server (fine values at f64, panels at f64)
+    server = AMGSolveServer(setupd, run["a_data"], buckets=BUCKETS,
+                            rtol=1e-8, maxiter=200)
+    fine = server.hierarchy.a_fine_ell.data
+    if fine.dtype != torch.float64 or not torch.equal(
+            fine, setupd.levels[0].a_ell_plan.build(run["a_data"]).data):
+        raise AssertionError(f"{prec}: the server's Krylov operator is not "
+                             f"the f64 fine values")
+    rng = np.random.default_rng(0)
+    rhs = [prob.b.cpu().numpy()] + [rng.standard_normal(prob.n)
+                                    for _ in range(PREC_BURST - 1)]
+    sync(device)
+    t0 = time.perf_counter()
+    reports = server.serve(rhs)
+    serve_ms = 1e3 * (time.perf_counter() - t0)
+    if len(reports) != PREC_BURST or (prec == "f32" and any(
+            r.status != "ok" or not r.converged for r in reports)):
+        raise AssertionError(f"{prec} serve: "
+                             f"{[(r.iters, r.status) for r in reports]}")
+    print(f"{prec} serve burst " + json.dumps(dict(
+        requests=len(rhs), buckets=sorted({r.k_bucket for r in reports}),
+        iters=[r.iters for r in reports],
+        status=[r.status for r in reports], wall_ms=serve_ms)))
+
+    # one recompute on the pairs path, against the fused hierarchy
+    fused = solver.hierarchy
+    os.environ["REPRO_TORCH_SPGEMM_PATH"] = "pairs"
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        solver.update_operator(run["a_data"])
+        sync(device)
+        pairs_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del os.environ["REPRO_TORCH_SPGEMM_PATH"]
+    errs = {f"level{li}": _rel(p.a_ell.data, f.a_ell.data)
+            for li, (p, f) in enumerate(zip(solver.hierarchy.levels,
+                                            fused.levels))}
+    errs["coarse"] = _rel(solver.hierarchy.coarse_chol.float().nan_to_num(),
+                          fused.coarse_chol.float().nan_to_num())
+    tol = PRECISIONS[prec]
+    if not max(v for k, v in errs.items() if k != "coarse") <= tol:
+        raise AssertionError(f"{prec} pairs vs fused operators: {errs}")
+    res = solver.solve(prob.b)
+    print(f"{prec} pairs path " + json.dumps(dict(
+        ms=pairs_ms, rel_err_vs_fused=errs, iters=res.iters,
+        relres=float(res.relres),
+        status=STATUS_NAMES[int(res.health.status)])))
+
+    # the autotuner: pbjacobi (its only caller) at each level's dinv,
+    # swept at this dtype into the cache
+    with tune_mode("sweep"):
+        for lv in solver.hierarchy.levels:
+            n = lv.dinv.shape[0] * lv.dinv.shape[1]
+            pbj.pbjacobi_apply(lv.dinv, torch.zeros(n, **_like(lv.dinv)),
+                               torch.zeros(n, **_like(lv.dinv)), OMEGA)
+    sync(device)
+    launches = read_counts_at(dt)
+    print(f"{prec} precision path launches " + json.dumps(launches))
+    if cuda:
+        check_path_launches(f"{prec} precision", launches, tuple(KERNELS))
+
+    # every kernel at this dtype against its plain version, the bitwise
+    # contracts, every threads candidate
+    cases = build_cases(run, device, dtype)
+    if cuda:
+        attach_floors(cases)
+    per = check_kernels(cases, (peaks[0], F32_FLOPS), timed=cuda,
+                        label=f"{prec} ", tol=tol)
+    if cuda:
+        print(f"{prec} bitwise per column "
+              + json.dumps(check_bitwise(run, device, dtype)))
+    print(f"{prec} threads bitwise "
+          + json.dumps(check_threads_bitwise(cases)))
+    per_step = run["records"][-1]["launches"]
+    print(f"{prec} precision path done " + json.dumps(dict(
+        seconds=time.perf_counter() - t_path,
+        device_busy_ms=prof.get("device_busy_ms"),
+        idle_share=prof.get("idle_share"))))
+    return launches, per, {k: per_step["update_operator"][k]
+                           + per_step["solve"][k] for k in KERNELS}
+
+
+def _like(t) -> dict:
+    return dict(dtype=t.dtype, device=t.device)
 
 
 def h2d_witness() -> int:
@@ -982,7 +1207,15 @@ def _unique_count(idx, mask=None) -> int:
     return int(torch.unique(sel).numel())
 
 
-def build_cases(run: dict, device) -> list:
+def build_cases(run: dict, device, dtype=None) -> list:
+    """Every kernel at the run's shapes, at payload ``dtype`` (default f64:
+    the run's hierarchy holds its payloads at the run's policy dtype).
+    Below f64 the COO stream (assembled at the Krylov dtype, f64) is left
+    out, the Galerkin products run at the policy's kernel accumulator (f32
+    for bf16) and ``block_pair_gemm`` at bf16 keeps its products at that
+    accumulator, as the pairs path does.  The scalar-CSR yardsticks
+    (cuSPARSE through ``torch.mv`` / ``torch.sparse.mm``) take every
+    payload dtype on the card."""
     import torch
 
     from repro_torch.core.block_csr import device_array
@@ -1008,30 +1241,37 @@ def build_cases(run: dict, device) -> list:
     prob, solver = run["prob"], run["solver"]
     setupd, hier = solver.setup_data, solver.hierarchy
     gen = torch.Generator(device=device).manual_seed(0)
-    f64 = dict(dtype=torch.float64, device=device)
+    dtype = dtype or torch.float64
+    f64 = dict(dtype=dtype, device=device)
+    es = torch.empty((), dtype=dtype).element_size()   # payload bytes
+    bf16 = dtype == torch.bfloat16
+    acc = torch.float32 if bf16 else None       # the policy's accumulator
+    acc_es = 4 if bf16 else es
 
     def randn(*shape):
-        return torch.randn(*shape, generator=gen, **f64)
+        return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                           device=device).to(dtype)
 
     cases = []
-    # --- block_seg_sum: the COO reassembly stream ------------------------
+    # --- block_seg_sum: the COO reassembly stream (f64 only) -------------
     plan = prob.coo_plan
-    vals = (prob.values * 1.2).contiguous()
-    offs = device_array(plan, "offsets", device, torch.int32)
-    perm = device_array(plan, "perm", device, torch.int32)
-    kept = vals[device_array(plan, "keep", device)]
-    slot_of_kept = torch.empty_like(device_array(plan, "keep", device))
-    slot_of_kept[device_array(plan, "order", device)] = device_array(
-        plan, "out_idx_sorted", device)
-    n_kept = int(perm.numel())
-    cases.append(Case(
-        "block_seg_sum", f"coo stream {n_kept}x3x3 -> {plan.nnzb}",
-        lambda: seg.block_seg_sum(vals, offs, perm),
-        lambda: block_seg_sum_ref(vals, offs, perm),
-        nbytes=n_kept * (72 + 4) + offs.numel() * 4 + plan.nnzb * 72,
-        flops=n_kept * 9,
-        library=lambda: torch.zeros((plan.nnzb, 3, 3), **f64).index_add_(
-            0, slot_of_kept, kept)))
+    if dtype == torch.float64:
+        vals = (prob.values * 1.2).contiguous()
+        offs = device_array(plan, "offsets", device, torch.int32)
+        perm = device_array(plan, "perm", device, torch.int32)
+        kept = vals[device_array(plan, "keep", device)]
+        slot_of_kept = torch.empty_like(device_array(plan, "keep", device))
+        slot_of_kept[device_array(plan, "order", device)] = device_array(
+            plan, "out_idx_sorted", device)
+        n_kept = int(perm.numel())
+        cases.append(Case(
+            "block_seg_sum", f"coo stream {n_kept}x3x3 -> {plan.nnzb}",
+            lambda: seg.block_seg_sum(vals, offs, perm),
+            lambda: block_seg_sum_ref(vals, offs, perm),
+            nbytes=n_kept * (72 + 4) + offs.numel() * 4 + plan.nnzb * 72,
+            flops=n_kept * 9,
+            library=lambda: torch.zeros((plan.nnzb, 3, 3), **f64)
+            .index_add_(0, slot_of_kept, kept)))
 
     # --- block_spmv and fused_smoother on every level operator, block_spmv
     # on every prolongator --------------------------------------------------
@@ -1049,8 +1289,8 @@ def build_cases(run: dict, device) -> list:
                     ell.indices, ell.data, x, threads=threads),
                 lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices,
                                                         ell.data, x),
-                nbytes=nnz * (ell.br * ell.bc * 8 + 4) + x.numel() * 8
-                + ell.nbr * ell.br * 8,
+                nbytes=nnz * (ell.br * ell.bc * es + 4) + x.numel() * es
+                + ell.nbr * ell.br * es,
                 flops=2 * nnz * ell.br * ell.bc,
                 library=lambda csr=csr, xf=xf: torch.mv(csr, xf), lanes=nl,
                 at_lanes=lambda n, ell=ell, x=x: spmv.launch_lanes(
@@ -1066,8 +1306,8 @@ def build_cases(run: dict, device) -> list:
                         ell.indices, ell.data, X, threads=threads),
                     lambda ell=ell, X=X: block_spmm_ell_ref(
                         ell.indices, ell.data, X),
-                    nbytes=nnz * (ell.br * ell.bc * 8 + 4) + X.numel() * 8
-                    + ell.nbr * ell.br * k * 8,
+                    nbytes=nnz * (ell.br * ell.bc * es + 4) + X.numel() * es
+                    + ell.nbr * ell.br * k * es,
                     flops=2 * nnz * ell.br * ell.bc * k,
                     library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf),
                     lanes=nl, at_lanes=lambda n, ell=ell, X=X:
@@ -1088,8 +1328,8 @@ def build_cases(run: dict, device) -> list:
                 lambda threads=None, args=args: smooth.smoother_step_ell(
                     *args, threads=threads),
                 lambda args=args: smoother_step_ref(*args),
-                nbytes=nnz * (bs * bs * 8 + 4) + a.nbr * bs * bs * 8
-                + 5 * a.nbr * bs * (k or 1) * 8,
+                nbytes=nnz * (bs * bs * es + 4) + a.nbr * bs * bs * es
+                + 5 * a.nbr * bs * (k or 1) * es,
                 flops=(k or 1) * (2 * nnz * bs * bs + 2 * a.nbr * bs * bs
                                   + 4 * a.nbr * bs),
                 lanes=nl, at_lanes=lambda n, args=args:
@@ -1103,7 +1343,7 @@ def build_cases(run: dict, device) -> list:
                 lv.dinv, r, x, OMEGA, threads=threads),
             lambda lv=lv, r=r, x=x: pbjacobi_update_ref(lv.dinv, r, x,
                                                         OMEGA),
-            nbytes=a.nbr * bs * bs * 8 + 3 * a.nbr * bs * 8,
+            nbytes=a.nbr * bs * bs * es + 3 * a.nbr * bs * es,
             flops=a.nbr * bs * (2 * bs + 2),
             library=lambda lv=lv, r=r, x=x: torch.baddbmm(
                 x[..., None], lv.dinv, r[..., None], alpha=OMEGA)[..., 0],
@@ -1111,13 +1351,14 @@ def build_cases(run: dict, device) -> list:
 
     # --- fused_pair_gemm on both Galerkin products of every level, and the
     # block_seg_sum row-split combine where rows split -----------------------
-    a_data = prob.A.data
+    a_data = prob.A.data.to(dtype)
     for li, ls in enumerate(setupd.levels):
         cache = ls.ptap_cache
-        p_data = ls.P.data
+        p_data = ls.P.data.to(dtype)
         r_data = p_data[device_array(cache, "r_perm", device)].transpose(
             1, 2).contiguous()
-        ap = spgemm_numeric_data(cache.ap_plan, a_data, p_data)
+        ap = spgemm_numeric_data(cache.ap_plan, a_data, p_data,
+                                 accum_dtype=acc)
         for tag, sp, lhs_data, rhs_data in (("AP", cache.ap_plan, a_data,
                                              p_data),
                                             ("R(AP)", cache.ac_plan, r_data,
@@ -1130,38 +1371,44 @@ def build_cases(run: dict, device) -> list:
                               torch.zeros((), **f64))
             rhs = rhs_data[tb.long()]
             br, bk, bc = sp.br, sp.bk, sp.bc
-            # the "pairs" path's operands: one gathered block per pair
+            # the "pairs" path's operands: one gathered block per pair;
+            # bf16 products stay at the f32 accumulator
             plhs = lhs_data[device_array(sp, "pair_a", device)]
             prhs = rhs_data[device_array(sp, "pair_b", device)]
+            pkw = dict(accum_dtype=acc, out_dtype=acc) if bf16 else {}
             cases.append(Case(
                 "block_pair_gemm",
                 f"level{li} {tag} {sp.npairs} pairs ({br},{bk},{bc})",
-                lambda plhs=plhs, prhs=prhs: pair.block_pair_gemm(plhs, prhs),
-                lambda plhs=plhs, prhs=prhs: block_pair_gemm_ref(plhs, prhs),
-                nbytes=sp.npairs * (br * bk + bk * bc + br * bc) * 8,
+                lambda plhs=plhs, prhs=prhs, pkw=pkw: pair.block_pair_gemm(
+                    plhs, prhs, **pkw),
+                lambda plhs=plhs, prhs=prhs, pkw=pkw: block_pair_gemm_ref(
+                    plhs, prhs, **pkw),
+                nbytes=sp.npairs * ((br * bk + bk * bc) * es
+                                    + br * bc * acc_es),
                 flops=2 * sp.npairs * br * bk * bc,
                 library=lambda plhs=plhs, prhs=prhs: torch.bmm(plhs, prhs)))
-            nbytes = (_unique_count(ta, tm) * br * bk * 8
-                      + _unique_count(tb, tm) * bk * bc * 8
-                      + ta.numel() * 9 + sp.tile_rows * br * bc * 8)
+            nbytes = (_unique_count(ta, tm) * br * bk * es
+                      + _unique_count(tb, tm) * bk * bc * es
+                      + ta.numel() * 9 + sp.tile_rows * br * bc * es)
             # what the tile plan gathers when every pair reads its own
             # blocks: valid slots x (lhs + rhs block bytes)
-            gather = int(tm.sum()) * (br * bk + bk * bc) * 8
+            gather = int(tm.sum()) * (br * bk + bk * bc) * es
+            key = f"level{li} {tag} {sp.tile_rows}x{sp.pair_kmax}"
             cases.append(Case(
                 "fused_pair_gemm",
-                f"level{li} {tag} {sp.tile_rows}x{sp.pair_kmax} "
-                f"({br},{bk},{bc})",
+                f"{key} ({br},{bk},{bc})",
                 lambda threads=None, gargs=gargs: gemm.fused_pair_gemm(
-                    *gargs, threads=threads),
-                lambda gargs=gargs: fused_pair_gemm_ref(*gargs),
+                    *gargs, threads=threads, accum_dtype=acc),
+                lambda gargs=gargs: fused_pair_gemm_ref(*gargs,
+                                                        accum_dtype=acc),
                 nbytes=nbytes, flops=2 * sp.npairs * br * bk * bc,
                 library=lambda lhs=lhs, rhs=rhs: torch.einsum(
                     "skij,skjl->sil", lhs, rhs),
-                extra=dict(gather_bytes=gather, before_ms=BEFORE_PAIR_GEMM_MS
-                           .get(f"level{li} {tag} {sp.tile_rows}x"
-                                f"{sp.pair_kmax}"))))
+                extra=dict(gather_bytes=gather, before_ms=(
+                    BEFORE_PAIR_GEMM_MS.get(key)
+                    if dtype == torch.float64 else None))))
             if not sp.tile_identity:
-                part = gemm.fused_pair_gemm(*gargs)
+                part = gemm.fused_pair_gemm(*gargs, accum_dtype=acc)
                 toffs = device_array(sp, "tile_offsets", device, torch.int32)
                 tseg = device_array(sp, "tile_seg", device)
                 cases.append(Case(
@@ -1169,16 +1416,16 @@ def build_cases(run: dict, device) -> list:
                     f"level{li} {tag} combine {sp.tile_rows} -> {sp.nnzb} "
                     f"({br},{bc})",
                     lambda part=part, toffs=toffs: seg.block_seg_sum(
-                        part, toffs),
+                        part, toffs, accum_dtype=acc),
                     lambda part=part, toffs=toffs: block_seg_sum_ref(
-                        part, toffs),
-                    nbytes=part.numel() * 8 + toffs.numel() * 4
-                    + sp.nnzb * br * bc * 8,
+                        part, toffs, accum_dtype=acc),
+                    nbytes=part.numel() * es + toffs.numel() * 4
+                    + sp.nnzb * br * bc * es,
                     flops=part.numel(),
                     library=lambda part=part, tseg=tseg, sp=sp, br=br,
                     bc=bc: torch.zeros((sp.nnzb, br, bc), **f64)
                     .index_add_(0, tseg, part)))
-        a_data = ptap_numeric_data(cache, a_data, p_data)
+        a_data = ptap_numeric_data(cache, a_data, p_data, accum_dtype=acc)
     return cases
 
 
@@ -1200,13 +1447,14 @@ def _scalar_csr(ell):
     return coo.coalesce().to_sparse_csr()
 
 
-def check_bitwise(run: dict, device) -> dict:
+def check_bitwise(run: dict, device, dtype=None) -> dict:
     """Each column of ``block_spmm`` is bitwise ``block_spmv`` of that
     column, on every level operator and prolongator at every panel width;
     a width-1 panel is bitwise the vector apply; each column of the panel
     smoother step is bitwise the vector step; and with ``dinv = I`` and
     ``coef = [0, 1]`` the smoother's ``d'`` is bitwise ``b -
-    block_spmv(x)``, vector and each panel column, on every level."""
+    block_spmv(x)``, vector and each panel column, on every level; at
+    payload ``dtype`` (default f64, the run's hierarchy at its policy's)."""
     import torch
 
     from repro_torch.core.spmv import apply_ell
@@ -1215,9 +1463,14 @@ def check_bitwise(run: dict, device) -> dict:
     from repro_torch.kernels.fused_smoother import ops as smooth
 
     gen = torch.Generator(device=device).manual_seed(1)
-    f64 = dict(dtype=torch.float64, device=device)
+    dtype = dtype or torch.float64
+    f64 = dict(dtype=dtype, device=device)
     checked = dict(spmm_columns=0, apply_width1=0, smoother_columns=0,
                    identity_residuals=0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                           device=device).to(dtype)
 
     def same(got, want, what):
         if not torch.equal(got, want):
@@ -1227,20 +1480,19 @@ def check_bitwise(run: dict, device) -> dict:
     for li, lv in enumerate(run["solver"].hierarchy.levels):
         for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell)):
             for k in PANEL_KS + (1,):
-                X = torch.randn(ell.nbc, ell.bc, k, generator=gen, **f64)
+                X = randn(ell.nbc, ell.bc, k)
                 Y = spmm.block_spmm_ell(ell.indices, ell.data, X)
                 for j in range(k):
                     same(Y[:, :, j], spmv.block_spmv_ell(
                         ell.indices, ell.data, X[:, :, j].contiguous()),
                         f"block_spmm {tag}{li} k={k} column {j}")
                     checked["spmm_columns"] += 1
-            x = torch.randn(ell.nbc * ell.bc, generator=gen, **f64)
+            x = randn(ell.nbc * ell.bc)
             same(apply_ell(ell, x[:, None])[:, 0], apply_ell(ell, x),
                  f"width-1 panel apply {tag}{li}")
             checked["apply_width1"] += 1
         a, bs, k = lv.a_ell, lv.a_ell.br, PANEL_KS[0]
-        b, x, d = (torch.randn(a.nbr, bs, k, generator=gen, **f64)
-                   for _ in range(3))
+        b, x, d = (randn(a.nbr, bs, k) for _ in range(3))
         coef = torch.tensor([0.3, 0.7], **f64)
         xp, dp = smooth.smoother_step_ell(a.indices, a.data, lv.dinv, b, x,
                                           d, coef)
@@ -1270,10 +1522,10 @@ def check_bitwise(run: dict, device) -> dict:
 
 
 def check_kernels(cases: list, peaks: tuple, timed: bool = True,
-                  label: str = "") -> dict:
-    """Hold every case's kernel against its plain version; time it.  Each
-    case's line starts with ``label`` (the path, where it is not the
-    main one)."""
+                  label: str = "", tol: float = REL_TOL) -> dict:
+    """Hold every case's kernel against its plain version (max error
+    within ``tol`` of the largest term); time it.  Each case's line starts
+    with ``label`` (the path, where it is not the main one)."""
     import torch
 
     from repro_torch.kernels.autotune import device_ms
@@ -1292,9 +1544,9 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True,
         err = float((got - want).abs().max()) if got.numel() else 0.0
         scale = float(want.abs().max()) if want.numel() else 0.0
         rel = err / scale if scale else err
-        if not rel <= REL_TOL:
-            raise AssertionError(f"{c.kernel} {c.label}: max rel err {rel:.3e}"
-                                 f" > {REL_TOL}")
+        if not rel <= tol:
+            raise AssertionError(f"{label}{c.kernel} {c.label}: max rel err "
+                                 f"{rel:.3e} > {tol}")
         row = per[c.kernel]
         row["cases"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1815,22 +2067,32 @@ def peaks_for(name: str) -> tuple:
 
 
 def kernel_record(per: dict, by_path: dict, per_step: dict,
-                  peaks: tuple) -> dict:
+                  peaks: tuple, precision: dict) -> dict:
     """The per-kernel JSON record: launches summed over the paths (and per
     path), the largest error against the plain version, and times summed
-    over the cases."""
+    over the cases; the f64 instantiation of each kernel under its name,
+    the f32 and bf16 ones under ``<name>_f32`` / ``<name>_bf16`` with the
+    precision path's launches and cases at that dtype (``precision``:
+    ``{prec: (launches, per, per_hot_step)}``)."""
     record = []
-    for kname, meta in KERNELS.items():
-        row = per[kname]
+    rows = [(kname, "f64", per[kname], by_path, per_step)
+            for kname in KERNELS]
+    for prec, (launches, pper, pstep) in precision.items():
+        rows += [(kname, prec, pper[kname], {"precision": launches},
+                  {"hot_step": pstep}) for kname in KERNELS]
+    for kname, dt, row, paths, steps in rows:
+        meta = KERNELS[kname]
         if row["cases"] == 0:
-            raise AssertionError(f"{kname}: no case checked")
-        by_bytes = row["bytes"] / peaks[0] >= row["flops"] / peaks[1]
+            raise AssertionError(f"{kname} {dt}: no case checked")
+        flops = peaks[1] if dt == "f64" else F32_FLOPS
+        by_bytes = row["bytes"] / peaks[0] >= row["flops"] / flops
         record.append(dict(
-            name=kname, route="cuda", source=meta["source"],
+            name=kname if dt == "f64" else f"{kname}_{dt}", dtype=dt,
+            route="cuda", source=meta["source"],
             replaces=meta["replaces"],
-            launches=sum(p[kname] for p in by_path.values()),
-            launches_by_path={path: p[kname] for path, p in by_path.items()},
-            launches_per_hot_step=sum(v[kname] for v in per_step.values()),
+            launches=sum(p[kname] for p in paths.values()),
+            launches_by_path={path: p[kname] for path, p in paths.items()},
+            launches_per_hot_step=sum(v[kname] for v in steps.values()),
             cases=row["cases"], max_abs_err=row["max_abs_err"],
             max_rel_err=row["max_rel_err"], ms=row["ms"],
             kernel_ms=row["ms"], ms_single=row["ms_single"],
@@ -1941,7 +2203,11 @@ def run_all() -> int:
         fold_errors(per, other)
     print("coefficient h2d " + json.dumps(h2d_check()))
 
-    print(json.dumps(kernel_record(per, by_path, per_step, peaks)))
+    precision = {prec: precision_path(prec, run, peaks)
+                 for prec in PRECISIONS}
+
+    print(json.dumps(kernel_record(per, by_path, per_step, peaks,
+                                   precision)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,9 @@ twin of ``repro.core.gamg``).
 
 Reuse model = PETSc ``-pc_gamg_reuse_interpolation true``: aggregates and
 prolongator values stay fixed across recomputes.  The device placement of
-the whole hierarchy follows the fine operator's data tensor.
+the whole hierarchy follows the fine operator's data tensor; its dtypes
+follow the setup's ``PrecisionPolicy`` (``precision=``: "f64", "f32",
+"bf16"), as in the reference.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from repro_torch.core.strength import strength_graph
 from repro_torch.core.tentative import tentative_prolongator
 from repro_torch.core.vcycle import Hierarchy, LevelState, fine_operator, \
     vcycle
+from repro_torch.kernels import backend
 
 
 @dataclasses.dataclass
@@ -120,19 +123,23 @@ class GAMGSetup:
 def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
           max_levels: int = 10, coarse_size: int = 100,
           smoother: str = "chebyshev", degree: int = 2,
-          coarsener: str = "mis", precision: str = "f64",
+          coarsener: str = "mis", precision=None,
           restriction: str = "transpose_free") -> GAMGSetup:
     """Cold GAMG setup on the block format (no scalar expansion).
 
     ``coarsener="mis"`` (default, as in the reference) aggregates by the
     device Luby-MIS coarsener on ``A.data``'s device, then merges
     undersized aggregates on the host; ``"greedy"`` is the host Vanek
-    covering, the paper's coarsener.  Reduced precisions and
-    ``restriction="stored"`` are not ported and raise.  The hierarchy
-    lives on ``A.data``'s device; ``B`` must be on the same device.
+    covering, the paper's coarsener.  ``precision`` is a
+    ``PrecisionPolicy`` or a stock name ("f64", "f32", "bf16"); ``None``
+    resolves ``REPRO_TORCH_PRECISION`` (default "f64").  The setup math
+    runs at the operator's dtype; the policy governs what ``recompute``
+    builds and what the solves run at.  ``restriction="stored"`` is not
+    ported and raises.  The hierarchy lives on ``A.data``'s device; ``B``
+    must be on the same device.
     ``stats["mis_rounds"]`` holds the Luby rounds of each MIS level.
     """
-    precision = PrecisionPolicy.from_name(precision)
+    precision = backend.resolve_precision(precision)
     if A.br != A.bc:
         raise ValueError("system operator must have square blocks")
     if restriction != "transpose_free":
@@ -212,20 +219,35 @@ def _repair_small_aggregates(aggr: Aggregation, graph, min_size: int
 # Hot numeric recompute (the state-gated PtAP chain)
 # ---------------------------------------------------------------------------
 
-def level_state(ls: LevelSetup, a_data: torch.Tensor) -> LevelState:
-    """Numeric level state from the level's operator payloads: ELL
-    operator, inverted diagonal blocks and ``lam_max(D^-1 A)``."""
+def _at(ell: BlockELL, dtype: torch.dtype) -> BlockELL:
+    """``ell`` with its payload at ``dtype`` (itself when it is)."""
+    if ell.data.dtype == dtype:
+        return ell
+    return dataclasses.replace(ell, data=ell.data.to(dtype))
+
+
+def level_state(ls: LevelSetup, a_data: torch.Tensor,
+                policy: PrecisionPolicy | None = None) -> LevelState:
+    """Numeric level state from hierarchy-dtype payloads ``a_data``: ELL
+    operator, inverted diagonal blocks and ``lam_max(D^-1 A)``.  The
+    inversion runs at ``policy.factor_dtype`` and ``D^-1 A`` at the
+    accumulator; everything is stored at the hierarchy dtype (an f64
+    policy changes nothing)."""
+    policy = policy or PrecisionPolicy.double()
+    h = policy.hierarchy_dtype
+    acc = torch.promote_types(h, policy.accum_dtype)
     dev = a_data.device
     diag = torch.zeros((ls.A0.nbr, ls.A0.br, ls.A0.bc), dtype=a_data.dtype,
                        device=dev)
     diag[device_array(ls, "diag_rows", dev)] = \
         a_data[device_array(ls, "diag_pos", dev)]
-    dinv = invert_diag_blocks(diag)
+    dinv = invert_diag_blocks(diag.to(policy.factor_dtype)).to(h)
     a_ell = ls.a_ell_plan.build(a_data)
-    dinva_ell = torch.einsum("nab,nkbc->nkac", dinv, a_ell.data)
+    dinva_ell = torch.einsum("nab,nkbc->nkac", dinv.to(acc),
+                             a_ell.data.to(acc)).to(h)
     lam = lambda_max_dinv_a(a_ell.indices, dinva_ell.contiguous())
-    return LevelState(a_ell=a_ell, p_ell=ls.p_ell, dinv=dinv, lam_max=lam,
-                      p_t=ls.pt)
+    return LevelState(a_ell=a_ell, p_ell=_at(ls.p_ell, h), dinv=dinv,
+                      lam_max=lam, p_t=ls.pt)
 
 
 def jittered_cholesky(densef: torch.Tensor, base_scale: float,
@@ -255,11 +277,13 @@ def jittered_cholesky(densef: torch.Tensor, base_scale: float,
 
 def coarse_cholesky(dense: torch.Tensor, policy: PrecisionPolicy
                     ) -> torch.Tensor:
-    """Jittered dense Cholesky of the coarsest operator (f64: 1e-12
-    relative jitter, ``sqrt(eps)`` on the retry)."""
-    return jittered_cholesky(dense.to(policy.factor_dtype),
+    """Jittered dense Cholesky of the coarsest operator at
+    ``policy.factor_dtype`` (f64: 1e-12 relative jitter, ``sqrt(eps)`` on
+    the retry), stored at the hierarchy dtype."""
+    chol = jittered_cholesky(dense.to(policy.factor_dtype),
                              policy.coarse_jitter_scale(),
                              policy.coarse_retry_scale())
+    return chol.to(policy.hierarchy_dtype)
 
 
 def _coarse_dense(setupd: GAMGSetup, a_data: torch.Tensor) -> torch.Tensor:
@@ -274,15 +298,28 @@ def _coarse_dense(setupd: GAMGSetup, a_data: torch.Tensor) -> torch.Tensor:
 
 
 def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
-    """Hot numeric hierarchy rebuild: a function of the fine values only."""
+    """Hot numeric hierarchy rebuild: a function of the fine values only.
+
+    Every level (operator, transfer, ``dinv``, coarse factor) is built and
+    stored at the policy's hierarchy dtype, the PtAP chain at that dtype
+    with the policy's kernel accumulator.  A mixed policy also keeps a
+    krylov-dtype copy of the finest operator, built from the incoming
+    values (``Hierarchy.a_fine_ell``), for the outer iteration."""
     policy = setupd.precision
-    a_data = a_fine_data.to(policy.hierarchy_dtype)
+    h = policy.hierarchy_dtype
+    a_data = a_fine_data.to(h)
     states = []
     for ls in setupd.levels:
-        states.append(level_state(ls, a_data))
-        a_data = ptap_numeric_data(ls.ptap_cache, a_data, ls.P.data)
+        states.append(level_state(ls, a_data, policy))
+        a_data = ptap_numeric_data(ls.ptap_cache, a_data, ls.P.data.to(h),
+                                   accum_dtype=policy.kernel_accum_dtype)
     chol = coarse_cholesky(_coarse_dense(setupd, a_data), policy)
-    return Hierarchy(levels=tuple(states), coarse_chol=chol)
+    a_fine_ell = None
+    if policy.mixed and setupd.levels:
+        a_fine_ell = setupd.levels[0].a_ell_plan.build(
+            a_fine_data.to(policy.krylov_dtype))
+    return Hierarchy(levels=tuple(states), coarse_chol=chol,
+                     a_fine_ell=a_fine_ell)
 
 
 def _check_assembler(setupd: GAMGSetup, assembler) -> None:

@@ -25,6 +25,12 @@ numeric (device), ``path=`` resolved by ``repro_torch.kernels.backend``:
     "reference"  gathered operands, einsum pair products and a sorted
                  segment sum over ``out_idx`` (the reference's CPU
                  default order); CPU only — raises on CUDA payloads.
+
+``accum_dtype`` is the reference's accumulator on every path (None: the
+payload's; the output is always at ``a_data.dtype``): the fused kernel's
+output is rounded to the payload dtype and the row-split combine sums it
+at the accumulator; the pairs path contracts and combines at the
+accumulator and rounds once (``repro.core.spgemm``).
 """
 from __future__ import annotations
 
@@ -207,41 +213,55 @@ def _tile_pairs(pair_a: np.ndarray, pair_b: np.ndarray, out_idx: np.ndarray,
 
 
 def spgemm_numeric_data(plan: SpGEMMPlan, a_data: torch.Tensor,
-                        b_data: torch.Tensor, *,
-                        path: str | None = None) -> torch.Tensor:
+                        b_data: torch.Tensor, *, path: str | None = None,
+                        accum_dtype=None) -> torch.Tensor:
     """Device numeric phase -> C.data, a pure function of the plan and the
     values.  ``path`` is "fused" | "pairs" | "reference" (``None``: the
     ``REPRO_TORCH_SPGEMM_PATH`` knob, default "fused"); "reference" is
-    CPU-only."""
+    CPU-only.  ``accum_dtype``: see the module docstring."""
     dev = a_data.device
     path = backend.resolve_spgemm_path(dev, path)
     a_data, b_data = a_data.contiguous(), b_data.contiguous()
     if path == "fused":
-        return _fused_numeric(plan, a_data, b_data)
+        return _fused_numeric(plan, a_data, b_data, accum_dtype)
+    acc = backend.accumulator(a_data.dtype, accum_dtype)
     lhs = a_data[device_array(plan, "pair_a", dev)]     # (npairs, br, bk)
     rhs = b_data[device_array(plan, "pair_b", dev)]     # (npairs, bk, bc)
     if path == "pairs":
-        prod = pair_ops.block_pair_gemm(lhs, rhs)
+        # the products stay at the accumulator until they are combined:
+        # bf16 operands are widened in the kernel, others cast up first
+        if lhs.dtype == torch.bfloat16 and acc == torch.float32:
+            prod = pair_ops.block_pair_gemm(lhs, rhs, accum_dtype=acc,
+                                            out_dtype=acc)
+        else:
+            prod = pair_ops.block_pair_gemm(lhs.to(acc), rhs.to(acc))
     else:
-        prod = torch.einsum("pij,pjk->pik", lhs, rhs).contiguous()
+        c = backend.contract_dtype(acc)
+        prod = torch.einsum("pij,pjk->pik", lhs.to(c),
+                            rhs.to(c)).to(acc).contiguous()
     return seg_ops.block_seg_sum(
-        prod, device_array(plan, "pair_offsets", dev, torch.int32))
+        prod, device_array(plan, "pair_offsets", dev, torch.int32),
+        accum_dtype=backend.contract_dtype(acc)).to(a_data.dtype)
 
 
 def _fused_numeric(plan: SpGEMMPlan, a_data: torch.Tensor,
-                   b_data: torch.Tensor) -> torch.Tensor:
+                   b_data: torch.Tensor, accum_dtype=None) -> torch.Tensor:
     """One kernel over the tiled plan (operands gathered in the kernel),
-    then, only where rows split, the O(nnzb) partial combine."""
+    then, only where rows split, the O(nnzb) partial combine at the
+    accumulator."""
     dev = a_data.device
     out = gemm_ops.fused_pair_gemm(
         a_data, b_data,
         device_array(plan, "tile_pair_a", dev, torch.int32),
         device_array(plan, "tile_pair_b", dev, torch.int32),
-        device_array(plan, "tile_mask", dev, torch.bool))
+        device_array(plan, "tile_mask", dev, torch.bool),
+        accum_dtype=accum_dtype)
     if plan.tile_identity:
         return out
+    acc = backend.contract_dtype(backend.accumulator(out.dtype, accum_dtype))
     return seg_ops.block_seg_sum(
-        out, device_array(plan, "tile_offsets", dev, torch.int32))
+        out, device_array(plan, "tile_offsets", dev, torch.int32),
+        accum_dtype=acc)
 
 
 # ---------------------------------------------------------------------------

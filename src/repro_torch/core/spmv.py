@@ -21,25 +21,29 @@ from repro_torch.kernels.block_spmm import ops as spmm_ops
 from repro_torch.kernels.block_spmv import ops as spmv_ops
 
 
-def spmv_ell(ell: BlockELL, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x on the padded ELL layout.  x: (nbc*bc,) -> y: (nbr*br,)."""
-    return spmv_ops.block_spmv(ell, x)
+def spmv_ell(ell: BlockELL, x: torch.Tensor, *,
+             accum_dtype=None) -> torch.Tensor:
+    """y = A @ x on the padded ELL layout.  x: (nbc*bc,) -> y: (nbr*br,),
+    at the payload dtype; ``accum_dtype`` is the kernels' accumulator rule
+    (None: the payload's)."""
+    return spmv_ops.block_spmv(ell, x, accum_dtype=accum_dtype)
 
 
-def spmm_ell(ell: BlockELL, X: torch.Tensor) -> torch.Tensor:
+def spmm_ell(ell: BlockELL, X: torch.Tensor, *,
+             accum_dtype=None) -> torch.Tensor:
     """Y = A @ X for a panel X: ``(nbc*bc, k)`` -> ``(nbr*br, k)``.  ``k ==
     1`` goes through ``spmv_ell``, so a single-column panel is bitwise the
     vector result."""
     if X.shape[1] == 1:
-        return spmv_ell(ell, X[:, 0])[:, None]
-    return spmm_ops.block_spmm(ell, X)
+        return spmv_ell(ell, X[:, 0], accum_dtype=accum_dtype)[:, None]
+    return spmm_ops.block_spmm(ell, X, accum_dtype=accum_dtype)
 
 
-def spmm(A, X: torch.Tensor) -> torch.Tensor:
+def spmm(A, X: torch.Tensor, *, accum_dtype=None) -> torch.Tensor:
     """Multi-RHS front door: Y = A @ X, X ``(n, k)``, A a BlockCSR
     (converted) or a BlockELL."""
     ell = A.to_ell() if isinstance(A, BlockCSR) else A
-    return spmm_ell(ell, X)
+    return spmm_ell(ell, X, accum_dtype=accum_dtype)
 
 
 def apply_ell(ell: BlockELL, x: torch.Tensor) -> torch.Tensor:

@@ -37,15 +37,22 @@ class LevelState:
 
 @dataclasses.dataclass
 class Hierarchy:
-    """Device-resident numeric hierarchy."""
+    """Device-resident numeric hierarchy, stored at the policy's
+    ``hierarchy_dtype``.  ``a_fine_ell`` is set by mixed-precision
+    policies only: a krylov-dtype copy of the finest operator for the
+    outer iteration, so its residual never sees the hierarchy's rounding
+    (the smoother keeps ``levels[0].a_ell``)."""
 
     levels: Tuple[LevelState, ...]
     coarse_chol: torch.Tensor       # lower Cholesky factor, coarsest level
+    a_fine_ell: Optional[BlockELL] = None   # krylov-dtype finest operator
 
 
 def fine_operator(hier: Hierarchy) -> BlockELL:
-    """The finest-level operator the Krylov loop applies."""
-    return hier.levels[0].a_ell
+    """The finest-level operator the Krylov loop applies: the krylov-dtype
+    copy under a mixed policy, else level 0's operator."""
+    return hier.a_fine_ell if hier.a_fine_ell is not None \
+        else hier.levels[0].a_ell
 
 
 def pbjacobi_apply(dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -179,11 +186,14 @@ def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
         bs_stack.append(rhs)
         x_stack.append(x)
         rhs = apply_restriction(lv, r)
-    # cholesky_solve returns column-major panels; the kernels take
-    # row-major (n, k) panels
-    xc = torch.cholesky_solve(rhs.reshape(rhs.shape[0], -1),
-                              hier.coarse_chol).contiguous().reshape(
-                                  rhs.shape)
+    # cholesky_solve has no bf16 kernel on either device: a bf16 level
+    # solves at f32 (the policy's factor dtype) and rounds to its dtype.
+    # It returns column-major panels; the kernels take row-major panels.
+    chol = hier.coarse_chol
+    fd = torch.float32 if chol.dtype == torch.bfloat16 else chol.dtype
+    xc = torch.cholesky_solve(rhs.reshape(rhs.shape[0], -1).to(fd),
+                              chol.to(fd)).to(rhs.dtype).contiguous() \
+        .reshape(rhs.shape)
     for lv, rhs_l, x in zip(reversed(hier.levels), reversed(bs_stack),
                             reversed(x_stack)):
         x = x + apply_ell(lv.p_ell, xc)          # prolong + correct

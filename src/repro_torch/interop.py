@@ -5,7 +5,10 @@ on exactly another implementation's operators, prolongators and
 hierarchies — handed over as numpy arrays — so hot-path parity can be
 checked apart from cold-setup parity.  Structures are taken as given;
 every plan is rebuilt by the port's own symbolic phases (host numpy).
-Imports nothing but numpy, torch and this package.
+Payloads keep their own dtype (f64, f32, or bf16 as ``ml_dtypes``'
+``bfloat16``, carried bitwise through its 16-bit pattern), so a
+reduced-precision hierarchy crosses as it is.  Imports nothing but numpy,
+torch and this package.
 """
 from __future__ import annotations
 
@@ -24,19 +27,27 @@ from repro_torch.core.vcycle import Hierarchy, LevelState
 from repro_torch.fem.assemble import ElasticityProblem, coo_plan
 from repro_torch.fem.device_stiffness import DeviceAssembler
 from repro_torch.fem.hex_elasticity import hex_mesh
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import resolve_device, resolve_precision
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True), dtype=dtype).to(device)
+    """A copy of ``a`` on ``device``, at ``dtype`` or its own; a bf16 array
+    crosses as its bit pattern (numpy's int16 view, then torch's bf16
+    view)."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(arr, dtype=dtype).to(device)
 
 
 def bcsr_from_numpy(indptr, indices, data, nbc: int, *,
                     device="cuda") -> BlockCSR:
-    """A ``BlockCSR`` from host structure and ``(nnzb, br, bc)`` values."""
+    """A ``BlockCSR`` from host structure and ``(nnzb, br, bc)`` values (at
+    their own dtype)."""
     dev = resolve_device(device)
     return BlockCSR.from_arrays(np.asarray(indptr), np.asarray(indices),
-                                _t(data, dev, torch.float64), nbc)
+                                _t(data, dev), nbc)
 
 
 def problem_from_numpy(m: int, *, values, b, B, order: int = 1,
@@ -53,7 +64,7 @@ def problem_from_numpy(m: int, *, values, b, B, order: int = 1,
     dev = resolve_device(device)
     mesh = hex_mesh(m, order)
     plan, free = coo_plan(mesh)
-    vals = _t(values, dev, torch.float64)
+    vals = _t(values, dev)
     assembler = E = nu = None
     if (E_field is None) != (nu_field is None):
         raise ValueError("pass both E_field and nu_field, or neither")
@@ -62,8 +73,7 @@ def problem_from_numpy(m: int, *, values, b, B, order: int = 1,
         E, nu = assembler.as_fields(np.asarray(E_field),
                                     np.asarray(nu_field))
     return ElasticityProblem(A=set_values_coo(plan, vals),
-                             b=_t(b, dev, torch.float64),
-                             B=_t(B, dev, torch.float64), mesh=mesh,
+                             b=_t(b, dev), B=_t(B, dev), mesh=mesh,
                              free_nodes=free, coo_plan=plan, values=vals,
                              assembler=assembler, E_field=E, nu_field=nu)
 
@@ -71,7 +81,8 @@ def problem_from_numpy(m: int, *, values, b, B, order: int = 1,
 def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
                      smoother: str = "chebyshev", degree: int = 2,
                      theta: float = 0.08, nns_dim: int = 6,
-                     coarsener: str = "mis", device="cuda") -> GAMGSetup:
+                     coarsener: str = "mis", precision=None,
+                     device="cuda") -> GAMGSetup:
     """A ``GAMGSetup`` from per-level arrays.
 
     Each entry of ``levels`` holds ``A0`` and ``P`` as dicts of
@@ -80,7 +91,8 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
     The PtAP, ELL and transpose-apply plans are rebuilt from the
     structures by the port's symbolic phases.  ``coarsener`` names the
     coarsener that made the aggregates (``"mis"``, the default, or
-    ``"greedy"``), as ``setup`` records it.
+    ``"greedy"``), as ``setup`` records it; ``precision`` the policy, as
+    ``setup`` takes it.
     """
     if coarsener not in ("mis", "greedy"):
         raise ValueError(f"invalid coarsener {coarsener!r}: "
@@ -96,7 +108,7 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
             A0=A0, P=P, ptap_cache=ptap_symbolic(A0, P),
             a_ell_plan=A0.ell_plan(), p_ell=p_ell,
             aggr=Aggregation(node_to_agg=agg, n_agg=P.nbc),
-            omega=_t(lv["omega"], dev, torch.float64), n_fine=A0.nbr,
+            omega=_t(lv["omega"], dev), n_fine=A0.nbr,
             n_coarse=P.nbc, pt=transpose_apply_plan(P, p_ell.kmax)))
     Ac = bcsr_from_numpy(**coarse, device=dev)
     ops = [ls.A0 for ls in out] + [Ac]
@@ -106,32 +118,36 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
     bs_fine = out[0].A0.br if out else Ac.br
     return GAMGSetup(levels=out, coarse_struct=Ac, bs_fine=bs_fine,
                      nns_dim=nns_dim, smoother=smoother, degree=degree,
-                     theta=theta, coarsener=coarsener, stats=stats)
+                     theta=theta, coarsener=coarsener, stats=stats,
+                     precision=resolve_precision(precision))
 
 
 def _ell(d: dict, dev) -> BlockELL:
     return BlockELL(indices=_t(d["indices"], dev, torch.int32),
-                    data=_t(d["data"], dev, torch.float64),
+                    data=_t(d["data"], dev),
                     mask=_t(d["mask"], dev, torch.bool), nbc=int(d["nbc"]))
 
 
 def hierarchy_from_numpy(levels: Sequence[dict], coarse_chol, *,
+                         a_fine_ell: dict | None = None,
                          device="cuda") -> Hierarchy:
     """A ``Hierarchy`` from per-level arrays: ``a_ell`` and ``p_ell`` as
     dicts of ``indices, data, mask, nbc``, ``dinv``, ``lam_max`` and
     ``p_t`` as a dict of ``rows, gather, mask, nbr``; plus the coarse
-    lower Cholesky factor."""
+    lower Cholesky factor and, for a mixed-precision hierarchy, the
+    krylov-dtype finest operator ``a_fine_ell`` (a dict like ``a_ell``).
+    Every payload keeps its dtype."""
     dev = resolve_device(device)
     states = []
     for lv in levels:
         pt = lv["p_t"]
         states.append(LevelState(
             a_ell=_ell(lv["a_ell"], dev), p_ell=_ell(lv["p_ell"], dev),
-            dinv=_t(lv["dinv"], dev, torch.float64),
-            lam_max=_t(lv["lam_max"], dev, torch.float64),
+            dinv=_t(lv["dinv"], dev), lam_max=_t(lv["lam_max"], dev),
             p_t=EllTransposePlan(rows=np.asarray(pt["rows"], np.int32),
                                  gather=np.asarray(pt["gather"], np.int32),
                                  mask=np.asarray(pt["mask"], bool),
                                  nbr=int(pt["nbr"]))))
-    return Hierarchy(levels=tuple(states),
-                     coarse_chol=_t(coarse_chol, dev, torch.float64))
+    return Hierarchy(levels=tuple(states), coarse_chol=_t(coarse_chol, dev),
+                     a_fine_ell=None if a_fine_ell is None
+                     else _ell(a_fine_ell, dev))

@@ -286,46 +286,47 @@ def _rows(family: str, signature: dict) -> int:
 
 
 def _synthetic(family: str, signature: dict, nbr: int, device) -> dict:
-    """Deterministic operands of the signature's shape on ``device``:
-    indices and operator blocks from numpy seed 0 (the reference's), the
-    vectors from seed 1."""
+    """Deterministic operands of the signature's shape and dtype (f64, f32
+    or bf16) on ``device``: indices and operator blocks from numpy seed 0
+    (the reference's), the vectors from seed 1, drawn at f64 and rounded to
+    the signature's dtype."""
     rng = np.random.default_rng(0)
-    dt = np.dtype(signature["dtype"])
+    fdt = backend.as_dtype(signature["dtype"])
 
     def t(a):
-        return torch.as_tensor(a).to(device)
+        a = torch.as_tensor(a)
+        return a.to(device, fdt if a.is_floating_point() else a.dtype)
 
     if family == "fused_pair_gemm":
         br, bk, bc, kmax = (signature[k] for k in ("br", "bk", "bc", "kmax"))
         return dict(
-            a=t(rng.standard_normal((nbr, br, bk)).astype(dt)),
-            b=t(rng.standard_normal((nbr, bk, bc)).astype(dt)),
+            a=t(rng.standard_normal((nbr, br, bk))),
+            b=t(rng.standard_normal((nbr, bk, bc))),
             ta=t(rng.integers(0, nbr, size=(nbr, kmax)).astype(np.int32)),
             tb=t(rng.integers(0, nbr, size=(nbr, kmax)).astype(np.int32)),
             mask=t(np.ones((nbr, kmax), dtype=bool)))
     vec = np.random.default_rng(1)
     if family == "pbjacobi":
         bs = signature["bs"]
-        return dict(dinv=t(vec.standard_normal((nbr, bs, bs)).astype(dt)),
-                    r=t(vec.standard_normal(nbr * bs).astype(dt)),
-                    x=t(vec.standard_normal(nbr * bs).astype(dt)))
+        return dict(dinv=t(vec.standard_normal((nbr, bs, bs))),
+                    r=t(vec.standard_normal(nbr * bs)),
+                    x=t(vec.standard_normal(nbr * bs)))
     br, bc, kmax = signature["br"], signature["bc"], signature["kmax"]
     nbc = nbr                      # square-ish synthetic operator
     ops = dict(
         indices=t(rng.integers(0, nbc, size=(nbr, kmax)).astype(np.int32)),
-        data=t(rng.standard_normal((nbr, kmax, br, bc)).astype(dt)))
+        data=t(rng.standard_normal((nbr, kmax, br, bc))))
     if family == "block_spmv":
-        ops["x"] = t(vec.standard_normal((nbc, bc)).astype(dt))
+        ops["x"] = t(vec.standard_normal((nbc, bc)))
     elif family == "block_spmm":
-        ops["x"] = t(vec.standard_normal((nbc, bc, signature["k"]))
-                     .astype(dt))
+        ops["x"] = t(vec.standard_normal((nbc, bc, signature["k"])))
     elif family == "fused_smoother":
         cols = (signature["k"],) if "k" in signature else ()
-        ops.update(dinv=t(vec.standard_normal((nbr, br, br)).astype(dt)),
-                   b=t(vec.standard_normal((nbr, br) + cols).astype(dt)),
-                   x=t(vec.standard_normal((nbr, br) + cols).astype(dt)),
-                   d=t(np.zeros((nbr, br) + cols, dtype=dt)),
-                   coef=t(np.array([0.0, 0.5], dtype=dt)))
+        ops.update(dinv=t(vec.standard_normal((nbr, br, br))),
+                   b=t(vec.standard_normal((nbr, br) + cols)),
+                   x=t(vec.standard_normal((nbr, br) + cols)),
+                   d=t(np.zeros((nbr, br) + cols)),
+                   coef=t(np.array([0.0, 0.5])))
     else:
         raise ValueError(f"unknown autotune family {family!r}")
     return ops

@@ -15,6 +15,15 @@ plain C interface.  ``build_library`` compiles each source with its own
 sizes as ``c_int`` and scalars as ``c_double``; each C entry point
 returns ``cudaGetLastError()`` and ``launch`` raises if it is not 0.
 
+Payloads and accumulators.  Every kernel has an entry point per payload
+dtype — ``repro_<name>_f64``, ``_f32`` and ``_bf16`` — and follows the
+reference's accumulator rule (``acc = accum_dtype`` if given, else the
+payload dtype; operands cast up on-register, contracted at ``acc``,
+rounded once to the payload dtype).  ``entry`` names the entry point of a
+payload dtype and accumulator and raises for a pair no kernel
+instantiates; ``resolve_precision`` resolves a precision policy (the
+``REPRO_TORCH_PRECISION`` variable when none is given).
+
 Path knobs (re-read per call; the port's own variable names, so settings
 made for the JAX reference never reach it):
 
@@ -206,11 +215,83 @@ def on_cuda(name: str, **tensors) -> bool:
     return dev.type == "cuda"
 
 
+#: payload dtypes of the kernels, by the suffix of their C entry points
+PAYLOADS = {torch.float64: "f64", torch.float32: "f32",
+            torch.bfloat16: "bf16"}
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A payload dtype from a ``torch.dtype`` or its name (``"float64"``,
+    ``"float32"``, ``"bfloat16"``: an autotune signature's ``dtype``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    for t in PAYLOADS:
+        if str(t).removeprefix("torch.") == str(dtype).removeprefix("torch."):
+            return t
+    raise ValueError(f"not a kernel dtype: {dtype!r}")
+
+
+def accumulator(dtype: torch.dtype, accum_dtype=None) -> torch.dtype:
+    """The reference's accumulator rule: ``accum_dtype`` if given, else the
+    payload dtype."""
+    return dtype if accum_dtype is None else as_dtype(accum_dtype)
+
+
+def contract_dtype(acc: torch.dtype) -> torch.dtype:
+    """What a contraction at ``acc`` sums in: bf16 sums at f32 and rounds
+    once (one ``einsum(..., preferred_element_type=bf16)``)."""
+    return torch.float32 if acc == torch.bfloat16 else acc
+
+
+def entry(name: str, dtype: torch.dtype, accum_dtype=None, *,
+          bf16_f32: bool = False) -> str:
+    """The C entry point of kernel ``name`` for payload ``dtype`` at the
+    accumulator ``accum_dtype`` (None: the payload's).  f64 and f32
+    payloads accumulate at their own dtype.  A bf16 payload accumulates at
+    bf16 or f32: ``_bf16``, or ``_bf16_f32`` at f32 for the families whose
+    elementwise steps round at the accumulator (``bf16_f32=True``; in the
+    others both sum at f32 and round once).  Any other pair has no
+    instantiation and raises."""
+    if dtype not in PAYLOADS:
+        raise ValueError(f"{name}: payload dtype {dtype} has no kernel "
+                         f"instantiation (have {list(PAYLOADS)})")
+    suffix = PAYLOADS[dtype]
+    acc = PAYLOADS.get(accumulator(dtype, accum_dtype))
+    if dtype == torch.bfloat16 and acc == "f32":
+        if bf16_f32:
+            suffix = "bf16_f32"
+    elif acc != suffix:
+        raise ValueError(f"{name}: no kernel instantiation for {dtype} "
+                         f"payloads with accum_dtype={accum_dtype!r}")
+    return f"repro_{name}_{suffix}"
+
+
+def resolve_precision(precision=None):
+    """A ``PrecisionPolicy`` from a policy, a stock name, or ``None``: the
+    port's own ``REPRO_TORCH_PRECISION`` variable ("f64" | "f32" |
+    "bf16"), default "f64".  ``REPRO_PRECISION`` (the reference's) is
+    never read."""
+    from repro_torch.core.precision import PrecisionPolicy
+    if isinstance(precision, PrecisionPolicy):
+        return precision
+    if precision is None:
+        precision = os.environ.get("REPRO_TORCH_PRECISION") or "f64"
+    return PrecisionPolicy.from_name(precision)
+
+
 def check_kernel_args(name: str, floats: dict, ints: dict = None,
                       masks: dict = None) -> None:
-    """Validation before any pointer reaches a kernel: float payloads f64,
-    index arrays int32, masks bool, everything contiguous."""
-    groups = ((floats, torch.float64), (ints or {}, torch.int32),
+    """Validation before any pointer reaches a kernel: one payload dtype
+    (f64, f32 or bf16) for the floats of a launch, index arrays int32,
+    masks bool, everything contiguous."""
+    dtypes = {t.dtype for t in floats.values() if t is not None}
+    if len(dtypes) != 1 or not dtypes <= set(PAYLOADS):
+        raise ValueError(f"{name}: float operands must share one payload "
+                         f"dtype of {list(PAYLOADS)}: " + ", ".join(
+                             f"{k}={t.dtype}" for k, t in floats.items()
+                             if t is not None))
+    payload = dtypes.pop()
+    groups = ((floats, payload), (ints or {}, torch.int32),
               (masks or {}, torch.bool))
     for group, dtype in groups:
         for k, t in group.items():

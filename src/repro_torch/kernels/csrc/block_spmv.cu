@@ -26,11 +26,11 @@
 
 namespace {
 
-template <int BR, int BC>
+template <int BR, int BC, typename T, typename Acc>
 __global__ void __launch_bounds__(1024) spmv_kernel(const int* __restrict__ idx,
-                            const double* __restrict__ data,
-                            const double* __restrict__ x,
-                            double* __restrict__ y, int nbr, int kmax,
+                            const T* __restrict__ data,
+                            const T* __restrict__ x,
+                            T* __restrict__ y, int nbr, int kmax,
                             int lanes) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -39,45 +39,63 @@ __global__ void __launch_bounds__(1024) spmv_kernel(const int* __restrict__ idx,
   const bool live = r < nbr;
   // rows past nbr run no slot but still join the butterfly
   const long long rr = live ? r : 0;
-  double acc[BR][1];
-  repro::ell_row_lanes<BR, BC, 1>(idx + rr * kmax, data + rr * kmax * BR * BC,
-                                  x, 1, 1, live ? kmax : 0, lane, lanes, acc);
-  repro::lanes_sum<BR, 1>(acc, lanes);
+  typename repro::Num<Acc>::R acc[BR][1];
+  repro::ell_row_lanes<BR, BC, 1, T, Acc>(idx + rr * kmax,
+                                          data + rr * kmax * BR * BC, x, 1,
+                                          1, live ? kmax : 0, lane, lanes,
+                                          acc);
+  repro::lanes_sum<BR, 1, Acc>(acc, lanes);
   if (!live) return;
-  double* yr = y + r * BR;
+  T* yr = y + r * BR;
 #pragma unroll
   for (int a = 0; a < BR; ++a)
-    if ((a & (lanes - 1)) == lane) yr[a] = acc[a][0];
+    if ((a & (lanes - 1)) == lane) yr[a] = repro::narrow<T>(acc[a][0]);
 }
 
-template <int BR, int BC>
-int launch(const int* idx, const double* data, const double* x, double* y,
-           int nbr, int kmax, int lanes, int threads, cudaStream_t stream) {
-  if (!repro::payload_ok<BC>(data)) return repro::bad_shape();
+template <int BR, int BC, typename T, typename Acc>
+int launch(const int* idx, const T* data, const T* x, T* y, int nbr,
+           int kmax, int lanes, int threads, cudaStream_t stream) {
+  if (!repro::payload_ok<BC, T>(data)) return repro::bad_shape();
   if (nbr == 0) return repro::last_error();
   const unsigned blocks =
       repro::blocks_for(static_cast<long long>(nbr) * lanes, threads);
   repro::note_launch(blocks, threads);
-  spmv_kernel<BR, BC><<<blocks, threads, 0, stream>>>(idx, data, x, y, nbr,
-                                                      kmax, lanes);
+  spmv_kernel<BR, BC, T, Acc><<<blocks, threads, 0, stream>>>(
+      idx, data, x, y, nbr, kmax, lanes);
   return repro::last_error();
+}
+
+template <typename T, typename Acc>
+int entry(const void* indices, const void* data, const void* x, void* y,
+          int nbr, int kmax, int br, int bc, int lanes, int threads,
+          void* stream) {
+  auto i = static_cast<const int*>(indices);
+  auto d = static_cast<const T*>(data);
+  auto xv = static_cast<const T*>(x);
+  auto yv = static_cast<T*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int t = threads, l = lanes;
+  if (!repro::threads_ok(t) || !repro::lanes_ok(l)) return repro::bad_shape();
+  if (br == 3 && bc == 3)
+    return launch<3, 3, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
+  if (br == 3 && bc == 6)
+    return launch<3, 6, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
+  if (br == 6 && bc == 6)
+    return launch<6, 6, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
+  return repro::bad_shape();
 }
 
 }  // namespace
 
-REPRO_API int repro_block_spmv_f64(const void* indices, const void* data,
-                                   const void* x, void* y, int nbr, int kmax,
-                                   int br, int bc, int lanes, int threads,
-                                   void* stream) {
-  auto i = static_cast<const int*>(indices);
-  auto d = static_cast<const double*>(data);
-  auto xv = static_cast<const double*>(x);
-  auto yv = static_cast<double*>(y);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int t = threads, l = lanes;
-  if (!repro::threads_ok(t) || !repro::lanes_ok(l)) return repro::bad_shape();
-  if (br == 3 && bc == 3) return launch<3, 3>(i, d, xv, yv, nbr, kmax, l, t, s);
-  if (br == 3 && bc == 6) return launch<3, 6>(i, d, xv, yv, nbr, kmax, l, t, s);
-  if (br == 6 && bc == 6) return launch<6, 6>(i, d, xv, yv, nbr, kmax, l, t, s);
-  return repro::bad_shape();
-}
+#define REPRO_SPMV_ENTRY(SUFFIX, T, ACC)                                     \
+  REPRO_API int repro_block_spmv_##SUFFIX(                                   \
+      const void* indices, const void* data, const void* x, void* y,         \
+      int nbr, int kmax, int br, int bc, int lanes, int threads,             \
+      void* stream) {                                                        \
+    return entry<T, ACC>(indices, data, x, y, nbr, kmax, br, bc, lanes,      \
+                         threads, stream);                                   \
+  }
+
+REPRO_SPMV_ENTRY(f64, double, double)
+REPRO_SPMV_ENTRY(f32, float, float)
+REPRO_SPMV_ENTRY(bf16, repro::bf16, float)

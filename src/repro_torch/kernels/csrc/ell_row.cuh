@@ -1,4 +1,5 @@
-// Per-row bodies of the blocked ELL kernels.
+// Per-row bodies of the blocked ELL kernels, at every payload type and
+// accumulator of num.cuh.
 //
 // A column panel X (nbc, bc, k) is read with row stride ld: the caller
 // points x at the first column it wants and passes ld = k, so entry b of
@@ -11,6 +12,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "num.cuh"
 
 namespace repro {
 
@@ -19,88 +21,96 @@ inline bool lanes_ok(int lanes) {
   return lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
 }
 
-// Payloads of even-width blocks are read in 16-byte pairs.
-template <int BC>
+// Payloads of even-width blocks are read in pairs (16 bytes at f64, 8 at
+// f32, 4 at bf16), so they must start aligned to the pair.
+template <int BC, typename T>
 inline bool payload_ok(const void* data) {
-  return BC % 2 != 0 || reinterpret_cast<unsigned long long>(data) % 16 == 0;
+  return BC % 2 != 0 || pair_aligned<T>(data);
 }
 
-// One block row of a payload block: BC doubles, read as 16-byte pairs
-// when BC is even (the caller guarantees 16-byte aligned payloads then).
-template <int BC>
-__device__ __forceinline__ void load_block_row(const double* __restrict__ p,
-                                               double (&w)[BC]) {
+// One block row of a payload block: BC elements widened to registers,
+// read as pairs when BC is even (the caller guarantees pair-aligned
+// payloads then).
+template <int BC, typename T>
+__device__ __forceinline__ void load_block_row(
+    const T* __restrict__ p, typename Elem<T>::W (&w)[BC]) {
   if constexpr (BC % 2 == 0) {
-    const double2* q = reinterpret_cast<const double2*>(p);
+    using P = typename Elem<T>::P;
+    const P* q = reinterpret_cast<const P*>(p);
 #pragma unroll
     for (int b = 0; b < BC / 2; ++b) {
-      const double2 v = q[b];
-      w[2 * b] = v.x;
-      w[2 * b + 1] = v.y;
+      const P v = q[b];
+      w[2 * b] = widen(v.x);
+      w[2 * b + 1] = widen(v.y);
     }
   } else {
 #pragma unroll
-    for (int b = 0; b < BC; ++b) w[b] = p[b];
+    for (int b = 0; b < BC; ++b) w[b] = widen(p[b]);
   }
 }
 
 // One lane's share of a block row owned by a sub-warp of `lanes` lanes
 // (aligned within the warp): the slots s = lane, lane + lanes, ... below
 // kmax, ascending.  acc[a][j] = sum over those slots, then over b, of
-// blk[s][a][b] * x[col(s)][b][j], as FMAs into acc[a][j] in that order
-// (padded slots are zero blocks at column 0 and add exact zeros), for the
-// first ncol of KC columns (the rest stay 0).  The chain of one (a, j)
-// does not depend on KC, so a panel column runs the vector's chain.
-// Neighbouring lanes read neighbouring slots, so a sub-warp reads
-// lanes * br * bc consecutive doubles of the row per step.
-template <int BR, int BC, int KC>
-__device__ __forceinline__ void ell_row_lanes(const int* __restrict__ ri,
-                                              const double* __restrict__ rd,
-                                              const double* __restrict__ x,
-                                              int ld, int ncol, int kmax,
-                                              int lane, int lanes,
-                                              double (&acc)[BR][KC]) {
+// blk[s][a][b] * x[col(s)][b][j], as FMAs at the accumulator (Num<Acc>)
+// into acc[a][j] in that order (padded slots are zero blocks at column 0
+// and add exact zeros), for the first ncol of KC columns (the rest stay
+// 0).  The chain of one (a, j) does not depend on KC, so a panel column
+// runs the vector's chain.  Neighbouring lanes read neighbouring slots,
+// so a sub-warp reads lanes * br * bc consecutive elements of the row per
+// step.
+template <int BR, int BC, int KC, typename T, typename Acc>
+__device__ __forceinline__ void ell_row_lanes(
+    const int* __restrict__ ri, const T* __restrict__ rd,
+    const T* __restrict__ x, int ld, int ncol, int kmax, int lane,
+    int lanes, typename Num<Acc>::R (&acc)[BR][KC]) {
+  using N = Num<Acc>;
+  using R = typename N::R;
 #pragma unroll
   for (int a = 0; a < BR; ++a) {
 #pragma unroll
-    for (int j = 0; j < KC; ++j) acc[a][j] = 0.0;
+    for (int j = 0; j < KC; ++j) acc[a][j] = R(0);
   }
   for (int s = lane; s < kmax; s += lanes) {
-    const double* xb = x + static_cast<long long>(ri[s]) * BC * ld;
-    double xv[BC][KC];
+    const T* xb = x + static_cast<long long>(ri[s]) * BC * ld;
+    R xv[BC][KC];
 #pragma unroll
     for (int b = 0; b < BC; ++b) {
 #pragma unroll
       for (int j = 0; j < KC; ++j)
-        xv[b][j] = j < ncol ? xb[static_cast<long long>(b) * ld + j] : 0.0;
+        xv[b][j] =
+            j < ncol ? widen(xb[static_cast<long long>(b) * ld + j]) : R(0);
     }
-    const double* blk = rd + static_cast<long long>(s) * BR * BC;
+    const T* blk = rd + static_cast<long long>(s) * BR * BC;
 #pragma unroll
     for (int a = 0; a < BR; ++a) {
-      double w[BC];
-      load_block_row<BC>(blk + a * BC, w);
+      R w[BC];
+      load_block_row<BC, T>(blk + a * BC, w);
 #pragma unroll
       for (int b = 0; b < BC; ++b) {
 #pragma unroll
-        for (int j = 0; j < KC; ++j) acc[a][j] = fma(w[b], xv[b][j], acc[a][j]);
+        for (int j = 0; j < KC; ++j)
+          acc[a][j] = N::fma(w[b], xv[b][j], acc[a][j]);
       }
     }
   }
 }
 
 // The sub-warp's partials combined by a fixed xor butterfly (offsets
-// lanes/2, ..., 1), every add rounded on its own (__dadd_rn: nothing can
-// be contracted into an FMA).  IEEE addition commutes, so every lane ends
-// with the same sum.  Every lane of the warp must call it.
-template <int BR, int KC>
-__device__ __forceinline__ void lanes_sum(double (&acc)[BR][KC], int lanes) {
+// lanes/2, ..., 1), every add rounded on its own at the accumulator's
+// register type (__dadd_rn / __fadd_rn: nothing can be contracted into an
+// FMA).  IEEE addition commutes, so every lane ends with the same sum.
+// Every lane of the warp must call it.
+template <int BR, int KC, typename Acc>
+__device__ __forceinline__ void lanes_sum(typename Num<Acc>::R (&acc)[BR][KC],
+                                          int lanes) {
   for (int o = lanes >> 1; o > 0; o >>= 1) {
 #pragma unroll
     for (int a = 0; a < BR; ++a) {
 #pragma unroll
       for (int j = 0; j < KC; ++j)
-        acc[a][j] = __dadd_rn(acc[a][j],
-                              __shfl_xor_sync(0xffffffffu, acc[a][j], o));
+        acc[a][j] = Num<Acc>::cadd(
+            acc[a][j], __shfl_xor_sync(0xffffffffu, acc[a][j], o));
     }
   }
 }

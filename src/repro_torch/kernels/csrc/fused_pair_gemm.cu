@@ -41,19 +41,28 @@
 //      ~2 CTAs an SM), so its threads alone could not keep enough gathers
 //      in flight.  On the m=32 cases each path is the faster one on its
 //      side of kDirectMaxK.
-// Copies and loads are 16 bytes where a block's size and the base pointer
-// allow it (6x6 and 6x3 / 3x6 blocks) and 8 bytes otherwise (3x3 lhs
-// blocks start 8-byte aligned at odd indices).
+// Copies and loads take two elements at once where a block's size and
+// the base pointer allow it (6x6 and 6x3 / 3x6 blocks) and one otherwise
+// (3x3 lhs blocks start at odd indices): 16 or 8 bytes at f64, 8 or 4 at
+// f32, 4 or 2 at bf16 (cp.async copies 4 bytes at least, so a single bf16
+// element is copied by a plain load and store).
 //
 // Bits: every output element is one fma chain in the order of the first,
 // thread-per-element kernel — valid slots ascending (masked slots
 // skipped), then j = 0..BK-1, from 0.0 — whatever `threads`, the geometry,
 // the path or the lhs mode, so the card's coarse operators do not move by
 // one bit.  A row whose slots are all masked writes an exact 0.0.
+//
+// Payloads: f64, f32 and bf16 (repro_fused_pair_gemm_{f64,f32,bf16}), at
+// the reference's accumulator rule (num.cuh): the chain runs at f64, f32
+// and f32 (bf16 operands widened on-register) and the strip is rounded
+// once to the payload type.  The shared-memory areas are budgets in
+// bytes, so a narrower payload stages more blocks in the same area.
 #include <climits>
 #include <cstdint>
 
 #include "common.cuh"
+#include "num.cuh"
 
 namespace {
 
@@ -63,17 +72,18 @@ constexpr int kIdxCap = 1024;             // staged index slots (ring path)
 constexpr int kOperandBytes = 48 * 1024;  // lhs range + ring (ring path)
 constexpr int kMaxDepth = 8;              // ring stages
 
-// The geometry of one launch: derived from `threads`, the shape and the
-// card's SM count only, so every launch of a signature has one geometry.
+// The geometry of one launch: derived from `threads`, the shape, the
+// payload's size and the card's SM count only, so every launch of a
+// signature has one geometry.
 struct Plan {
   bool direct;
   int rows_per_cta, window, chunk;
   size_t smem;
 };
 
-template <int BR, int BK, int BC>
+template <int BR, int BK, int BC, typename T>
 Plan plan_for(int rows, int kmax, int threads, int sms) {
-  constexpr int UNIT = 8 * (BR * BK + BK * BC);   // bytes of one pair
+  constexpr int UNIT = sizeof(T) * (BR * BK + BK * BC);   // bytes of a pair
   Plan p{};
   p.direct = kmax <= kDirectMaxK;
   // one strip per thread; few tile rows take fewer rows per CTA, so the
@@ -87,7 +97,7 @@ Plan plan_for(int rows, int kmax, int threads, int sms) {
     if (warp_rows < r) r = warp_rows;
     p.rows_per_cta = r;
     p.window = kmax > 1 ? kmax : 1;
-    p.smem = kRangeBytes + 8 * static_cast<size_t>(threads / 32) *
+    p.smem = kRangeBytes + sizeof(T) * static_cast<size_t>(threads / 32) *
                                (32 / BR) * BK * BC +
              sizeof(int) * 2 * static_cast<size_t>(r) * p.window;
     return p;
@@ -105,15 +115,25 @@ Plan plan_for(int rows, int kmax, int threads, int sms) {
   return p;
 }
 
-__device__ __forceinline__ void cp_async(double* dst, const double* src,
-                                         bool wide) {
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (wide)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(BYTES));
+}
+
+// One copy of two elements (`wide`) or one into shared memory: cp.async
+// where it is 4 bytes or more, a plain load and store for one bf16.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool wide) {
+  constexpr int B = sizeof(T);
+  if (wide) {
+    cp_async_n<2 * B>(dst, src);
+  } else if constexpr (B >= 4) {
+    cp_async_n<B>(dst, src);
+  } else {
+    *dst = *src;
+  }
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -174,50 +194,51 @@ __device__ __forceinline__ int2 load_plan(
   return make_int2(*s_lo, *s_hi);
 }
 
-// Copy lhs blocks [lo, hi] to `dst`; returns the doubles taken (rounded up
-// to keep what follows 16-byte aligned).
-template <int A_DBL>
-__device__ __forceinline__ int stage_range(const double* __restrict__ a,
-                                           double* dst, int lo, int hi,
-                                           bool wide) {
+// Copy lhs blocks [lo, hi] to `dst`; returns the elements taken (rounded
+// up to an even count, to keep what follows aligned to a pair).
+template <int A_N, typename T>
+__device__ __forceinline__ int stage_range(const T* __restrict__ a, T* dst,
+                                           int lo, int hi, bool wide) {
   const int ua = wide ? 2 : 1;
-  const int n = (hi - lo + 1) * (A_DBL / ua);
-  const double* src = a + static_cast<long long>(lo) * A_DBL;
+  const int n = (hi - lo + 1) * (A_N / ua);
+  const T* src = a + static_cast<long long>(lo) * A_N;
   for (int v = threadIdx.x; v < n; v += blockDim.x)
     cp_async(dst + v * ua, src + v * ua, wide);
-  const int used = (hi - lo + 1) * A_DBL;
+  const int used = (hi - lo + 1) * A_N;
   return used + (used & 1);
 }
 
-// acc[l] = fma(A[i][j], B[j][l], acc[l]) for j = 0..BK-1 in order: `ar` is
-// the A row, `bb` the B block, each in global or shared memory and read
-// as 16-byte pairs where `wide_a` / `wide_b`.
-template <int BK, int BC>
-__device__ __forceinline__ void strip_fma(double (&acc)[BC],
-                                          const double* ar,
-                                          const double* bb, bool wide_a,
-                                          bool wide_b) {
-  double av[BK];
+// acc[l] = fma(A[i][j], B[j][l], acc[l]) for j = 0..BK-1 in order at the
+// payload's register type: `ar` is the A row, `bb` the B block, each in
+// global or shared memory and read as pairs where `wide_a` / `wide_b`.
+template <int BK, int BC, typename T>
+__device__ __forceinline__ void strip_fma(typename repro::Elem<T>::W (&acc)[BC],
+                                          const T* ar, const T* bb,
+                                          bool wide_a, bool wide_b) {
+  using W = typename repro::Elem<T>::W;
+  using P = typename repro::Elem<T>::P;
+  using N = repro::Num<W>;
+  W av[BK];
   if (BK % 2 == 0 && wide_a) {
 #pragma unroll
     for (int j = 0; j < BK; j += 2) {
-      const double2 v = *reinterpret_cast<const double2*>(ar + j);
-      av[j] = v.x;
-      av[j + 1] = v.y;
+      const P v = *reinterpret_cast<const P*>(ar + j);
+      av[j] = repro::widen(v.x);
+      av[j + 1] = repro::widen(v.y);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < BK; ++j) av[j] = ar[j];
+    for (int j = 0; j < BK; ++j) av[j] = repro::widen(ar[j]);
   }
   if (BC % 2 == 0 && wide_b) {
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const double2* bj = reinterpret_cast<const double2*>(bb + j * BC);
+      const P* bj = reinterpret_cast<const P*>(bb + j * BC);
 #pragma unroll
       for (int q = 0; q < BC / 2; ++q) {
-        const double2 v = bj[q];
-        acc[2 * q] = fma(av[j], v.x, acc[2 * q]);
-        acc[2 * q + 1] = fma(av[j], v.y, acc[2 * q + 1]);
+        const P v = bj[q];
+        acc[2 * q] = N::fma(av[j], repro::widen(v.x), acc[2 * q]);
+        acc[2 * q + 1] = N::fma(av[j], repro::widen(v.y), acc[2 * q + 1]);
       }
     }
   } else {
@@ -225,46 +246,48 @@ __device__ __forceinline__ void strip_fma(double (&acc)[BC],
     for (int j = 0; j < BK; ++j)
 #pragma unroll
       for (int l = 0; l < BC; ++l)
-        acc[l] = fma(av[j], bb[j * BC + l], acc[l]);
+        acc[l] = N::fma(av[j], repro::widen(bb[j * BC + l]), acc[l]);
   }
 }
 
-// The strip in 16-byte stores (`out` comes from the wrapper's allocation,
-// and a strip starts at a multiple of BC = 6 doubles).
-template <int BR, int BC>
-__device__ __forceinline__ void store_strip(double* __restrict__ out,
-                                            long long row, int i,
-                                            const double (&acc)[BC]) {
-  double* o = out + (row * BR + i) * BC;
+// The strip rounded to the payload type, in pair stores (`out` comes from
+// the wrapper's allocation, aligned to a pair, and a strip starts at a
+// multiple of BC = 6 elements).
+template <int BR, int BC, typename T>
+__device__ __forceinline__ void store_strip(
+    T* __restrict__ out, long long row, int i,
+    const typename repro::Elem<T>::W (&acc)[BC]) {
+  using E = repro::Elem<T>;
+  T* o = out + (row * BR + i) * BC;
   if constexpr (BC % 2 == 0) {
 #pragma unroll
     for (int l = 0; l < BC; l += 2)
-      *reinterpret_cast<double2*>(o + l) = make_double2(acc[l], acc[l + 1]);
+      *reinterpret_cast<typename E::P*>(o + l) = E::pair(acc[l], acc[l + 1]);
   } else {
 #pragma unroll
-    for (int l = 0; l < BC; ++l) o[l] = acc[l];
+    for (int l = 0; l < BC; ++l) o[l] = E::narrow(acc[l]);
   }
 }
 
 // One warp's rows of the direct path, slot by slot: the BR lanes of a row
-// copy its B block in chunks of T (16 or 8 bytes) into the warp's buffer
-// `wb`, the next slot's chunks are loaded into registers while this slot
-// is multiplied.  `live`: the lane owns a row of the launch.
-template <typename T, int BR, int BK, int BC>
+// copy its B block in chunks of C (two elements or one) into the warp's
+// buffer `wb`, the next slot's chunks are loaded into registers while this
+// slot is multiplied.  `live`: the lane owns a row of the launch.
+template <typename C, int BR, int BK, int BC, typename T>
 __device__ __forceinline__ void direct_rows(
-    const double* __restrict__ a, const double* __restrict__ b,
-    const int* sa, const int* sb, const double* range, int range_lo,
-    bool ranged, double* wb, int r, int i, bool live, int kmax,
-    bool wide_a, double (&acc)[BC]) {
-  constexpr int A_DBL = BR * BK, B_DBL = BK * BC;
-  constexpr int U = sizeof(T) / sizeof(double);   // doubles per chunk
-  constexpr int NCH = B_DBL / U;                  // chunks per block
+    const T* __restrict__ a, const T* __restrict__ b, const int* sa,
+    const int* sb, const T* range, int range_lo, bool ranged, T* wb, int r,
+    int i, bool live, int kmax, bool wide_a,
+    typename repro::Elem<T>::W (&acc)[BC]) {
+  constexpr int A_N = BR * BK, B_N = BK * BC;
+  constexpr int U = sizeof(C) / sizeof(T);        // elements per chunk
+  constexpr int NCH = B_N / U;                    // chunks per block
   constexpr int CPL = (NCH + BR - 1) / BR;        // chunks per lane
-  T next[CPL];
+  C next[CPL];
   auto fetch = [&](int k) {
     if (!live || sa[r * kmax + k] < 0) return;
-    const T* src = reinterpret_cast<const T*>(
-        b + static_cast<long long>(sb[r * kmax + k]) * B_DBL);
+    const C* src = reinterpret_cast<const C*>(
+        b + static_cast<long long>(sb[r * kmax + k]) * B_N);
 #pragma unroll
     for (int c = 0; c < CPL; ++c)
       if (i + c * BR < NCH) next[c] = src[i + c * BR];
@@ -274,7 +297,7 @@ __device__ __forceinline__ void direct_rows(
     const int av = live ? sa[r * kmax + k] : -1;
     __syncwarp();                       // the warp is done with slot k-1
     if (av >= 0) {
-      T* dst = reinterpret_cast<T*>(wb);
+      C* dst = reinterpret_cast<C*>(wb);
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
         if (i + c * BR < NCH) dst[i + c * BR] = next[c];
@@ -282,10 +305,9 @@ __device__ __forceinline__ void direct_rows(
     __syncwarp();                       // the row's block is in `wb`
     if (k + 1 < kmax) fetch(k + 1);
     if (av >= 0) {
-      const double* ar =
-          (ranged ? range + (av - range_lo) * A_DBL
-                  : a + static_cast<long long>(av) * A_DBL) + i * BK;
-      strip_fma<BK, BC>(acc, ar, wb, wide_a, true);
+      const T* ar = (ranged ? range + (av - range_lo) * A_N
+                            : a + static_cast<long long>(av) * A_N) + i * BK;
+      strip_fma<BK, BC, T>(acc, ar, wb, wide_a, true);
     }
   }
 }
@@ -293,76 +315,79 @@ __device__ __forceinline__ void direct_rows(
 // Rows of at most kDirectMaxK slots: the plan and the lhs range in shared
 // memory; each warp owns 32 / BR rows and streams their B blocks through
 // its own buffer (no CTA barrier after the plan is read).
-template <int BR, int BK, int BC>
+template <int BR, int BK, int BC, typename T>
 __global__ void __launch_bounds__(1024) pair_gemm_direct(
-    const double* __restrict__ a, const double* __restrict__ b,
+    const T* __restrict__ a, const T* __restrict__ b,
     const int* __restrict__ ta, const int* __restrict__ tb,
-    const unsigned char* __restrict__ mask, double* __restrict__ out,
-    int rows, int kmax, int R, bool wide_a, bool wide_b) {
-  constexpr int A_DBL = BR * BK, B_DBL = BK * BC;
-  constexpr int RANGE_DBL = kRangeBytes / 8;
+    const unsigned char* __restrict__ mask, T* __restrict__ out, int rows,
+    int kmax, int R, bool wide_a, bool wide_b) {
+  using W = typename repro::Elem<T>::W;
+  using P = typename repro::Elem<T>::P;
+  constexpr int A_N = BR * BK, B_N = BK * BC;
+  constexpr int RANGE_N = kRangeBytes / sizeof(T);
   constexpr int G = 32 / BR;                      // rows per warp
-  extern __shared__ __align__(16) double smem[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
   __shared__ int s_lo, s_hi;
-  double* range = smem;
-  double* wbuf = smem + RANGE_DBL;                // G blocks per warp
-  int* sa = reinterpret_cast<int*>(wbuf + (blockDim.x / 32) * G * B_DBL);
+  T* range = reinterpret_cast<T*>(smem_bytes);
+  T* wbuf = range + RANGE_N;                      // G blocks per warp
+  int* sa = reinterpret_cast<int*>(wbuf + (blockDim.x / 32) * G * B_N);
   int* sb = sa + R * kmax;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long r0 = static_cast<long long>(blockIdx.x) * R;
   const int nr = static_cast<int>(min(static_cast<long long>(R), rows - r0));
   const int r = warp * G + lane / BR, i = lane % BR;
   const bool live = lane < G * BR && r < nr;
-  double acc[BC];
+  W acc[BC];
 #pragma unroll
-  for (int l = 0; l < BC; ++l) acc[l] = 0.0;
+  for (int l = 0; l < BC; ++l) acc[l] = W(0);
   const int2 lh = load_plan(ta, tb, mask, sa, sb, r0, nr, kmax, 0, kmax,
                             kmax, &s_lo, &s_hi);
   const bool ranged = lh.y >= lh.x &&
-      static_cast<long long>(lh.y - lh.x + 1) * A_DBL <= RANGE_DBL;
+      static_cast<long long>(lh.y - lh.x + 1) * A_N <= RANGE_N;
   if (ranged) {
-    stage_range<A_DBL>(a, range, lh.x, lh.y, wide_a);
+    stage_range<A_N, T>(a, range, lh.x, lh.y, wide_a);
     cp_commit();
     cp_wait<0>();
     __syncthreads();
   }
   if (warp * G >= nr) return;           // the warp owns no row
-  double* wb = wbuf + (warp * G + lane / BR) * B_DBL;
+  T* wb = wbuf + (warp * G + lane / BR) * B_N;
   if (wide_b)
-    direct_rows<double2, BR, BK, BC>(a, b, sa, sb, range, lh.x, ranged, wb,
-                                     r, i, live, kmax, wide_a, acc);
+    direct_rows<P, BR, BK, BC, T>(a, b, sa, sb, range, lh.x, ranged, wb, r,
+                                  i, live, kmax, wide_a, acc);
   else
-    direct_rows<double, BR, BK, BC>(a, b, sa, sb, range, lh.x, ranged, wb,
-                                    r, i, live, kmax, wide_a, acc);
-  if (live) store_strip<BR, BC>(out, r0 + r, i, acc);
+    direct_rows<T, BR, BK, BC, T>(a, b, sa, sb, range, lh.x, ranged, wb, r,
+                                  i, live, kmax, wide_a, acc);
+  if (live) store_strip<BR, BC, T>(out, r0 + r, i, acc);
 }
 
 // Rows of more than kDirectMaxK slots: windows of W slots, each through a
 // ring of cp.async stages of C slots per row.
-template <int BR, int BK, int BC>
+template <int BR, int BK, int BC, typename T>
 __global__ void __launch_bounds__(1024) pair_gemm_ring(
-    const double* __restrict__ a, const double* __restrict__ b,
+    const T* __restrict__ a, const T* __restrict__ b,
     const int* __restrict__ ta, const int* __restrict__ tb,
-    const unsigned char* __restrict__ mask, double* __restrict__ out,
-    int rows, int kmax, int R, int W, int C, bool wide_a, bool wide_b) {
-  constexpr int A_DBL = BR * BK, B_DBL = BK * BC;
-  constexpr int Q_DBL = kOperandBytes / 8;
-  extern __shared__ __align__(16) double smem[];
+    const unsigned char* __restrict__ mask, T* __restrict__ out, int rows,
+    int kmax, int R, int W, int C, bool wide_a, bool wide_b) {
+  using Wt = typename repro::Elem<T>::W;
+  constexpr int A_N = BR * BK, B_N = BK * BC;
+  constexpr int Q_N = kOperandBytes / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
   __shared__ int s_lo, s_hi;
   const int S = R * C;                        // slots per stage
-  double* area = smem;                        // lhs range, then the ring
-  int* sa = reinterpret_cast<int*>(smem + Q_DBL);
+  T* area = reinterpret_cast<T*>(smem_bytes); // lhs range, then the ring
+  int* sa = reinterpret_cast<int*>(area + Q_N);
   int* sb = sa + R * W;
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long r0 = static_cast<long long>(blockIdx.x) * R;
   const int nr = static_cast<int>(min(static_cast<long long>(R), rows - r0));
   const int r = tid / BR, i = tid - (tid / BR) * BR;
   const bool owner = r < nr;
-  const int ua = wide_a ? 2 : 1, ub = wide_b ? 2 : 1;   // doubles per copy
-  const int na = A_DBL / ua, nb = B_DBL / ub;            // copies per block
-  double acc[BC];
+  const int ua = wide_a ? 2 : 1, ub = wide_b ? 2 : 1;   // elements a copy
+  const int na = A_N / ua, nb = B_N / ub;                // copies a block
+  Wt acc[BC];
 #pragma unroll
-  for (int l = 0; l < BC; ++l) acc[l] = 0.0;
+  for (int l = 0; l < BC; ++l) acc[l] = Wt(0);
 
   for (int w0 = 0; w0 < kmax; w0 += W) {
     const int wn = min(W, kmax - w0);
@@ -370,40 +395,40 @@ __global__ void __launch_bounds__(1024) pair_gemm_ring(
                               &s_lo, &s_hi);
     // the lhs range, when it leaves room for two stages of B blocks
     const bool ranged = lh.y >= lh.x &&
-        static_cast<long long>(lh.y - lh.x + 1) * A_DBL <=
-            Q_DBL - 2 * (S * B_DBL + 1);
+        static_cast<long long>(lh.y - lh.x + 1) * A_N <=
+            Q_N - 2 * (S * B_N + 1);
     const int used =
-        ranged ? stage_range<A_DBL>(a, area, lh.x, lh.y, wide_a) : 0;
+        ranged ? stage_range<A_N, T>(a, area, lh.x, lh.y, wide_a) : 0;
     cp_commit();
     // the ring: stage p holds S B blocks, then (unranged) S A blocks
-    int stage_dbl = S * (B_DBL + (ranged ? 0 : A_DBL));
-    stage_dbl += stage_dbl & 1;
+    int stage_n = S * (B_N + (ranged ? 0 : A_N));
+    stage_n += stage_n & 1;
     const int nc = (wn + C - 1) / C;
-    const int depth = min(kMaxDepth, (Q_DBL - used) / stage_dbl);  // >= 2
-    double* ring = area + used;
+    const int depth = min(kMaxDepth, (Q_N - used) / stage_n);  // >= 2
+    T* ring = area + used;
     auto fill = [&](int n) {
       if (n >= nc) return;
       const int k0 = n * C;
-      double* db = ring + (n % depth) * stage_dbl;
+      T* db = ring + (n % depth) * stage_n;
       for (int v = tid; v < S * nb; v += nt) {
         const int e = v / nb, q = v - e * nb;
         const int rr = e / C, k = k0 + e - rr * C;
         if (rr >= nr || k >= wn) continue;
         const int x = rr * W + k;
         if (sa[x] < 0) continue;
-        cp_async(db + e * B_DBL + q * ub,
-                 b + static_cast<long long>(sb[x]) * B_DBL + q * ub, wide_b);
+        cp_async(db + e * B_N + q * ub,
+                 b + static_cast<long long>(sb[x]) * B_N + q * ub, wide_b);
       }
       if (ranged) return;
-      double* da = db + S * B_DBL;
+      T* da = db + S * B_N;
       for (int v = tid; v < S * na; v += nt) {
         const int e = v / na, q = v - e * na;
         const int rr = e / C, k = k0 + e - rr * C;
         if (rr >= nr || k >= wn) continue;
         const int av = sa[rr * W + k];
         if (av < 0) continue;
-        cp_async(da + e * A_DBL + q * ua,
-                 a + static_cast<long long>(av) * A_DBL + q * ua, wide_a);
+        cp_async(da + e * A_N + q * ua,
+                 a + static_cast<long long>(av) * A_N + q * ua, wide_a);
       }
     };
     for (int n = 0; n + 1 < depth; ++n) {
@@ -420,46 +445,44 @@ __global__ void __launch_bounds__(1024) pair_gemm_ring(
       if (owner) {
         const int k0 = n * C;
         const int cend = min(C, wn - k0);
-        const double* db = ring + (n % depth) * stage_dbl;
+        const T* db = ring + (n % depth) * stage_n;
         for (int c = 0; c < cend; ++c) {
           const int av = sa[r * W + k0 + c];
           if (av < 0) continue;
           const int e = r * C + c;
-          const double* ar = (ranged ? area + (av - lh.x) * A_DBL
-                                     : db + S * B_DBL + e * A_DBL) + i * BK;
-          strip_fma<BK, BC>(acc, ar, db + e * B_DBL, wide_a, true);
+          const T* ar = (ranged ? area + (av - lh.x) * A_N
+                                : db + S * B_N + e * A_N) + i * BK;
+          strip_fma<BK, BC, T>(acc, ar, db + e * B_N, wide_a, true);
         }
       }
     }
   }
-  if (owner) store_strip<BR, BC>(out, r0 + r, i, acc);
+  if (owner) store_strip<BR, BC, T>(out, r0 + r, i, acc);
 }
 
-template <int BR, int BK, int BC>
-int launch(const double* a, const double* b, const int* ta, const int* tb,
-           const unsigned char* mask, double* out, int rows, int kmax,
+template <int BR, int BK, int BC, typename T>
+int launch(const T* a, const T* b, const int* ta, const int* tb,
+           const unsigned char* mask, T* out, int rows, int kmax,
            int threads, cudaStream_t stream) {
   if (rows <= 0) return repro::last_error();
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const Plan p = plan_for<BR, BK, BC>(rows, kmax, threads, sms);
-  const bool wide_a = (BR * BK) % 2 == 0 &&
-                      reinterpret_cast<uintptr_t>(a) % 16 == 0;
-  const bool wide_b = (BK * BC) % 2 == 0 &&
-                      reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const Plan p = plan_for<BR, BK, BC, T>(rows, kmax, threads, sms);
+  const bool wide_a = (BR * BK) % 2 == 0 && repro::pair_aligned<T>(a);
+  const bool wide_b = (BK * BC) % 2 == 0 && repro::pair_aligned<T>(b);
   const unsigned grid = repro::blocks_for(rows, p.rows_per_cta);
   const int smem = static_cast<int>(p.smem);
   repro::note_launch(grid, threads);
   if (p.direct) {
-    auto kern = pair_gemm_direct<BR, BK, BC>;
+    auto kern = pair_gemm_direct<BR, BK, BC, T>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
     kern<<<grid, threads, smem, stream>>>(a, b, ta, tb, mask, out, rows,
                                           kmax, p.rows_per_cta, wide_a,
                                           wide_b);
   } else {
-    auto kern = pair_gemm_ring<BR, BK, BC>;
+    auto kern = pair_gemm_ring<BR, BK, BC, T>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
     kern<<<grid, threads, smem, stream>>>(a, b, ta, tb, mask, out, rows,
@@ -469,31 +492,41 @@ int launch(const double* a, const double* b, const int* ta, const int* tb,
   return repro::last_error();
 }
 
-}  // namespace
-
-REPRO_API int repro_fused_pair_gemm_f64(const void* a, const void* b,
-                                        const void* tile_a,
-                                        const void* tile_b,
-                                        const void* tile_mask, void* out,
-                                        int rows, int kmax, int br, int bk,
-                                        int bc, int threads,
-                                        void* stream) {
-  auto av = static_cast<const double*>(a);
-  auto bv = static_cast<const double*>(b);
+template <typename T>
+int entry(const void* a, const void* b, const void* tile_a,
+          const void* tile_b, const void* tile_mask, void* out, int rows,
+          int kmax, int br, int bk, int bc, int threads, void* stream) {
+  auto av = static_cast<const T*>(a);
+  auto bv = static_cast<const T*>(b);
   auto ta = static_cast<const int*>(tile_a);
   auto tb = static_cast<const int*>(tile_b);
   auto m = static_cast<const unsigned char*>(tile_mask);
-  auto o = static_cast<double*>(out);
+  auto o = static_cast<T*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const int t = threads;
   if (!repro::threads_ok(t)) return repro::bad_shape();
-  // the strips are written as 16-byte pairs
-  if (reinterpret_cast<uintptr_t>(out) % 16) return repro::bad_shape();
+  // the strips are written as pairs
+  if (!repro::pair_aligned<T>(out)) return repro::bad_shape();
   if (br == 3 && bk == 3 && bc == 6)
-    return launch<3, 3, 6>(av, bv, ta, tb, m, o, rows, kmax, t, s);
+    return launch<3, 3, 6, T>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   if (br == 6 && bk == 3 && bc == 6)
-    return launch<6, 3, 6>(av, bv, ta, tb, m, o, rows, kmax, t, s);
+    return launch<6, 3, 6, T>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   if (br == 6 && bk == 6 && bc == 6)
-    return launch<6, 6, 6>(av, bv, ta, tb, m, o, rows, kmax, t, s);
+    return launch<6, 6, 6, T>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   return repro::bad_shape();
 }
+
+}  // namespace
+
+#define REPRO_FUSED_PAIR_GEMM_ENTRY(SUFFIX, T)                               \
+  REPRO_API int repro_fused_pair_gemm_##SUFFIX(                              \
+      const void* a, const void* b, const void* tile_a, const void* tile_b,  \
+      const void* tile_mask, void* out, int rows, int kmax, int br, int bk,  \
+      int bc, int threads, void* stream) {                                   \
+    return entry<T>(a, b, tile_a, tile_b, tile_mask, out, rows, kmax, br,    \
+                    bk, bc, threads, stream);                                \
+  }
+
+REPRO_FUSED_PAIR_GEMM_ENTRY(f64, double)
+REPRO_FUSED_PAIR_GEMM_ENTRY(f32, float)
+REPRO_FUSED_PAIR_GEMM_ENTRY(bf16, repro::bf16)

@@ -33,17 +33,28 @@
 // arrive as a two-element device tensor derived from the device scalar
 // lambda_max, so no smoother step waits on the host; all columns share
 // it.
+//
+// Payloads: f64, f32 and bf16, at the reference's accumulator rule
+// (src/repro/kernels/fused_smoother/fused_smoother.py:59-70; num.cuh): A x,
+// the residual, D^-1 r, the recurrence and the update run at the
+// accumulator and x', d' are rounded once to the payload type.  Entries:
+// _f64 and _f32 (acc = the payload), _bf16 (acc = bf16, the bf16
+// V-cycle's: A x and D^-1 r each sum at f32 and round to bf16, every
+// elementwise step rounds to bf16) and _bf16_f32 (an f32 accumulator).
+// [c1, c2] come at the payload type and are widened to the accumulator.
 #include "ell_row.cuh"
 
 namespace {
 
-template <int BS, int KC, int MAXT>
+template <int BS, int KC, int MAXT, typename T, typename Acc>
 __global__ void __launch_bounds__(MAXT) smoother_kernel(
-    const int* __restrict__ idx, const double* __restrict__ data,
-    const double* __restrict__ dinv, const double* __restrict__ b,
-    const double* __restrict__ x, const double* __restrict__ d,
-    const double* __restrict__ coef, double* __restrict__ x_out,
-    double* __restrict__ d_out, int nbr, int kmax, int k, int lanes) {
+    const int* __restrict__ idx, const T* __restrict__ data,
+    const T* __restrict__ dinv, const T* __restrict__ b,
+    const T* __restrict__ x, const T* __restrict__ d,
+    const T* __restrict__ coef, T* __restrict__ x_out,
+    T* __restrict__ d_out, int nbr, int kmax, int k, int lanes) {
+  using N = repro::Num<Acc>;
+  using R = typename N::R;
   // KC = 1 is launched only for k = 1: folded, the vector step indexes x
   // as block_spmv does (ld = 1, one column)
   if (KC == 1) k = 1;
@@ -59,11 +70,12 @@ __global__ void __launch_bounds__(MAXT) smoother_kernel(
   const bool live = r < nbr;
   // rows past nbr run no slot but still join the butterfly
   const long long rr = live ? r : 0;
-  double acc[BS][KC];
-  repro::ell_row_lanes<BS, BS, KC>(idx + rr * kmax,
-                                   data + rr * kmax * BS * BS, x + c0, k,
-                                   ncol, live ? kmax : 0, lane, lanes, acc);
-  repro::lanes_sum<BS, KC>(acc, lanes);
+  R acc[BS][KC];
+  repro::ell_row_lanes<BS, BS, KC, T, Acc>(idx + rr * kmax,
+                                           data + rr * kmax * BS * BS,
+                                           x + c0, k, ncol, live ? kmax : 0,
+                                           lane, lanes, acc);
+  repro::lanes_sum<BS, KC, Acc>(acc, lanes);
   if (!live) return;
   // entry (a, j) of the chunk sits at (o + a) * k + j from column c0
   const long long o = r * BS;
@@ -71,110 +83,114 @@ __global__ void __launch_bounds__(MAXT) smoother_kernel(
   for (int a = 0; a < BS; ++a) {
 #pragma unroll
     for (int j = 0; j < KC; ++j)
-      if (j < ncol) acc[a][j] = b[(o + a) * k + c0 + j] - acc[a][j];
+      if (j < ncol)
+        acc[a][j] = N::sub(repro::widen(b[(o + a) * k + c0 + j]),
+                           N::round(acc[a][j]));
   }
-  const double* di = dinv + r * BS * BS;
-  const double c1 = coef[0];
-  const double c2 = coef[1];
+  const T* di = dinv + r * BS * BS;
+  const R c1 = repro::widen(coef[0]);
+  const R c2 = repro::widen(coef[1]);
 #pragma unroll
   for (int a = 0; a < BS; ++a) {
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       if (((a * KC + j) & (lanes - 1)) != lane || j >= ncol) continue;
-      double z = 0.0;
+      R z = R(0);
 #pragma unroll
-      for (int c = 0; c < BS; ++c) z = fma(di[a * BS + c], acc[c][j], z);
+      for (int c = 0; c < BS; ++c)
+        z = N::fma(repro::widen(di[a * BS + c]), acc[c][j], z);
+      z = N::round(z);
       const long long e = (o + a) * k + c0 + j;
-      const double dn = __dadd_rn(__dmul_rn(c1, d[e]), __dmul_rn(c2, z));
-      d_out[e] = dn;
-      x_out[e] = __dadd_rn(x[e], dn);
+      const R dn = N::add(N::mul(c1, repro::widen(d[e])), N::mul(c2, z));
+      d_out[e] = repro::narrow<T>(dn);
+      x_out[e] = repro::narrow<T>(N::add(repro::widen(x[e]), dn));
     }
   }
 }
 
-template <int BS, int KC>
-int launch_kc(const int* idx, const double* data, const double* dinv,
-              const double* b, const double* x, const double* d,
-              const double* coef, double* x_out, double* d_out, int nbr,
-              int kmax, int k, int lanes, int threads, cudaStream_t stream) {
-  const long long groups = static_cast<long long>(nbr) * ((k + KC - 1) / KC);
-  const unsigned blocks = repro::blocks_for(groups * lanes, threads);
-  repro::note_launch(blocks, threads);
-  if (threads > 512)
-    smoother_kernel<BS, KC, 1024><<<blocks, threads, 0, stream>>>(
-        idx, data, dinv, b, x, d, coef, x_out, d_out, nbr, kmax, k, lanes);
+template <typename T>
+struct Args {
+  const int* idx;
+  const T *data, *dinv, *b, *x, *d, *coef;
+  T *x_out, *d_out;
+  int nbr, kmax, k, lanes, threads;
+  cudaStream_t stream;
+};
+
+template <int BS, int KC, typename T, typename Acc>
+int launch_kc(const Args<T>& a) {
+  const long long groups =
+      static_cast<long long>(a.nbr) * ((a.k + KC - 1) / KC);
+  const unsigned blocks = repro::blocks_for(groups * a.lanes, a.threads);
+  repro::note_launch(blocks, a.threads);
+  if (a.threads > 512)
+    smoother_kernel<BS, KC, 1024, T, Acc><<<blocks, a.threads, 0, a.stream>>>(
+        a.idx, a.data, a.dinv, a.b, a.x, a.d, a.coef, a.x_out, a.d_out,
+        a.nbr, a.kmax, a.k, a.lanes);
   else
-    smoother_kernel<BS, KC, 512><<<blocks, threads, 0, stream>>>(
-        idx, data, dinv, b, x, d, coef, x_out, d_out, nbr, kmax, k, lanes);
+    smoother_kernel<BS, KC, 512, T, Acc><<<blocks, a.threads, 0, a.stream>>>(
+        a.idx, a.data, a.dinv, a.b, a.x, a.d, a.coef, a.x_out, a.d_out,
+        a.nbr, a.kmax, a.k, a.lanes);
   return repro::last_error();
 }
 
 // k = 1 is the vector step (KC = 1, ld = 1).
-template <int BS>
-int launch(const int* idx, const double* data, const double* dinv,
-           const double* b, const double* x, const double* d,
-           const double* coef, double* x_out, double* d_out, int nbr,
-           int kmax, int k, int lanes, int threads, cudaStream_t stream) {
-  if (!repro::payload_ok<BS>(data)) return repro::bad_shape();
-  if (nbr == 0) return repro::last_error();
+template <int BS, typename T, typename Acc>
+int launch(const Args<T>& a) {
+  if (!repro::payload_ok<BS, T>(a.data)) return repro::bad_shape();
+  if (a.nbr == 0) return repro::last_error();
   if constexpr ((BS + BS) * 8 <= 48) {
-    if (k > 4)
-      return launch_kc<BS, 8>(idx, data, dinv, b, x, d, coef, x_out, d_out,
-                              nbr, kmax, k, lanes, threads, stream);
+    if (a.k > 4) return launch_kc<BS, 8, T, Acc>(a);
   }
-  if (k > 2)
-    return launch_kc<BS, 4>(idx, data, dinv, b, x, d, coef, x_out, d_out,
-                            nbr, kmax, k, lanes, threads, stream);
-  if (k > 1)
-    return launch_kc<BS, 2>(idx, data, dinv, b, x, d, coef, x_out, d_out,
-                            nbr, kmax, k, lanes, threads, stream);
-  return launch_kc<BS, 1>(idx, data, dinv, b, x, d, coef, x_out, d_out, nbr,
-                          kmax, k, lanes, threads, stream);
+  if (a.k > 2) return launch_kc<BS, 4, T, Acc>(a);
+  if (a.k > 1) return launch_kc<BS, 2, T, Acc>(a);
+  return launch_kc<BS, 1, T, Acc>(a);
 }
 
+template <typename T, typename Acc>
 int entry(const void* indices, const void* data, const void* dinv,
           const void* b, const void* x, const void* d, const void* coef,
           void* x_out, void* d_out, int nbr, int kmax, int bs, int k,
           int lanes, int threads, void* stream) {
-  auto i = static_cast<const int*>(indices);
-  auto a = static_cast<const double*>(data);
-  auto di = static_cast<const double*>(dinv);
-  auto bv = static_cast<const double*>(b);
-  auto xv = static_cast<const double*>(x);
-  auto dv = static_cast<const double*>(d);
-  auto cf = static_cast<const double*>(coef);
-  auto xo = static_cast<double*>(x_out);
-  auto dout = static_cast<double*>(d_out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int t = threads, l = lanes;
-  if (k <= 0 || !repro::threads_ok(t) || !repro::lanes_ok(l))
+  const Args<T> a{static_cast<const int*>(indices),
+                  static_cast<const T*>(data),
+                  static_cast<const T*>(dinv),
+                  static_cast<const T*>(b),
+                  static_cast<const T*>(x),
+                  static_cast<const T*>(d),
+                  static_cast<const T*>(coef),
+                  static_cast<T*>(x_out),
+                  static_cast<T*>(d_out),
+                  nbr, kmax, k, lanes, threads,
+                  static_cast<cudaStream_t>(stream)};
+  if (k <= 0 || !repro::threads_ok(threads) || !repro::lanes_ok(lanes))
     return repro::bad_shape();
-  if (bs == 3)
-    return launch<3>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, k, l, t,
-                     s);
-  if (bs == 6)
-    return launch<6>(i, a, di, bv, xv, dv, cf, xo, dout, nbr, kmax, k, l, t,
-                     s);
+  if (bs == 3) return launch<3, T, Acc>(a);
+  if (bs == 6) return launch<6, T, Acc>(a);
   return repro::bad_shape();
 }
 
 }  // namespace
 
-REPRO_API int repro_fused_smoother_f64(const void* indices, const void* data,
-                                       const void* dinv, const void* b,
-                                       const void* x, const void* d,
-                                       const void* coef, void* x_out,
-                                       void* d_out, int nbr, int kmax,
-                                       int bs, int lanes, int threads,
-                                       void* stream) {
-  return entry(indices, data, dinv, b, x, d, coef, x_out, d_out, nbr, kmax,
-               bs, 1, lanes, threads, stream);
-}
+#define REPRO_SMOOTHER_ENTRIES(SUFFIX, T, ACC)                               \
+  REPRO_API int repro_fused_smoother_##SUFFIX(                               \
+      const void* indices, const void* data, const void* dinv,               \
+      const void* b, const void* x, const void* d, const void* coef,         \
+      void* x_out, void* d_out, int nbr, int kmax, int bs, int lanes,        \
+      int threads, void* stream) {                                           \
+    return entry<T, ACC>(indices, data, dinv, b, x, d, coef, x_out, d_out,   \
+                         nbr, kmax, bs, 1, lanes, threads, stream);          \
+  }                                                                          \
+  REPRO_API int repro_fused_smoother_panel_##SUFFIX(                         \
+      const void* indices, const void* data, const void* dinv,               \
+      const void* b, const void* x, const void* d, const void* coef,         \
+      void* x_out, void* d_out, int nbr, int kmax, int bs, int k,            \
+      int lanes, int threads, void* stream) {                                \
+    return entry<T, ACC>(indices, data, dinv, b, x, d, coef, x_out, d_out,   \
+                         nbr, kmax, bs, k, lanes, threads, stream);          \
+  }
 
-REPRO_API int repro_fused_smoother_panel_f64(
-    const void* indices, const void* data, const void* dinv, const void* b,
-    const void* x, const void* d, const void* coef, void* x_out, void* d_out,
-    int nbr, int kmax, int bs, int k, int lanes, int threads, void* stream) {
-  return entry(indices, data, dinv, b, x, d, coef, x_out, d_out, nbr, kmax,
-               bs, k, lanes, threads, stream);
-}
+REPRO_SMOOTHER_ENTRIES(f64, double, double)
+REPRO_SMOOTHER_ENTRIES(f32, float, float)
+REPRO_SMOOTHER_ENTRIES(bf16, repro::bf16, repro::bf16)
+REPRO_SMOOTHER_ENTRIES(bf16_f32, repro::bf16, float)

@@ -28,59 +28,86 @@
 // the coarse levels over all SMs) ran 10-12% slower on every case
 // (PERF.md, Findings).  The block size is the autotuner's `threads`
 // knob.
+//
+// Payloads: f64, f32 and bf16, at the reference's accumulator rule
+// (src/repro/kernels/pbjacobi/ref.py; num.cuh): _f64 and _f32 at the
+// payload type, _bf16 at acc = bf16 (the matvec sums at f32 and rounds to
+// bf16, then omega * y and the sum each round to bf16), _bf16_f32 at an
+// f32 accumulator, rounded once.  omega by value is rounded to the
+// accumulator in the kernel; a device omega comes at the payload type.
 #include "common.cuh"
+#include "num.cuh"
 
 namespace {
 
-template <int BS>
-__global__ void pbjacobi_kernel(const double* __restrict__ dinv,
-                                const double* __restrict__ r,
-                                const double* __restrict__ x,
-                                const double* __restrict__ omega,
+template <int BS, typename T, typename Acc>
+__global__ void pbjacobi_kernel(const T* __restrict__ dinv,
+                                const T* __restrict__ r,
+                                const T* __restrict__ x,
+                                const T* __restrict__ omega,
                                 double omega_value,
-                                double* __restrict__ out, long long n) {
+                                T* __restrict__ out, long long n) {
+  using N = repro::Num<Acc>;
+  using R = typename N::R;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (t >= n) return;
-  const double* d = dinv + t * BS;          // row a of block row t / BS
-  const double* rb = r + (t / BS) * BS;
-  double y = 0.0;
+  const T* d = dinv + t * BS;          // row a of block row t / BS
+  const T* rb = r + (t / BS) * BS;
+  R y = R(0);
 #pragma unroll
-  for (int b = 0; b < BS; ++b) y = fma(d[b], rb[b], y);
-  const double w = omega ? omega[0] : omega_value;
-  out[t] = __dadd_rn(x[t], __dmul_rn(w, y));
+  for (int b = 0; b < BS; ++b)
+    y = N::fma(repro::widen(d[b]), repro::widen(rb[b]), y);
+  y = N::round(y);
+  const R w = omega ? N::round(repro::widen(omega[0]))
+                    : N::from_double(omega_value);
+  out[t] = repro::narrow<T>(N::add(repro::widen(x[t]), N::mul(w, y)));
 }
 
-template <int BS>
-int launch(const double* dinv, const double* r, const double* x,
-           const double* omega, double omega_value, double* out, int nbr,
-           int threads, cudaStream_t stream) {
+template <int BS, typename T, typename Acc>
+int launch(const T* dinv, const T* r, const T* x, const T* omega,
+           double omega_value, T* out, int nbr, int threads,
+           cudaStream_t stream) {
   const long long n = static_cast<long long>(nbr) * BS;
   if (n == 0) return repro::last_error();
   const unsigned blocks = repro::blocks_for(n, threads);
   repro::note_launch(blocks, threads);
-  pbjacobi_kernel<BS><<<blocks, threads, 0, stream>>>(dinv, r, x, omega,
-                                                      omega_value, out, n);
+  pbjacobi_kernel<BS, T, Acc><<<blocks, threads, 0, stream>>>(
+      dinv, r, x, omega, omega_value, out, n);
   return repro::last_error();
+}
+
+template <typename T, typename Acc>
+int entry(const void* dinv, const void* r, const void* x, const void* omega,
+          double omega_value, void* out, int nbr, int bs, int threads,
+          void* stream) {
+  auto di = static_cast<const T*>(dinv);
+  auto rv = static_cast<const T*>(r);
+  auto xv = static_cast<const T*>(x);
+  auto w = static_cast<const T*>(omega);
+  auto o = static_cast<T*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!repro::threads_ok(threads)) return repro::bad_shape();
+  if (bs == 3)
+    return launch<3, T, Acc>(di, rv, xv, w, omega_value, o, nbr, threads, s);
+  if (bs == 6)
+    return launch<6, T, Acc>(di, rv, xv, w, omega_value, o, nbr, threads, s);
+  return repro::bad_shape();
 }
 
 }  // namespace
 
 // omega: a one-element device array, or null to use omega_value.
-REPRO_API int repro_pbjacobi_f64(const void* dinv, const void* r,
-                                 const void* x, const void* omega,
-                                 double omega_value, void* out, int nbr,
-                                 int bs, int threads, void* stream) {
-  auto di = static_cast<const double*>(dinv);
-  auto rv = static_cast<const double*>(r);
-  auto xv = static_cast<const double*>(x);
-  auto w = static_cast<const double*>(omega);
-  auto o = static_cast<double*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (!repro::threads_ok(threads)) return repro::bad_shape();
-  if (bs == 3)
-    return launch<3>(di, rv, xv, w, omega_value, o, nbr, threads, s);
-  if (bs == 6)
-    return launch<6>(di, rv, xv, w, omega_value, o, nbr, threads, s);
-  return repro::bad_shape();
-}
+#define REPRO_PBJACOBI_ENTRY(SUFFIX, T, ACC)                                 \
+  REPRO_API int repro_pbjacobi_##SUFFIX(                                     \
+      const void* dinv, const void* r, const void* x, const void* omega,     \
+      double omega_value, void* out, int nbr, int bs, int threads,           \
+      void* stream) {                                                        \
+    return entry<T, ACC>(dinv, r, x, omega, omega_value, out, nbr, bs,       \
+                         threads, stream);                                   \
+  }
+
+REPRO_PBJACOBI_ENTRY(f64, double, double)
+REPRO_PBJACOBI_ENTRY(f32, float, float)
+REPRO_PBJACOBI_ENTRY(bf16, repro::bf16, repro::bf16)
+REPRO_PBJACOBI_ENTRY(bf16_f32, repro::bf16, float)

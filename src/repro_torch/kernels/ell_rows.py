@@ -36,9 +36,11 @@ def lanes(br: int, bc: int, kmax: int) -> int:
 
 
 def check_payload(name: str, data) -> None:
-    """The kernels read even-width blocks in 16-byte pairs: such payloads
-    must start 16-byte aligned (every allocation does; an offset view may
-    not).  The C entry points refuse them as well."""
-    if data.shape[-1] % 2 == 0 and data.data_ptr() % 16:
+    """The kernels read even-width blocks in pairs of elements (16 bytes
+    at f64, 8 at f32, 4 at bf16): such payloads must start aligned to the
+    pair (every allocation does; an offset view may not).  The C entry
+    points refuse them as well."""
+    pair = 2 * data.element_size()
+    if data.shape[-1] % 2 == 0 and data.data_ptr() % pair:
         raise ValueError(f"{name}: data of {tuple(data.shape[-2:])} blocks "
-                         f"must be 16-byte aligned (make a copy)")
+                         f"must be {pair}-byte aligned (make a copy)")

@@ -18,12 +18,15 @@ _PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
+#: the same launches by payload dtype ("f64", "f32", "bf16")
+launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
 def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                       dinv: torch.Tensor, b_blocks: torch.Tensor,
                       x_blocks: torch.Tensor, d_blocks: torch.Tensor,
-                      coef: torch.Tensor, *, threads: int | None = None):
+                      coef: torch.Tensor, *, threads: int | None = None,
+                      accum_dtype=None):
     """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors or
     ``(nbr, bs, k)`` panels; A square in padded BlockELL form, ``dinv
     (nbr, bs, bs)``, ``coef`` a two-element device tensor ``[c1, c2]``
@@ -32,8 +35,11 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     ``block_spmv``, so the step's ``A x`` is bitwise ``block_spmv``'s and a
     panel column bitwise the vector step; ``threads`` per CUDA block,
     ``None`` resolved through the autotuner (static default 256; a panel's
-    signature has its k), only sets how many rows share a block.  CPU
-    tensors take the plain version; CUDA tensors the kernel."""
+    signature has its k), only sets how many rows share a block.
+    Payloads f64, f32 or bf16 (``coef`` at the payload dtype too);
+    ``accum_dtype`` is the reference's accumulator rule (None: the
+    payload's; a bf16 payload also takes an f32 accumulator).  CPU tensors
+    take the plain version; CUDA tensors the kernel."""
     global launches
     name = "fused_smoother"
     cuda = backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
@@ -48,7 +54,7 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     lanes = ell_rows.lanes(bs, bs2, kmax)
     if not cuda:
         return smoother_step_ref(indices, data, dinv, b_blocks, x_blocks,
-                                 d_blocks, coef)
+                                 d_blocks, coef, accum_dtype=accum_dtype)
     if bs != bs2 or bs not in SHAPES:
         raise ValueError(f"{name}: block shape {(bs, bs2)} has no kernel "
                          f"instantiation (square, bs in {SHAPES})")
@@ -67,15 +73,17 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                    coef=coef), dict(indices=indices))
     ell_rows.check_payload(name, data)
     out = launch_lanes(indices, data, dinv, b_blocks, x_blocks, d_blocks,
-                       coef, lanes, threads)
+                       coef, lanes, threads, accum_dtype)
     launches += 1
+    launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
     return out
 
 
 def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
                  dinv: torch.Tensor, b_blocks: torch.Tensor,
                  x_blocks: torch.Tensor, d_blocks: torch.Tensor,
-                 coef: torch.Tensor, lanes: int, threads: int):
+                 coef: torch.Tensor, lanes: int, threads: int,
+                 accum_dtype=None):
     """``(x', d')`` from the kernel at an explicit ``lanes`` (the wrapper
     passes ``ell_rows.lanes``; the card tests and ``chip_smoke.py`` sweep
     it).  Takes checked CUDA tensors, counts no launch; the C entry points
@@ -87,22 +95,24 @@ def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
     p = backend.ptr
     ptrs = (p(indices), p(data), p(dinv), p(b_blocks), p(x_blocks),
             p(d_blocks), p(coef), p(x_new), p(d_new))
+    name = "fused_smoother" if len(vec) == 2 else "fused_smoother_panel"
+    fn = backend.entry(name, data.dtype, accum_dtype, bf16_f32=True)
     if len(vec) == 2:
-        backend.launch("repro_fused_smoother_f64", _ARGS, *ptrs, nbr, kmax,
-                       bs, lanes, threads)
+        backend.launch(fn, _ARGS, *ptrs, nbr, kmax, bs, lanes, threads)
     else:
-        backend.launch("repro_fused_smoother_panel_f64", _PANEL_ARGS, *ptrs,
-                       nbr, kmax, bs, vec[2], lanes, threads)
+        backend.launch(fn, _PANEL_ARGS, *ptrs, nbr, kmax, bs, vec[2], lanes,
+                       threads)
     return x_new, d_new
 
 
 def smoother_step(a_ell: BlockELL, dinv: torch.Tensor, b: torch.Tensor,
                   x: torch.Tensor, d: torch.Tensor, coef: torch.Tensor, *,
-                  threads: int | None = None):
+                  threads: int | None = None, accum_dtype=None):
     """The fused step on flat ``(n,)`` vectors or ``(n, k)`` panels;
     returns ``(x', d')``."""
     shape = (a_ell.nbr, a_ell.br) + tuple(b.shape[1:])
     x_new, d_new = smoother_step_ell(a_ell.indices, a_ell.data, dinv,
                                      b.reshape(shape), x.reshape(shape),
-                                     d.reshape(shape), coef, threads=threads)
+                                     d.reshape(shape), coef, threads=threads,
+                                     accum_dtype=accum_dtype)
     return x_new.reshape(b.shape), d_new.reshape(b.shape)

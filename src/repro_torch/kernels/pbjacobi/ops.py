@@ -17,15 +17,21 @@ _ARGS = (backend.P,) * 4 + (backend.D,) + (backend.P,) + (backend.I,) * 3 \
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
+#: the same launches by payload dtype ("f64", "f32", "bf16")
+launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
 def pbjacobi_update(dinv: torch.Tensor, r_blocks: torch.Tensor,
                     x_blocks: torch.Tensor, omega, *,
-                    threads: int | None = None) -> torch.Tensor:
+                    threads: int | None = None,
+                    accum_dtype=None) -> torch.Tensor:
     """``x + omega * D^-1 r`` over ``(nbr, bs)`` block vectors, ``dinv``
     ``(nbr, bs, bs)``; ``omega`` a number (passed to the kernel by value)
     or a one-element tensor on the operands' device (read there, so no
-    launch waits on the host).
+    launch waits on the host), rounded to the accumulator in the kernel.
+    Payloads f64, f32 or bf16; ``accum_dtype`` is the reference's
+    accumulator rule (None: the payload's; a bf16 payload also takes an
+    f32 accumulator).
     ``threads=None`` resolves through the autotuner (static default 256).
     CPU tensors take the plain version; CUDA tensors the kernel."""
     global launches
@@ -37,7 +43,8 @@ def pbjacobi_update(dinv: torch.Tensor, r_blocks: torch.Tensor,
         name, autotune.signature(dinv.dtype, nbr * bs, bs=bs), threads,
         dinv.device)
     if not cuda:
-        return pbjacobi_update_ref(dinv, r_blocks, x_blocks, omega)
+        return pbjacobi_update_ref(dinv, r_blocks, x_blocks, omega,
+                                   accum_dtype=accum_dtype)
     if bs not in SHAPES or tuple(dinv.shape) != (nbr, bs, bs) \
             or tuple(r_blocks.shape) != (nbr, bs) \
             or tuple(x_blocks.shape) != (nbr, bs):
@@ -54,26 +61,21 @@ def pbjacobi_update(dinv: torch.Tensor, r_blocks: torch.Tensor,
                                          omega=w))
     out = torch.empty_like(x_blocks)
     p = backend.ptr
-    backend.launch("repro_pbjacobi_f64", _ARGS, p(dinv), p(r_blocks),
-                   p(x_blocks), p(w), 0.0 if w is not None else float(omega),
-                   p(out), nbr, bs, threads)
+    fn = backend.entry(name, dinv.dtype, accum_dtype, bf16_f32=True)
+    backend.launch(fn, _ARGS, p(dinv), p(r_blocks), p(x_blocks), p(w),
+                   0.0 if w is not None else float(omega), p(out), nbr, bs,
+                   threads)
     launches += 1
+    launches_by_dtype[backend.PAYLOADS[dinv.dtype]] += 1
     return out
 
 
 def pbjacobi_apply(dinv: torch.Tensor, r: torch.Tensor, x: torch.Tensor,
                    omega, *, threads: int | None = None,
                    accum_dtype=None) -> torch.Tensor:
-    """Flat-vector front door: ``x``, ``r`` are ``(nbr*bs,)``.
-
-    ``accum_dtype`` is the reference's on-register dtype knob; the port is
-    f64 only, so anything but None or float64 raises (sub-f64 policies are
-    ROADMAP Queue 1 item 6)."""
-    if accum_dtype not in (None, torch.float64, "float64"):
-        raise ValueError(f"pbjacobi: accum_dtype={accum_dtype!r}: the port "
-                         f"accumulates in f64 only (precision policies "
-                         f"below f64 are ROADMAP Queue 1 item 6)")
+    """Flat-vector front door: ``x``, ``r`` are ``(nbr*bs,)``;
+    ``accum_dtype`` as in ``pbjacobi_update``."""
     nbr, bs = dinv.shape[0], dinv.shape[1]
     out = pbjacobi_update(dinv, r.reshape(nbr, bs), x.reshape(nbr, bs),
-                          omega, threads=threads)
+                          omega, threads=threads, accum_dtype=accum_dtype)
     return out.reshape(-1)

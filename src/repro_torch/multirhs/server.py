@@ -121,10 +121,13 @@ class AMGSolveServer:
         self._metrics = ServerMetrics(self.buckets)
 
     def _on_device(self, a) -> torch.Tensor:
-        dtype = self.setupd.precision.hierarchy_dtype
+        """Fine values on the hierarchy's device at their own dtype:
+        ``recompute`` casts them to the hierarchy dtype and, under a mixed
+        policy, builds the Krylov operator from them as given (the
+        reference keeps them as given, too)."""
         if isinstance(a, torch.Tensor):
-            return a.to(device=self.device, dtype=dtype)
-        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+            return a.to(device=self.device)
+        return torch.tensor(np.asarray(a), device=self.device)
 
     # ---- observability ---------------------------------------------------
     def metrics(self) -> ServerMetrics:

@@ -819,3 +819,208 @@ def test_smoother_c_entries_refuse_misaligned_payloads(dev):
             _step((idx, off, dinv, coef), v, 4)
         with pytest.raises(ValueError, match="16-byte aligned"):
             _step((idx, off, dinv, coef), v)
+
+
+# ---------------------------------------------------------------------------
+# The f32 and bf16 instantiations (the reduced-precision policies)
+# ---------------------------------------------------------------------------
+
+#: payload dtype -> tolerance of the largest term (the reference's own,
+#: tests/test_kernels.py:41-48) and the accumulator of its Galerkin
+#: products (the policy's kernel_accum_dtype)
+LOW = {torch.float32: (2e-5, None), torch.bfloat16: (5e-2, torch.float32)}
+LOW_IDS = ["f32", "bf16"]
+
+
+def _low(dev, dt, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64,
+                           device=dev).to(dt)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    return randn, randint
+
+
+def _near(got, want, tol):
+    got = torch.cat([t.reshape(-1) for t in got]) if isinstance(
+        got, tuple) else got
+    want = torch.cat([t.reshape(-1) for t in want]) if isinstance(
+        want, tuple) else want
+    assert got.dtype == want.dtype
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= tol * float(want.double().abs().max()), err
+
+
+@pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
+@pytest.mark.parametrize("br,bc,kmax", [(3, 3, 27), (3, 6, 8), (6, 6, 45),
+                                        (6, 6, 490)])
+def test_low_precision_ell_kernels_match_plain(dev, dt, br, bc, kmax):
+    """block_spmv, block_spmm, the vector and panel smoother and pbjacobi
+    at f32 and bf16 (acc = the payload; bf16 also at an f32 accumulator)
+    against their plain versions on the same card tensors."""
+    tol, _ = LOW[dt]
+    randn, randint = _low(dev, dt, 7 * kmax + br)
+    nbr = 300 if kmax > 100 else 2000
+    idx, data = randint(nbr, nbr, kmax), randn(nbr, kmax, br, bc)
+    accs = (None, torch.float32) if dt == torch.bfloat16 else (None,)
+    for acc in accs:
+        x, X = randn(nbr, bc), randn(nbr, bc, 5)
+        _near(_launch_once(spmv_ops, lambda: spmv_ops.block_spmv_ell(
+            idx, data, x, accum_dtype=acc)),
+            block_spmv_ell_ref(idx, data, x, accum_dtype=acc), tol)
+        _near(_launch_once(spmm_ops, lambda: spmm_ops.block_spmm_ell(
+            idx, data, X, accum_dtype=acc)),
+            block_spmm_ell_ref(idx, data, X, accum_dtype=acc), tol)
+        if br != bc:
+            continue
+        dinv = randn(nbr, br, br)
+        coef = torch.tensor([0.25, 0.8], device=dev, dtype=dt)
+        for cols in ((), (16,)):
+            v = tuple(randn(nbr, br, *cols) for _ in range(3))
+            _near(_launch_once(smooth_ops, lambda: smooth_ops
+                               .smoother_step_ell(idx, data, dinv, *v, coef,
+                                                  accum_dtype=acc)),
+                  smoother_step_ref(idx, data, dinv, *v, coef,
+                                    accum_dtype=acc), tol)
+        r, x = randn(nbr, br), randn(nbr, br)
+        _near(_launch_once(pbj_ops, lambda: pbj_ops.pbjacobi_update(
+            dinv, r, x, 0.6, accum_dtype=acc)),
+            pbjacobi_update_ref(dinv, r, x, 0.6, accum_dtype=acc), tol)
+
+
+@pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
+@pytest.mark.parametrize("br,bk,bc", [(3, 3, 6), (6, 3, 6), (6, 6, 6)])
+def test_low_precision_galerkin_kernels_match_plain(dev, dt, br, bk, bc):
+    """fused_pair_gemm (direct and ring widths, an odd-offset lhs),
+    block_pair_gemm (bf16 also with its products kept at f32) and the
+    block_seg_sum combine at the policy's accumulator."""
+    tol, acc = LOW[dt]
+    randn, randint = _low(dev, dt, 100 * br + 10 * bk + bc)
+    na, nb = 5000, 3000
+    a, b = randn(na + 1, br, bk)[1:], randn(nb, bk, bc)
+    for rows, kmax in ((4000, 6), (2000, 21), (300, 409)):
+        ta, tb = randint(na, rows, kmax), randint(nb, rows, kmax)
+        mask = torch.rand(rows, kmax, device=dev) < 0.8
+        out = _launch_once(gemm_ops, lambda: gemm_ops.fused_pair_gemm(
+            a, b, ta, tb, mask, accum_dtype=acc))
+        _near(out, fused_pair_gemm_ref(a, b, ta, tb, mask, accum_dtype=acc),
+              tol)
+        cuts = torch.randint(0, rows + 1, (rows // 3,), device=dev).sort()[0]
+        ends = torch.tensor([0, rows], device=dev)
+        offs = torch.cat([ends[:1], cuts, ends[1:]]).to(torch.int32)
+        _near(_launch_once(seg_ops, lambda: seg_ops.block_seg_sum(
+            out, offs, accum_dtype=acc)),
+            block_seg_sum_ref(out, offs, accum_dtype=acc), tol)
+    lhs, rhs = randn(20000, br, bk), randn(20000, bk, bc)
+    kws = [dict(accum_dtype=acc)]
+    if dt == torch.bfloat16:
+        kws.append(dict(accum_dtype=acc, out_dtype=torch.float32))
+    for kw in kws:
+        _near(_launch_once(pair_ops, lambda: pair_ops.block_pair_gemm(
+            lhs, rhs, **kw)), block_pair_gemm_ref(lhs, rhs, **kw), tol)
+
+
+@pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
+@pytest.mark.parametrize("bs,kmax", [(3, 27), (6, 45), (6, 490)])
+def test_low_precision_bitwise_contracts(dev, dt, bs, kmax):
+    """At f32 and bf16 (acc = the payload): each block_spmm column is
+    bitwise block_spmv, each panel smoother column bitwise the vector step,
+    the identity smoother's d' bitwise b - block_spmv(x), and every threads
+    candidate bitwise the 256-thread launch."""
+    randn, randint = _low(dev, dt, 11 * kmax + bs)
+    nbr, k = 300, 16
+    idx, data, dinv = randint(nbr, nbr, kmax), randn(nbr, kmax, bs, bs), \
+        randn(nbr, bs, bs)
+    coef = torch.tensor([0.25, 0.8], device=dev, dtype=dt)
+    X = randn(nbr, bs, k)
+    Y = spmm_ops.block_spmm_ell(idx, data, X)
+    b, x, d = (randn(nbr, bs, k) for _ in range(3))
+    xp, dp = smooth_ops.smoother_step_ell(idx, data, dinv, b, x, d, coef)
+    eye = torch.eye(bs, device=dev, dtype=dt).expand(nbr, bs, bs)
+    step = torch.tensor([0.0, 1.0], device=dev, dtype=dt)
+    _, di = smooth_ops.smoother_step_ell(idx, data, eye.contiguous(), b, x,
+                                         d, step)
+    for j in range(k):
+        col = [v[:, :, j].contiguous() for v in (X, b, x, d)]
+        assert torch.equal(Y[:, :, j], spmv_ops.block_spmv_ell(idx, data,
+                                                               col[0]))
+        xv, dv = smooth_ops.smoother_step_ell(idx, data, dinv, *col[1:],
+                                              coef)
+        assert torch.equal(xp[:, :, j], xv) and torch.equal(dp[:, :, j], dv)
+        assert torch.equal(di[:, :, j], col[1] - spmv_ops.block_spmv_ell(
+            idx, data, col[2]))
+    runs = {"block_spmv": lambda t: spmv_ops.block_spmv_ell(
+                idx, data, X[:, :, 0].contiguous(), threads=t),
+            "block_spmm": lambda t: spmm_ops.block_spmm_ell(
+                idx, data, X, threads=t),
+            "fused_smoother": lambda t: smooth_ops.smoother_step_ell(
+                idx, data, dinv, b, x, d, coef, threads=t)[0],
+            "pbjacobi": lambda t: pbj_ops.pbjacobi_update(
+                dinv, b[:, :, 0].contiguous(), x[:, :, 0].contiguous(), 0.6,
+                threads=t)}
+    for family, run in runs.items():
+        want = run(autotune.DEFAULT_THREADS)
+        for t in autotune.CANDIDATES[family]["threads"]:
+            assert torch.equal(run(t), want), (family, t)
+
+
+@pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
+def test_low_precision_steps_allocate_only_their_outputs(dev, dt,
+                                                         monkeypatch):
+    """The two allocation pins at f32 and bf16: a smoother step on
+    A2-sized operands (vector and k=16 panel) and a fused_pair_gemm launch
+    on level-2-AP-sized operands raise the peak allocation by no more than
+    their outputs plus 1 MiB."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE", "off")
+    randn, randint = _low(dev, dt, 180)
+    idx, data, dinv = randint(836, 836, 490), randn(836, 490, 6, 6), \
+        randn(836, 6, 6)
+    coef = torch.tensor([0.25, 0.8], device=dev, dtype=dt)
+    for cols in ((), (16,)):
+        v = tuple(randn(836, 6, *cols) for _ in range(3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        xn, dn = smooth_ops.smoother_step_ell(idx, data, dinv, *v, coef)
+        rise = torch.cuda.max_memory_allocated(dev) - before
+        assert rise <= xn.nbytes + dn.nbytes + (1 << 20), rise
+    rows, kmax, na, nb = 136_093, 21, 409_640, 15_884
+    a, b = randn(na, 6, 6), randn(nb, 6, 6)
+    ta, tb = randint(na, rows, kmax), randint(nb, rows, kmax)
+    mask = torch.rand(rows, kmax, device=dev) < 0.9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = gemm_ops.fused_pair_gemm(a, b, ta, tb, mask,
+                                   accum_dtype=LOW[dt][1])
+    rise = torch.cuda.max_memory_allocated(dev) - before
+    assert rise <= out.nbytes + (1 << 20), rise
+
+
+@pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
+def test_low_precision_refuses_misaligned_payloads(dev, dt):
+    """Even-width blocks are read in pairs (8 bytes at f32, 4 at bf16): a
+    payload one element off is refused by the wrappers and the C entries;
+    a reduced payload beside an f64 vector, or without its instantiation
+    (f64 accumulator), raises before any launch."""
+    randn, randint = _low(dev, dt, 190)
+    nbr, kmax = 40, 4
+    idx = randint(nbr, nbr, kmax)
+    data = randn(1 + nbr * kmax * 36)[1:].view(nbr, kmax, 6, 6)
+    x = randn(nbr, 6)
+    pair = 2 * data.element_size()
+    with pytest.raises(ValueError, match=f"{pair}-byte aligned"):
+        spmv_ops.block_spmv_ell(idx, data, x)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmv_ops.launch_lanes(idx, data, x, 4, 256)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmm_ops.launch_lanes(idx, data, randn(nbr, 6, 3), 4, 256)
+    good = data.clone()
+    with pytest.raises(ValueError, match="one payload dtype"):
+        spmv_ops.block_spmv_ell(idx, good, x.double())
+    with pytest.raises(ValueError, match="instantiation"):
+        spmv_ops.block_spmv_ell(idx, good, x, accum_dtype=torch.float64)

@@ -254,7 +254,23 @@ def test_pbjacobi_plain_matches_pallas_and_ref(bs, nbr):
 
 
 def test_pbjacobi_apply_refuses_sub_f64_accumulation():
-    dinv, r = torch.eye(3, dtype=torch.float64)[None], torch.ones(3)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        pbj_ops.pbjacobi_apply(dinv, r.double(), r.double(), 0.5,
-                               accum_dtype=torch.float32)
+    """``pbjacobi_apply`` with an f32 accumulator (f32 payloads, and bf16
+    payloads accumulating at f32) matches the reference's Pallas kernel at
+    the reference's tolerances (``tests/test_kernels.py``)."""
+    import ml_dtypes
+    rng = np.random.default_rng(11)
+    nbr, bs = 17, 3
+    dinv, r, x = (rng.standard_normal(s) for s in ((nbr, bs, bs),
+                                                   (nbr * bs,), (nbr * bs,)))
+    for np_dt, t_dt, tol in ((np.float32, torch.float32, 2e-5),
+                             (ml_dtypes.bfloat16, torch.bfloat16, 5e-2)):
+        arrs = [a.astype(np_dt) for a in (dinv, r, x)]
+        want = pl_pbj_apply(*(jnp.asarray(a) for a in arrs), 0.5,
+                            interpret=True, accum_dtype=np.float32)
+        got = pbj_ops.pbjacobi_apply(
+            *(torch.from_numpy(a.astype(np.float32)).to(t_dt)
+              for a in arrs), 0.5, accum_dtype=torch.float32)
+        assert got.dtype == t_dt
+        np.testing.assert_allclose(got.double().numpy(),
+                                   np.asarray(want, np.float64), rtol=tol,
+                                   atol=tol)

@@ -110,13 +110,21 @@ def test_setup_from_numpy_rebuilds_the_plans(setups):
 
 
 def test_unported_options_raise():
+    """``restriction="stored"``, a bogus coarsener and a bogus precision
+    raise; ``precision="f32"`` builds an f32 hierarchy."""
     A = assemble_elasticity(3, device="cpu")
     with pytest.raises(ValueError, match="invalid coarsener"):
         gamg.setup(A.A, A.B, coarsener="bogus")
-    with pytest.raises(ValueError, match="not ported yet"):
-        gamg.setup(A.A, A.B, precision="f32")
+    with pytest.raises(ValueError, match="invalid precision"):
+        gamg.setup(A.A, A.B, precision="f16")
     with pytest.raises(ValueError, match="transpose-free"):
         gamg.setup(A.A, A.B, restriction="stored")
+    s = gamg.setup(A.A, A.B, precision="f32", coarse_size=12,
+                   coarsener="greedy")
+    hier = gamg.recompute(s, A.A.data)
+    assert s.precision.hierarchy_dtype == torch.float32
+    assert all(lv.a_ell.data.dtype == torch.float32 for lv in hier.levels)
+    assert hier.coarse_chol.dtype == torch.float32
 
 
 def test_block_containers_match():
