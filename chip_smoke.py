@@ -6,9 +6,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives seven
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives nine
 paths of the port, each with the launch counts set to 0 just before it
-and read just after.  The autotuner's cache
+and read just after, and the torch quickstart.  The autotuner's cache
 is a fresh temporary file (``REPRO_TORCH_TUNE_CACHE``), and every path but
 the tune path runs with ``REPRO_TORCH_TUNE=off`` (the static 256-thread
 launch).  The first four run the paper's configuration
@@ -59,10 +59,36 @@ coarsener, which its pinned numbers were taken on:
    2e-5 of the largest term at f32, 5e-2 at bf16, the reference's own
    tolerances), the bitwise contracts of ``check_bitwise`` and every
    ``threads`` candidate bitwise; each of the seven kernels must launch
-   at that dtype on the path.
+   at that dtype on the path;
+8. the stored path (after the pairs path) — the main path's
+   configuration with ``restriction="stored"``: levels ``[95232, 7986,
+   5016, 114]``, each ``R``'s shape and fill (``R0`` has 6x3 blocks), the
+   3 hot steps in turns with the transpose-free solver (13 iterations,
+   solutions within 1e-12 of it, both step times) and a burst of 4
+   requests through ``AMGSolveServer``; ``block_spmv`` and ``block_spmm``
+   must launch on 6x3 blocks.  ``R0``, ``R1`` and ``R2`` join the kernel
+   cases of ``block_spmv`` and ``block_spmm`` (k=4, 16) at every dtype
+   (their bound counts every padded slot) and the bitwise column checks;
+9. the robust path (after the byte witness) — the recovery ladder on the
+   main path's step-0 values: ``RobustSolver`` healthy (bitwise the main
+   path's step-0 solution), a transient ``precond:nan@3`` (recovered by
+   ``recompute``, bitwise), the same fault persistent (every rung, the
+   last on the ``pairs`` kernels, status ``degraded`` as the reference's
+   at m=6), the ``"bf16"`` policy whose coarse factor is NaN on these
+   values (recovered by ``f64-rebuild``, 13 iterations, within 1e-12 of
+   f64's) and a server with ``recover=`` under a transient fault (the
+   faulted column ``recovered``, its neighbours ``ok``).  Then
+   ``python -m repro_torch.quickstart 9`` runs on the card as a child
+   process beside the same run on the CPU: equal levels and iterations.
 
-The MIS and coefficient paths hold every kernel against its plain
-version at their own shapes (``mis kernel case`` / ``coeff kernel case``
+Every profiled hot step (static, tuned, and one per precision) is held
+to a witness: the library's kernel events in the profiler session (by
+the ``__global__`` names of ``csrc/``) must number the launches the
+library noted on the host across the step (``autotune.launch_record``);
+a blind session is profiled again in a child process
+(``--profile-witness``), three sessions in all, and the script fails
+when every one was blind.  The MIS and coefficient paths hold every
+kernel against its plain version at their own shapes (``mis kernel case`` / ``coeff kernel case``
 lines).  Last, ``chip_smoke.py --h2d-witness`` runs in a child process
 (a fresh process, whose profiler records memcpy events): one profiler
 session holds the coefficient path's four updates and, before and after
@@ -124,9 +150,11 @@ printing a result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -167,6 +195,9 @@ EXPECT_HETERO_ROWS = [882, 204]
 EXPECT_HETERO_ITERS = [9, 10, 14, 17]
 H2D_SLACK = 4096        # bytes a coefficient update may move beyond E, nu
 H2D_FLAG = "--h2d-witness"      # the child process of h2d_check
+PROFILE_FLAG = "--profile-witness"  # the child of a blind profiled step
+PROFILE_TRIES = 3       # profiled-step sessions (the first in-process)
+QUICKSTART_M = 9        # python -m repro_torch.quickstart's default m
 # SHA-256 (first 16 hex digits) of the pbjacobi cases' outputs (L0, L1,
 # L2 at the main path's dinv) as the first kernel produced them (omega
 # read from device memory); every later kernel, at every threads value,
@@ -251,6 +282,8 @@ def reset_counts():
     for mod in _ops().values():
         mod.launches = 0
         mod.launches_by_dtype = dict.fromkeys(mod.launches_by_dtype, 0)
+        if hasattr(mod, "launches_by_shape"):
+            mod.launches_by_shape = dict.fromkeys(mod.launches_by_shape, 0)
 
 
 def read_counts() -> dict:
@@ -357,17 +390,44 @@ def main_path(m: int, device, coarse_size: int | None = None,
                          else v) for k, v in rec.items() if k != "x"}
             print(f"{label}hot step " + json.dumps(shown))
     return dict(prob=prob, solver=solver, records=records, setup_s=t_setup,
-                assemble_s=t_asm, a_data=a_data)
+                assemble_s=t_asm, a_data=a_data, precision=precision)
 
 
-def profile_hot_step(run: dict, top: int = 12, label: str = "") -> None:
-    """One more hot step under ``torch.profiler``: device time by kernel
-    and the card's idle share of the step's wall time."""
+@functools.lru_cache(maxsize=1)
+def library_kernels() -> frozenset:
+    """The names of the ``__global__`` kernels ``csrc/`` defines: the
+    library's own kernels among a profiler's CUDA events."""
+    names = set()
+    for src in sorted((SRC / "repro_torch" / "kernels" / "csrc")
+                      .glob("*.cu")):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+            r"(\w+)\s*\(", src.read_text()))
+    return frozenset(names)
+
+
+def _kernel_name(event_name: str) -> str:
+    """The kernel's own name in a demangled signature (``void
+    (anonymous namespace)::spmv_kernel<3, 3, double, double>(...)`` ->
+    ``spmv_kernel``): the first identifier followed by ``<`` or ``(``."""
+    m = re.search(r"(?:^|[\s:])(\w+)[<(]", event_name)
+    return m.group(1) if m else event_name
+
+
+def _profile_step(run: dict, top: int) -> tuple:
+    """One more hot step under ``torch.profiler``: the summary (walls,
+    device busy time, idle share, the library's kernel events and the
+    launches ``autotune.launch_record`` noted across the step) and the
+    ``top`` kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.autotune import launch_record
+
     prob, solver = run["prob"], run["solver"]
     walls = {}
+    torch.cuda.synchronize()
+    noted = launch_record()[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for phase in ("reassemble", "update_operator", "solve"):
@@ -382,24 +442,92 @@ def profile_hot_step(run: dict, top: int = 12, label: str = "") -> None:
                 solver.solve(prob.b)
             torch.cuda.synchronize()
             walls[phase] = 1e3 * (time.perf_counter() - t0)
+    noted = launch_record()[0] - noted
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = library_kernels()
+    lib = sum(1 for e in kernels if _kernel_name(e.name) in ours)
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     wall_ms = sum(walls.values())
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    rows = [dict(name=name[:90], launches=n, device_ms=t,
+                 share=t / busy_ms if busy_ms else 0.0)
+            for name, (n, t) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:top]]
     summary = dict(wall_ms=walls, device_busy_ms=busy_ms,
-                   device_events=len(kernels),
+                   device_events=len(kernels), library_events=lib,
+                   library_launches=noted,
                    idle_share=1.0 - busy_ms / wall_ms)
+    return summary, rows
+
+
+def profile_hot_step(run: dict, top: int = 12, label: str = "") -> dict:
+    """One more hot step under ``torch.profiler``: device time by kernel
+    and the card's idle share of the step's wall time, held to a witness.
+    The library's kernel events in the session must number the launches
+    the library noted on the host across the step
+    (``autotune.launch_record``).  A session with fewer or more was blind
+    (profiler records go missing once a process has run other work): the
+    step is profiled again in a child process (``--profile-witness``, the
+    same configuration, precision and tune mode), ``PROFILE_TRIES``
+    sessions in all; it fails when every one was blind."""
+    from repro_torch.kernels import backend
+    spec = dict(label=label, top=top, precision=run["precision"],
+                tune=backend.resolve_tune())
+    summary, rows = _profile_step(run, top)
+    attempt = 1
+    while summary["library_events"] != summary["library_launches"]:
+        print(f"profiled {label}hot step blind " + json.dumps(dict(
+            attempt=attempt, library_events=summary["library_events"],
+            library_launches=summary["library_launches"],
+            device_events=summary["device_events"])))
+        if attempt == PROFILE_TRIES:
+            raise AssertionError(
+                f"profiled {label}hot step: every one of {PROFILE_TRIES} "
+                f"profiler sessions was blind (library kernel events != "
+                f"library launches)")
+        attempt += 1
+        summary, rows = _profile_child(spec)
+    summary["attempt"] = attempt            # > 1: a child's session
     print(f"profiled {label}hot step " + json.dumps(summary))
-    for name, (n, t) in rows:
-        print(f"profile {label}kernel " + json.dumps(dict(
-            name=name[:90], launches=n, device_ms=t,
-            share=t / busy_ms if busy_ms else 0.0)))
+    for row in rows:
+        print(f"profile {label}kernel " + json.dumps(row))
     return summary
+
+
+def _profile_child(spec: dict) -> tuple:
+    """One ``--profile-witness`` child process; its summary and rows."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          PROFILE_FLAG, json.dumps(spec)],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("profile witness ")]
+    if out.returncode or not lines:
+        raise AssertionError(f"profile witness exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    rec = json.loads(lines[-1][len("profile witness "):])
+    return rec["summary"], rec["rows"]
+
+
+def profile_witness(spec: dict) -> int:
+    """``chip_smoke.py --profile-witness SPEC``, run by
+    ``profile_hot_step`` in a process of its own: the main path's
+    configuration at ``spec["precision"]`` and ``spec["tune"]`` (one hot
+    step to warm it), then one profiled hot step; prints its summary and
+    top kernels as one JSON line."""
+    from repro_torch.kernels import backend
+    backend.build_library()
+    with tune_mode(spec["tune"]):
+        run = main_path(MAIN_M, "cuda", steps=1, verbose=False,
+                        precision=spec["precision"])
+        summary, rows = _profile_step(run, spec["top"])
+    print("profile witness " + json.dumps(dict(summary=summary,
+                                               rows=rows)))
+    return 0
 
 
 def _diff(after: dict, before: dict) -> dict:
@@ -631,6 +759,8 @@ def hierarchy_bytes(hier) -> int:
     for lv in hier.levels:
         ts += [lv.a_ell.data, lv.a_ell.indices, lv.a_ell.mask, lv.p_ell.data,
                lv.p_ell.indices, lv.p_ell.mask, lv.dinv, lv.lam_max]
+        if lv.r_ell is not None:
+            ts += [lv.r_ell.data, lv.r_ell.indices, lv.r_ell.mask]
     if hier.a_fine_ell is not None:
         f = hier.a_fine_ell
         ts += [f.data, f.indices, f.mask]
@@ -781,16 +911,18 @@ def precision_path(prec: str, f64_run: dict, peaks: tuple,
     if cuda:
         check_path_launches(f"{prec} precision", launches, tuple(KERNELS))
 
-    # every kernel at this dtype against its plain version, the bitwise
+    # every kernel at this dtype against its plain version (the stored
+    # restrictions of the f64 run cast to it among them), the bitwise
     # contracts, every threads candidate
-    cases = build_cases(run, device, dtype)
+    r_ells = f64_run.get("r_ells", ())
+    cases = build_cases(run, device, dtype, extra_ells=r_ells)
     if cuda:
         attach_floors(cases)
     per = check_kernels(cases, (peaks[0], F32_FLOPS), timed=cuda,
                         label=f"{prec} ", tol=tol)
     if cuda:
         print(f"{prec} bitwise per column "
-              + json.dumps(check_bitwise(run, device, dtype)))
+              + json.dumps(check_bitwise(run, device, dtype, r_ells)))
     print(f"{prec} threads bitwise "
           + json.dumps(check_threads_bitwise(cases)))
     per_step = run["records"][-1]["launches"]
@@ -1170,6 +1302,265 @@ def coefficient_path(device="cuda", verbose: bool = True) -> tuple:
     return counts.total, per
 
 
+# ---------------------------------------------------------------------------
+# The stored restriction
+# ---------------------------------------------------------------------------
+
+def stored_path(run: dict, device="cuda", verbose: bool = True) -> tuple:
+    """The main path's configuration with ``restriction="stored"``: setup,
+    the main path's 3 hot steps in turns with the transpose-free solver's
+    (transpose-free first, then stored first, then transpose-free first;
+    13 iterations each, the stored solution within ``REL_TOL`` of the
+    transpose-free one of the same step) and a burst of ``PREC_BURST``
+    requests through ``AMGSolveServer``, so ``block_spmv`` and
+    ``block_spmm`` run on the 6x3 blocks of ``R0``.  The transpose-free
+    solver ends at the values it started from.
+    Prints the levels and every ``R``'s shape and fill.  Returns the
+    path's launches and its ``(tag, r_ell)`` pairs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.core.gamg import GAMGSolver
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.multirhs import AMGSolveServer
+    from repro_torch.robust.health import HEALTHY
+
+    cfg = ElasticityConfig(m=MAIN_M)
+    prob = run["prob"]
+    counts = PathCounts()
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    solver, _ = counts.run(lambda: GAMGSolver(
+        prob.A, prob.B, theta=cfg.theta, smoother=cfg.smoother,
+        degree=cfg.degree, coarse_size=cfg.coarse_size, coarsener="greedy",
+        rtol=cfg.rtol, maxiter=cfg.maxiter, restriction="stored"))
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    sd = solver.setup_data
+    if sd.stats["level_rows"] != EXPECT_LEVEL_ROWS:
+        raise AssertionError(f"stored path: levels {sd.stats['level_rows']}"
+                             f", expected {EXPECT_LEVEL_ROWS}")
+    r_ells = [(f"R{li}", ls.r_ell) for li, ls in enumerate(sd.levels)]
+    shapes = {tag: dict(shape=list(ell.data.shape),
+                        fill=float(ell.mask.float().mean()))
+              for tag, ell in r_ells}
+    if tuple(sd.levels[0].r_ell.data.shape[2:]) != (6, 3):
+        raise AssertionError(f"stored path: R0 blocks {shapes['R0']}")
+    tf = run["solver"]
+
+    def hot_step(slv, scale):
+        sync(device)
+        t0 = time.perf_counter()
+        a_new = prob.reassemble(scale)
+        slv.update_operator(a_new.data)
+        res = slv.solve(prob.b)
+        sync(device)
+        return res, 1e3 * (time.perf_counter() - t0), a_new
+
+    steps = []
+    for step in range(len(run["records"])):
+        scale = 1.0 + 0.1 * step
+        order = ("tf", "stored") if step % 2 == 0 else ("stored", "tf")
+        got = {}
+        for name in order:
+            if name == "stored":
+                got[name], _ = counts.run(
+                    lambda: hot_step(solver, scale))
+            else:
+                got[name] = hot_step(tf, scale)
+        (res, ms, a_new), (ref, tf_ms, _) = got["stored"], got["tf"]
+        rel = _rel(res.x, ref.x)
+        steps.append(dict(step=step, order=list(order), iters=res.iters,
+                          relres=float(res.relres),
+                          rel_diff_vs_transpose_free=rel, stored_ms=ms,
+                          transpose_free_ms=tf_ms))
+        if res.iters != EXPECT_ITERS or int(res.health.status) != HEALTHY \
+                or res.iters != ref.iters or not rel <= REL_TOL:
+            raise AssertionError(f"stored path step {step}: {steps[-1]}")
+    tf.update_operator(run["a_data"])
+    rng = np.random.default_rng(23)
+    rhs = [prob.b.cpu().numpy()] + [rng.standard_normal(prob.n)
+                                    for _ in range(PREC_BURST - 1)]
+    server, _ = counts.run(lambda: AMGSolveServer(sd, a_new.data,
+                                                  buckets=BUCKETS))
+    reports, _ = counts.run(lambda: server.serve(rhs))
+    if any(r.status != "ok" or not r.converged for r in reports) \
+            or reports[0].iters != EXPECT_ITERS:
+        raise AssertionError(f"stored serve: "
+                             f"{[(r.iters, r.status) for r in reports]}")
+    by_shape = {"block_spmv": spmv.launches_by_shape[(6, 3)],
+                "block_spmm": spmm.launches_by_shape[(6, 3)]}
+    if torch.device(device).type == "cuda":     # the CPU runs no kernel
+        check_path_launches("stored", counts.total,
+                            ("block_spmv", "block_spmm"))
+        if min(by_shape.values()) <= 0:
+            raise AssertionError(f"stored path: 6x3 launches {by_shape}")
+    if verbose:
+        print("stored path " + json.dumps(dict(
+            m=MAIN_M, level_rows=sd.stats["level_rows"], setup_s=setup_s,
+            R=shapes, steps=steps,
+            serve=dict(requests=len(rhs), iters=[r.iters for r in reports],
+                       buckets=sorted({r.k_bucket for r in reports})),
+            launches_6x3=by_shape, launches=counts.total)))
+    return counts.total, r_ells
+
+
+# ---------------------------------------------------------------------------
+# The robustness layer: fault schedules and the recovery ladder
+# ---------------------------------------------------------------------------
+
+#: the ladder's outcomes at m=32; the persistent fault's status is the
+#: reference's on the same schedule (tests/test_torch_robust.py, m=6)
+ROBUST_EXPECT = {
+    "healthy": ("ok", ()),
+    "transient": ("recovered", ("recompute",)),
+    "persistent": ("degraded", ("recompute", "re-setup", "reference-path")),
+    "bf16": ("recovered", ("recompute", "re-setup", "f64-rebuild")),
+}
+
+
+def robust_path(run: dict, device="cuda", verbose: bool = True) -> dict:
+    """The recovery ladder on the main path's step-0 values (``b``,
+    ``ElasticityConfig(m=32)``, greedy): (a) ``RobustSolver`` healthy, its
+    solution bitwise the main path's step 0; (b) a transient
+    ``precond:nan@3``: recovered by the recompute rung, bitwise (a); (c)
+    the same fault persistent: every rung runs and the status is the
+    reference's, the last rung on the ``pairs`` Galerkin kernels
+    (``block_pair_gemm`` launches); (d) the ``"bf16"`` policy, whose
+    coarse factor is NaN on these values: recovered by the f64 rebuild,
+    13 iterations, within ``REL_TOL`` of (a); (e) ``AMGSolveServer(
+    recover=...)`` under a transient fault: the faulted column recovered
+    by its retry, the others ok.  Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.kernels.block_pair_gemm import ops as pair
+    from repro_torch.multirhs import AMGSolveServer
+    from repro_torch.robust import inject
+    from repro_torch.robust.recover import RecoveryPolicy, RobustSolver
+
+    cfg = ElasticityConfig(m=MAIN_M)
+    prob = run["prob"]
+    opts = dict(theta=cfg.theta, smoother=cfg.smoother, degree=cfg.degree,
+                coarse_size=cfg.coarse_size, coarsener="greedy",
+                rtol=cfg.rtol, maxiter=cfg.maxiter)
+    x_main = run["records"][0]["x"]
+    counts = PathCounts()
+    reset_counts()
+    A0 = counts.run(lambda: prob.reassemble(1.0))[0]
+    out = {}
+
+    def ladder(case, solver, schedule=None):
+        sync(device)
+        t0 = time.perf_counter()
+        pairs0 = pair.launches
+        with inject.active(schedule):
+            res, _ = counts.run(lambda: solver.solve(prob.b))
+        sync(device)
+        rec = dict(status=res.status, attempts=list(res.attempts),
+                   iters=res.result.iters, relres=float(res.result.relres),
+                   ms=1e3 * (time.perf_counter() - t0),
+                   pair_gemm_launches=pair.launches - pairs0)
+        if (res.status, tuple(res.attempts)) != ROBUST_EXPECT[case]:
+            raise AssertionError(f"robust {case}: {rec}, expected "
+                                 f"{ROBUST_EXPECT[case]}")
+        if res.status == "failed" and bool(res.x.any()):
+            raise AssertionError(f"robust {case}: a failed x is not zero")
+        out[case] = rec
+        return res
+
+    t0 = time.perf_counter()
+    rs, _ = counts.run(lambda: RobustSolver(A0, prob.B, **opts))
+    setup_s = time.perf_counter() - t0
+    a = ladder("healthy", rs)
+    if a.result.iters != EXPECT_ITERS or not torch.equal(a.x, x_main):
+        raise AssertionError(f"robust healthy: {a.result.iters} iterations,"
+                             f" x bitwise the main path's step 0: "
+                             f"{torch.equal(a.x, x_main)}")
+    b = ladder("transient", rs, inject.parse_schedule("precond:nan@3"))
+    if b.result.iters != EXPECT_ITERS or not torch.equal(b.x, a.x):
+        raise AssertionError(f"robust transient: {b.result.iters} "
+                             f"iterations, x bitwise (a): "
+                             f"{torch.equal(b.x, a.x)}")
+    c = ladder("persistent", rs,
+               inject.parse_schedule("precond:nan@3:persistent"))
+    cuda = torch.device(device).type == "cuda"
+    if (cuda and out["persistent"]["pair_gemm_launches"] <= 0) \
+            or not bool(torch.isfinite(c.x).all()):
+        raise AssertionError(f"robust persistent: {out['persistent']}")
+    low, _ = counts.run(lambda: RobustSolver(A0, prob.B, precision="bf16",
+                                             **opts))
+    d = ladder("bf16", low)
+    out["bf16"]["rel_diff_vs_f64"] = rel = _rel(d.x, a.x)
+    if d.result.iters != EXPECT_ITERS or not rel <= REL_TOL:
+        raise AssertionError(f"robust bf16: {out['bf16']}")
+    rng = np.random.default_rng(5)
+    rhs = [prob.b.cpu().numpy()] + [rng.standard_normal(prob.n)
+                                    for _ in range(PREC_BURST - 1)]
+    srv, _ = counts.run(lambda: AMGSolveServer(
+        run["solver"].setup_data, A0.data, buckets=BUCKETS,
+        recover=RecoveryPolicy()))
+    with inject.active(inject.parse_schedule("precond:nan@3")):
+        reports, _ = counts.run(lambda: srv.serve(rhs))
+    status = [r.status for r in reports]
+    rel0 = _rel(torch.as_tensor(reports[0].x), a.x)
+    out["server"] = dict(status=status, iters=[r.iters for r in reports],
+                         recovered=srv.stats["recovered"],
+                         retry_s=srv.metrics().registry.histogram(
+                             "server/retry_seconds").snapshot()["sum"],
+                         rel_diff_b_vs_a=rel0)
+    if status != ["recovered"] + ["ok"] * (PREC_BURST - 1) \
+            or not all(r.converged for r in reports) \
+            or reports[0].iters != EXPECT_ITERS or not rel0 <= SOLUTION_TOL:
+        raise AssertionError(f"robust server: {out['server']}")
+    if verbose:
+        print("robust path " + json.dumps(dict(
+            m=MAIN_M, setup_s=setup_s, **out, launches=counts.total)))
+    return counts.total
+
+
+# ---------------------------------------------------------------------------
+# The torch quickstart
+# ---------------------------------------------------------------------------
+
+def quickstart_phase(m: int = QUICKSTART_M) -> dict:
+    """``python -m repro_torch.quickstart m`` on the card as a child
+    process, beside the same run on the CPU in this process: both
+    converge, with equal levels and per-step iterations."""
+    from repro_torch import quickstart
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.quickstart", str(m)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=env)
+    try:
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            cpu = quickstart.main(m, device="cpu")
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    card_s = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
+    if child.returncode or not lines:
+        raise AssertionError(f"quickstart exited {child.returncode}:\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    card = json.loads(lines[-1])
+    if not card["converged"] or not card["device"].startswith("cuda") or \
+            (card["level_rows"], card["iters"]) != (cpu["level_rows"],
+                                                    cpu["iters"]):
+        raise AssertionError(f"quickstart m={m}: card {card}, cpu {cpu}")
+    return dict(card=card, cpu=cpu, wall_s=card_s,
+                steps=[ln for ln in lines if ln.startswith("step ")])
+
+
 def check_path_launches(name: str, launches: dict, kernels) -> None:
     for k in kernels:
         if launches[k] <= 0:
@@ -1207,9 +1598,12 @@ def _unique_count(idx, mask=None) -> int:
     return int(torch.unique(sel).numel())
 
 
-def build_cases(run: dict, device, dtype=None) -> list:
+def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
     """Every kernel at the run's shapes, at payload ``dtype`` (default f64:
-    the run's hierarchy holds its payloads at the run's policy dtype).
+    the run's hierarchy holds its payloads at the run's policy dtype);
+    ``block_spmv`` and ``block_spmm`` also on each ``(tag, ell)`` of
+    ``extra_ells`` (the stored restrictions ``R0``.., cast to ``dtype``),
+    whose byte bound counts every padded slot, as the kernel reads it.
     Below f64 the COO stream (assembled at the Krylov dtype, f64) is left
     out, the Galerkin products run at the policy's kernel accumulator (f32
     for bf16) and ``block_pair_gemm`` at bf16 keeps its products at that
@@ -1219,6 +1613,7 @@ def build_cases(run: dict, device, dtype=None) -> list:
     import torch
 
     from repro_torch.core.block_csr import device_array
+    from repro_torch.core.gamg import _at
     from repro_torch.core.ptap import ptap_numeric_data
     from repro_torch.core.spgemm import spgemm_numeric_data
     from repro_torch.kernels.block_pair_gemm import ops as pair
@@ -1273,46 +1668,54 @@ def build_cases(run: dict, device, dtype=None) -> list:
             library=lambda: torch.zeros((plan.nnzb, 3, 3), **f64)
             .index_add_(0, slot_of_kept, kept)))
 
+    def ell_cases(name, ell, padded=False):
+        """``block_spmv`` and ``block_spmm`` (``PANEL_KS``) on ``ell``;
+        the bound's blocks are the valid ones, or every slot."""
+        nnz = int(ell.mask.sum())
+        blocks = ell.nbr * ell.kmax if padded else nnz
+        extra = dict(valid_blocks=nnz, padded_blocks=ell.nbr * ell.kmax) \
+            if padded else None
+        x = randn(ell.nbc, ell.bc)
+        csr = _scalar_csr(ell)
+        xf = x.reshape(-1)
+        nl = lanes(ell.br, ell.bc, ell.kmax)
+        shape = f"{name} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})"
+        cases.append(Case(
+            "block_spmv", shape,
+            lambda threads=None, ell=ell, x=x: spmv.block_spmv_ell(
+                ell.indices, ell.data, x, threads=threads),
+            lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices,
+                                                    ell.data, x),
+            nbytes=blocks * (ell.br * ell.bc * es + 4) + x.numel() * es
+            + ell.nbr * ell.br * es,
+            flops=2 * blocks * ell.br * ell.bc,
+            library=lambda csr=csr, xf=xf: torch.mv(csr, xf), lanes=nl,
+            at_lanes=lambda n, ell=ell, x=x: spmv.launch_lanes(
+                ell.indices, ell.data, x, n, DEFAULT_THREADS),
+            extra=extra))
+        for k in PANEL_KS:
+            X = randn(ell.nbc, ell.bc, k)
+            Xf = X.reshape(ell.nbc * ell.bc, k)
+            cases.append(Case(
+                "block_spmm", f"{shape} k={k}",
+                lambda threads=None, ell=ell, X=X: spmm.block_spmm_ell(
+                    ell.indices, ell.data, X, threads=threads),
+                lambda ell=ell, X=X: block_spmm_ell_ref(
+                    ell.indices, ell.data, X),
+                nbytes=blocks * (ell.br * ell.bc * es + 4)
+                + X.numel() * es + ell.nbr * ell.br * k * es,
+                flops=2 * blocks * ell.br * ell.bc * k,
+                library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf),
+                lanes=nl, at_lanes=lambda n, ell=ell, X=X:
+                spmm.launch_lanes(ell.indices, ell.data, X, n,
+                                  DEFAULT_THREADS),
+                extra=None if extra is None else dict(extra)))
+
     # --- block_spmv and fused_smoother on every level operator, block_spmv
     # on every prolongator --------------------------------------------------
     for li, lv in enumerate(hier.levels):
         for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell)):
-            nnz = int(ell.mask.sum())
-            x = randn(ell.nbc, ell.bc)
-            csr = _scalar_csr(ell)
-            xf = x.reshape(-1)
-            nl = lanes(ell.br, ell.bc, ell.kmax)
-            cases.append(Case(
-                "block_spmv",
-                f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})",
-                lambda threads=None, ell=ell, x=x: spmv.block_spmv_ell(
-                    ell.indices, ell.data, x, threads=threads),
-                lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices,
-                                                        ell.data, x),
-                nbytes=nnz * (ell.br * ell.bc * es + 4) + x.numel() * es
-                + ell.nbr * ell.br * es,
-                flops=2 * nnz * ell.br * ell.bc,
-                library=lambda csr=csr, xf=xf: torch.mv(csr, xf), lanes=nl,
-                at_lanes=lambda n, ell=ell, x=x: spmv.launch_lanes(
-                    ell.indices, ell.data, x, n, DEFAULT_THREADS)))
-            for k in PANEL_KS:
-                X = randn(ell.nbc, ell.bc, k)
-                Xf = X.reshape(ell.nbc * ell.bc, k)
-                cases.append(Case(
-                    "block_spmm",
-                    f"{tag}{li} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc}) "
-                    f"k={k}",
-                    lambda threads=None, ell=ell, X=X: spmm.block_spmm_ell(
-                        ell.indices, ell.data, X, threads=threads),
-                    lambda ell=ell, X=X: block_spmm_ell_ref(
-                        ell.indices, ell.data, X),
-                    nbytes=nnz * (ell.br * ell.bc * es + 4) + X.numel() * es
-                    + ell.nbr * ell.br * k * es,
-                    flops=2 * nnz * ell.br * ell.bc * k,
-                    library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf),
-                    lanes=nl, at_lanes=lambda n, ell=ell, X=X:
-                    spmm.launch_lanes(ell.indices, ell.data, X, n,
-                                      DEFAULT_THREADS)))
+            ell_cases(f"{tag}{li}", ell)
         a = lv.a_ell
         bs = a.br
         nnz = int(a.mask.sum())
@@ -1426,6 +1829,9 @@ def build_cases(run: dict, device, dtype=None) -> list:
                     bc=bc: torch.zeros((sp.nnzb, br, bc), **f64)
                     .index_add_(0, tseg, part)))
         a_data = ptap_numeric_data(cache, a_data, p_data, accum_dtype=acc)
+    # --- the stored restrictions (6x3 at level 0) ---------------------------
+    for tag, ell in extra_ells:
+        ell_cases(tag, _at(ell, dtype), padded=True)
     return cases
 
 
@@ -1447,16 +1853,20 @@ def _scalar_csr(ell):
     return coo.coalesce().to_sparse_csr()
 
 
-def check_bitwise(run: dict, device, dtype=None) -> dict:
+def check_bitwise(run: dict, device, dtype=None, extra_ells=()) -> dict:
     """Each column of ``block_spmm`` is bitwise ``block_spmv`` of that
     column, on every level operator and prolongator at every panel width;
     a width-1 panel is bitwise the vector apply; each column of the panel
     smoother step is bitwise the vector step; and with ``dinv = I`` and
     ``coef = [0, 1]`` the smoother's ``d'`` is bitwise ``b -
     block_spmv(x)``, vector and each panel column, on every level; at
-    payload ``dtype`` (default f64, the run's hierarchy at its policy's)."""
+    payload ``dtype`` (default f64, the run's hierarchy at its policy's).
+    The ``block_spmm`` columns and the width-1 apply also on each ``(tag,
+    ell)`` of ``extra_ells`` (the stored restrictions, cast to
+    ``dtype``)."""
     import torch
 
+    from repro_torch.core.gamg import _at
     from repro_torch.core.spmv import apply_ell
     from repro_torch.kernels.block_spmm import ops as spmm
     from repro_torch.kernels.block_spmv import ops as spmv
@@ -1477,20 +1887,25 @@ def check_bitwise(run: dict, device, dtype=None) -> dict:
             raise AssertionError(f"{what}: not bitwise equal (max diff "
                                  f"{float((got - want).abs().max()):.3e})")
 
+    def columns(name, ell):
+        for k in PANEL_KS + (1,):
+            X = randn(ell.nbc, ell.bc, k)
+            Y = spmm.block_spmm_ell(ell.indices, ell.data, X)
+            for j in range(k):
+                same(Y[:, :, j], spmv.block_spmv_ell(
+                    ell.indices, ell.data, X[:, :, j].contiguous()),
+                    f"block_spmm {name} k={k} column {j}")
+                checked["spmm_columns"] += 1
+        x = randn(ell.nbc * ell.bc)
+        same(apply_ell(ell, x[:, None])[:, 0], apply_ell(ell, x),
+             f"width-1 panel apply {name}")
+        checked["apply_width1"] += 1
+
+    for tag, ell in extra_ells:
+        columns(tag, _at(ell, dtype))
     for li, lv in enumerate(run["solver"].hierarchy.levels):
         for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell)):
-            for k in PANEL_KS + (1,):
-                X = randn(ell.nbc, ell.bc, k)
-                Y = spmm.block_spmm_ell(ell.indices, ell.data, X)
-                for j in range(k):
-                    same(Y[:, :, j], spmv.block_spmv_ell(
-                        ell.indices, ell.data, X[:, :, j].contiguous()),
-                        f"block_spmm {tag}{li} k={k} column {j}")
-                    checked["spmm_columns"] += 1
-            x = randn(ell.nbc * ell.bc)
-            same(apply_ell(ell, x[:, None])[:, 0], apply_ell(ell, x),
-                 f"width-1 panel apply {tag}{li}")
-            checked["apply_width1"] += 1
+            columns(f"{tag}{li}", ell)
         a, bs, k = lv.a_ell, lv.a_ell.br, PANEL_KS[0]
         b, x, d = (randn(a.nbr, bs, k) for _ in range(3))
         coef = torch.tensor([0.3, 0.7], **f64)
@@ -2114,14 +2529,23 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
-    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tune_dir) /
-                                               "autotune.json")
+    args = sys.argv[1:]
+    child = PROFILE_FLAG in args
+    tune_dir = None
+    # a profile witness reads its parent's tune cache (inherited)
+    if not (child and os.environ.get("REPRO_TORCH_TUNE_CACHE")):
+        tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tune_dir) /
+                                                   "autotune.json")
     try:
+        if child:
+            return profile_witness(json.loads(
+                args[args.index(PROFILE_FLAG) + 1]))
         with tune_mode("off"):
-            return h2d_witness() if H2D_FLAG in sys.argv[1:] else run_all()
+            return h2d_witness() if H2D_FLAG in args else run_all()
     finally:
-        shutil.rmtree(tune_dir, ignore_errors=True)
+        if tune_dir is not None:
+            shutil.rmtree(tune_dir, ignore_errors=True)
 
 
 def run_all() -> int:
@@ -2164,12 +2588,14 @@ def run_all() -> int:
     by_path["pairs"] = pairs_path(run, "cuda", EXPECT_ITERS)
     check_path_launches("pairs", by_path["pairs"],
                         ("block_pair_gemm", "block_seg_sum"))
+    by_path["stored"], run["r_ells"] = stored_path(run)
 
-    print("bitwise per column " + json.dumps(check_bitwise(run, "cuda")))
+    print("bitwise per column " + json.dumps(
+        check_bitwise(run, "cuda", extra_ells=run["r_ells"])))
     print(f"datasheet peaks: {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.1f} TFLOP/s fp64; measured copy_ "
           f"{copy_bandwidth() / 1e12:.3f} TB/s")
-    cases = build_cases(run, "cuda")
+    cases = build_cases(run, "cuda", extra_ells=run["r_ells"])
     attach_floors(cases)
     per = check_kernels(cases, peaks)
     lanes_sweep(cases)
@@ -2202,6 +2628,10 @@ def run_all() -> int:
     for other in (mis_per, coeff_per):
         fold_errors(per, other)
     print("coefficient h2d " + json.dumps(h2d_check()))
+    by_path["robust"] = robust_path(run)
+    check_path_launches("robust", by_path["robust"],
+                        MAIN_KERNELS + ("block_spmm", "block_pair_gemm"))
+    print("quickstart " + json.dumps(quickstart_phase()))
 
     precision = {prec: precision_path(prec, run, peaks)
                  for prec in PRECISIONS}

@@ -42,6 +42,13 @@ class BlockCOOPlan:
     perm: np.ndarray            # (n_kept,) int32 keep[order]: stream source
     offsets: np.ndarray         # (nnzb+1,) int32 segment bounds in sorted order
 
+    @property
+    def plan_bytes(self) -> int:
+        """Bytes of plan index data, counted as the reference counts them
+        (the quantity the blocked COO shrinks by the block area)."""
+        return (self.indptr.nbytes + self.indices.nbytes + self.keep.nbytes
+                + self.out_idx_sorted.nbytes + self.order.nbytes)
+
 
 def preallocate_coo(rows, cols, nbr: int, nbc: int, br: int, bc: int
                     ) -> BlockCOOPlan:
@@ -100,3 +107,15 @@ def set_values_coo_data(plan: BlockCOOPlan, values: torch.Tensor
         values.contiguous(),
         device_array(plan, "offsets", dev, torch.int32),
         device_array(plan, "perm", dev, torch.int32))
+
+
+def scalar_coo_plan_bytes(plan: BlockCOOPlan) -> int:
+    """Index bytes the equivalent scalar COO plan would need: every block
+    coordinate expands to ``br*bc`` scalar coordinates, each with its own
+    sort and scatter entries."""
+    area = plan.br * plan.bc
+    n_in = len(plan.keep) * area
+    nnz = plan.nnzb * area
+    # indptr + indices + keep + out_idx + order at scalar granularity
+    return (8 * (plan.nbr * plan.br + 1) + 4 * nnz + 8 * n_in + 4 * n_in
+            + 8 * n_in)

@@ -15,10 +15,16 @@ recompute.  A structure-only operand (for symbolic products) carries a
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+#: a monotone counter mirroring PetscObjectState: every new structure
+#: (``BlockCSR.from_arrays``) takes the next token, a numeric update
+#: (``with_data``) keeps its own
+_STATE_TOKENS = itertools.count(1)
 
 
 def device_array(plan, name: str, device, dtype=torch.int64) -> torch.Tensor:
@@ -43,6 +49,7 @@ class BlockCSR:
     indices: np.ndarray     # (nnzb,) int32, host
     data: torch.Tensor      # (nnzb, br, bc), device
     nbc: int
+    state_token: int = 0    # a new one whenever a structure is created
 
     @property
     def nbr(self) -> int:
@@ -77,14 +84,17 @@ class BlockCSR:
         if data.shape[0] != indices.shape[0]:
             raise ValueError(f"{data.shape[0]} data blocks for "
                              f"{indices.shape[0]} indices")
-        return BlockCSR(indptr, indices, data, int(nbc))
+        return BlockCSR(indptr, indices, data, int(nbc),
+                        state_token=next(_STATE_TOKENS))
 
     def with_data(self, data: torch.Tensor) -> "BlockCSR":
-        """Same structure, new values (numeric update)."""
+        """Same structure, new values (numeric update; keeps the state
+        token)."""
         if data.shape != self.data.shape:
             raise ValueError(f"{tuple(data.shape)} != "
                              f"{tuple(self.data.shape)}")
-        return BlockCSR(self.indptr, self.indices, data, self.nbc)
+        return BlockCSR(self.indptr, self.indices, data, self.nbc,
+                        self.state_token)
 
     def row_of_nnz(self) -> np.ndarray:
         return np.repeat(np.arange(self.nbr), np.diff(self.indptr))
@@ -284,3 +294,15 @@ def transpose_apply_plan(A: BlockCSR, kmax: int) -> EllTransposePlan:
     gather[out_r, out_w] = slot[perm]
     mask[out_r, out_w] = True
     return EllTransposePlan(rows=rows, gather=gather, mask=mask, nbr=A.nbr)
+
+
+def identity_bcsr(nbr: int, bs: int, dtype=torch.float64, *,
+                  device="cuda") -> BlockCSR:
+    """The ``nbr x nbr`` block identity of ``bs x bs`` blocks on
+    ``device``."""
+    from repro_torch.kernels.backend import resolve_device
+    dev = resolve_device(device)
+    eye = torch.eye(bs, dtype=dtype, device=dev).expand(nbr, bs, bs)
+    return BlockCSR.from_arrays(np.arange(nbr + 1, dtype=np.int64),
+                                np.arange(nbr, dtype=np.int32),
+                                eye.contiguous(), nbr)

@@ -9,6 +9,9 @@ twin of ``repro.core.gamg``).
 ``recompute``  hot phase: new fine-operator values, same structure; every
                level operator is rebuilt through the cached PtAP plans,
                plus ``dinv``, ``lam_max`` and the coarse Cholesky.
+``make_recompute`` / ``make_solve``  the hot closures (the reference's
+               jitted ones; eager here): ``fine values -> Hierarchy`` and
+               ``(Hierarchy, b, x0=None) -> CGResult``.
 ``make_coeff_recompute``  the coefficient hot loop: per-element material
                fields -> device assembly (``fem.device_stiffness``) ->
                ``recompute``; only the two fields cross to the device.
@@ -23,7 +26,7 @@ follow the setup's ``PrecisionPolicy`` (``precision=``: "f64", "f32",
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ from repro_torch.core.block_csr import (
     ELLPlan,
     device_array,
     transpose_apply_plan,
+    transpose_bcsr,
 )
 from repro_torch.core.krylov import CGResult, pcg
 from repro_torch.core.precision import PrecisionPolicy
@@ -58,12 +62,18 @@ from repro_torch.core.tentative import tentative_prolongator
 from repro_torch.core.vcycle import Hierarchy, LevelState, fine_operator, \
     vcycle
 from repro_torch.kernels import backend
+from repro_torch.robust import inject
 
 
 @dataclasses.dataclass
 class LevelSetup:
     """Cold, host-side symbolic data for one level (structure + plans).
-    Restriction is transpose-free: ``pt`` applies ``P^T`` off ``p_ell``."""
+
+    Under the transpose-free default ``R``/``r_ell`` are ``None`` and
+    ``pt`` applies ``P^T`` straight off ``p_ell``'s blocks; under
+    ``setup(restriction="stored")`` ``R = transpose_bcsr(P)`` and its ELL
+    form ``r_ell`` are kept and ``pt`` is ``None``.  Cold consumers that
+    need the stored form either way go through ``restriction_bcsr``."""
 
     A0: BlockCSR            # level operator at setup time
     P: BlockCSR             # smoothed prolongator (values fixed on reuse)
@@ -74,7 +84,9 @@ class LevelSetup:
     omega: torch.Tensor
     n_fine: int
     n_coarse: int
-    pt: EllTransposePlan
+    pt: Optional[EllTransposePlan]
+    R: Optional[BlockCSR] = None        # restriction="stored" only
+    r_ell: Optional[BlockELL] = None    # restriction="stored" only
 
     @property
     def diag_rows(self) -> np.ndarray:
@@ -86,6 +98,13 @@ class LevelSetup:
     def diag_pos(self) -> np.ndarray:
         """Position of each stored diagonal block in the BCSR data."""
         return np.flatnonzero(self.A0.row_of_nnz() == self.A0.indices)
+
+
+def restriction_bcsr(ls: LevelSetup) -> BlockCSR:
+    """The stored-form restriction of a level, the transpose computed on
+    demand when the setup is transpose-free (cold consumers only: the hot
+    path restricts through ``vcycle.apply_restriction``)."""
+    return ls.R if ls.R is not None else transpose_bcsr(ls.P)
 
 
 @dataclasses.dataclass
@@ -134,17 +153,20 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
     ``PrecisionPolicy`` or a stock name ("f64", "f32", "bf16"); ``None``
     resolves ``REPRO_TORCH_PRECISION`` (default "f64").  The setup math
     runs at the operator's dtype; the policy governs what ``recompute``
-    builds and what the solves run at.  ``restriction="stored"`` is not
-    ported and raises.  The hierarchy lives on ``A.data``'s device; ``B``
-    must be on the same device.
+    builds and what the solves run at.  ``restriction`` is
+    ``"transpose_free"`` (default: no stored ``P^T``, the V-cycle restricts
+    off ``p_ell``) or ``"stored"`` (``R = transpose_bcsr(P)`` and its ELL
+    form, applied by ``block_spmv`` / ``block_spmm`` on 6x3 blocks at
+    level 0).  The hierarchy lives on ``A.data``'s device; ``B`` must be
+    on the same device.
     ``stats["mis_rounds"]`` holds the Luby rounds of each MIS level.
     """
     precision = backend.resolve_precision(precision)
     if A.br != A.bc:
         raise ValueError("system operator must have square blocks")
-    if restriction != "transpose_free":
+    if restriction not in ("transpose_free", "stored"):
         raise ValueError(f"invalid restriction mode {restriction!r}: "
-                         f"repro_torch restricts transpose-free")
+                         f"expected 'transpose_free' or 'stored'")
     if coarsener not in ("mis", "greedy"):
         raise ValueError(f"invalid coarsener {coarsener!r}: "
                          f"expected 'mis' or 'greedy'")
@@ -178,10 +200,16 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
                                      cache.ac_plan.indices, a_next,
                                      cache.n_coarse)
         p_ell = P.to_ell()
+        if restriction == "stored":
+            R = transpose_bcsr(P)
+            r_ell, pt = R.to_ell(), None
+        else:
+            R, r_ell = None, None
+            pt = transpose_apply_plan(P, p_ell.kmax)
         levels.append(LevelSetup(
             A0=Acur, P=P, ptap_cache=cache, a_ell_plan=Acur.ell_plan(),
             p_ell=p_ell, aggr=aggr, omega=omega, n_fine=Acur.nbr,
-            n_coarse=aggr.n_agg, pt=transpose_apply_plan(P, p_ell.kmax)))
+            n_coarse=aggr.n_agg, pt=pt, R=R, r_ell=r_ell))
         stats["level_rows"].append(Anext.nbr * Anext.br)
         stats["level_nnzb"].append(Anext.nnzb)
         stats["level_bs"].append(Anext.br)
@@ -246,8 +274,9 @@ def level_state(ls: LevelSetup, a_data: torch.Tensor,
     dinva_ell = torch.einsum("nab,nkbc->nkac", dinv.to(acc),
                              a_ell.data.to(acc)).to(h)
     lam = lambda_max_dinv_a(a_ell.indices, dinva_ell.contiguous())
+    r_ell = _at(ls.r_ell, h) if ls.r_ell is not None else None
     return LevelState(a_ell=a_ell, p_ell=_at(ls.p_ell, h), dinv=dinv,
-                      lam_max=lam, p_t=ls.pt)
+                      lam_max=lam, p_t=ls.pt, r_ell=r_ell)
 
 
 def jittered_cholesky(densef: torch.Tensor, base_scale: float,
@@ -309,10 +338,13 @@ def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
     h = policy.hierarchy_dtype
     a_data = a_fine_data.to(h)
     states = []
-    for ls in setupd.levels:
+    for li, ls in enumerate(setupd.levels):
+        # level-gated fault site (repro_torch.robust.inject)
+        a_data = inject.maybe("hierarchy", a_data, level=li)
         states.append(level_state(ls, a_data, policy))
         a_data = ptap_numeric_data(ls.ptap_cache, a_data, ls.P.data.to(h),
                                    accum_dtype=policy.kernel_accum_dtype)
+    a_data = inject.maybe("hierarchy", a_data, level=len(setupd.levels))
     chol = coarse_cholesky(_coarse_dense(setupd, a_data), policy)
     a_fine_ell = None
     if policy.mixed and setupd.levels:
@@ -320,6 +352,26 @@ def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
             a_fine_data.to(policy.krylov_dtype))
     return Hierarchy(levels=tuple(states), coarse_chol=chol,
                      a_fine_ell=a_fine_ell)
+
+
+def make_recompute(setupd: GAMGSetup):
+    """The hot recompute closure ``a_fine_data -> Hierarchy`` (the
+    reference jits it; the port runs it eagerly, so a closure made before
+    a fault schedule is installed sees the schedule at its next call)."""
+    def hot_recompute(a_fine_data):
+        return recompute(setupd, a_fine_data)
+
+    return hot_recompute
+
+
+def make_solve(setupd: GAMGSetup, rtol: float = 1e-8, maxiter: int = 200):
+    """The hot KSPSolve closure ``(Hierarchy, b, x0=None) -> CGResult``:
+    AMG-preconditioned CG, ``x0`` warm-starting it."""
+    def solve(hier: Hierarchy, b: torch.Tensor,
+              x0: torch.Tensor | None = None) -> CGResult:
+        return hier_solve(setupd, hier, b, x0, rtol=rtol, maxiter=maxiter)
+
+    return solve
 
 
 def _check_assembler(setupd: GAMGSetup, assembler) -> None:

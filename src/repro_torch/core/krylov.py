@@ -5,7 +5,9 @@ Sec. 4.1).  The reference's ``while_loop`` becomes a Python loop whose exit
 test is one host sync per iteration; everything else — the health flags,
 the discarded broken step, the best (minimum-residual) iterate returned on
 a non-converged exit, the ``finfo.tiny`` floor of ``||b||`` — stays on the
-device and follows the reference step for step.
+device and follows the reference step for step.  The fault-injection
+sites ``spmv`` and ``precond`` (``repro_torch.robust.inject``) sit where
+the reference's do, gated on the host iteration counter.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.robust import inject
 from repro_torch.robust.health import SolveHealth, status_of
 
 
@@ -73,12 +76,12 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         go = (rnorm > thresh) & ~brk & ~nonf & (stall < stall_window)
         if not bool(go):                 # the one host sync per iteration
             break
-        Ap = apply_a(p)
+        Ap = inject.maybe("spmv", apply_a(p), step=k)
         pAp = torch.dot(p, Ap)
         alpha = rz / pAp
         x_new = x + alpha * p
         r_new = r - alpha * Ap
-        z_new = apply_m(r_new)
+        z_new = inject.maybe("precond", apply_m(r_new), step=k)
         rz_new = torch.dot(r_new, z_new)
         beta = rz_new / rz
         p_new = z_new + beta * p

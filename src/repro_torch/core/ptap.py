@@ -4,11 +4,14 @@
 ``ptap_symbolic(A, P)`` builds the prolongator-side ``PtAPCache`` once on
 the host (the transpose permutation and both SpGEMM plans, structure
 only); ``ptap_numeric_data`` is the hot PtAP: two cached numeric SpGEMMs
-on the device, no symbolic work.
+on the device, no symbolic work.  ``ptap`` is the front door with
+PETSc's state gate: the cache is reused while P's and A's structure
+tokens (``BlockCSR.state_token``) are the ones it was built for.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,8 @@ class PtAPCache:
     ap_plan: SpGEMMPlan         # A @ P
     ac_plan: SpGEMMPlan         # R @ (A @ P)
     n_coarse: int               # coarse block dim
+    p_state: int = 0            # state gate: P's token at build time
+    a_struct_state: int = 0     # A's structure token (values may change)
 
 
 def _structure(indptr, indices, nbc, br, bc, dtype) -> BlockCSR:
@@ -54,7 +59,8 @@ def ptap_symbolic(A: BlockCSR, P: BlockCSR) -> PtAPCache:
                     ap_plan.br, ap_plan.bc, A.data.dtype)
     ac_plan = spgemm_symbolic(R, AP)
     return PtAPCache(r_indptr=r_indptr, r_indices=r_indices, r_perm=r_perm,
-                     ap_plan=ap_plan, ac_plan=ac_plan, n_coarse=P.nbc)
+                     ap_plan=ap_plan, ac_plan=ac_plan, n_coarse=P.nbc,
+                     p_state=P.state_token, a_struct_state=A.state_token)
 
 
 def ptap_numeric_data(cache: PtAPCache, a_data: torch.Tensor,
@@ -65,3 +71,30 @@ def ptap_numeric_data(cache: PtAPCache, a_data: torch.Tensor,
     r_data = p_data[r_perm].transpose(1, 2).contiguous()
     ap_data = spgemm_numeric_data(cache.ap_plan, a_data, p_data, **kw)
     return spgemm_numeric_data(cache.ac_plan, r_data, ap_data, **kw)
+
+
+def ptap_numeric(cache: PtAPCache, A: BlockCSR, P: BlockCSR, **kw
+                 ) -> BlockCSR:
+    """Hot PtAP on the operands' payloads -> the coarse ``BlockCSR``."""
+    data = ptap_numeric_data(cache, A.data, P.data, **kw)
+    return BlockCSR.from_arrays(cache.ac_plan.indptr, cache.ac_plan.indices,
+                                data, cache.n_coarse)
+
+
+def ptap(A: BlockCSR, P: BlockCSR, cache: Optional[PtAPCache] = None,
+         **kw) -> Tuple[BlockCSR, PtAPCache]:
+    """Front door with the state gate (PETSc's MAT_REUSE_MATRIX): a cache
+    built for P's and A's current structure tokens is reused, anything
+    else is rebuilt symbolically.  Returns ``(A_c, cache)``."""
+    gate_ok = (cache is not None and cache.p_state == P.state_token
+               and cache.a_struct_state == A.state_token)
+    if not gate_ok:
+        cache = ptap_symbolic(A, P)
+    return ptap_numeric(cache, A, P, **kw), cache
+
+
+def galerkin_flops(cache: PtAPCache, bs_f: int) -> int:
+    """Useful flop count of the numeric phase (the traffic model's)."""
+    ap, ac = cache.ap_plan, cache.ac_plan
+    return (2 * ap.npairs * ap.br * bs_f * ap.bc
+            + 2 * ac.npairs * ac.br * bs_f * ac.bc)

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.core.block_csr import BlockCSR
 from repro_torch.core.spgemm import (
+    BlockAXPYPlan,
+    SpGEMMPlan,
     block_axpy_numeric_data,
     block_axpy_symbolic,
     spgemm_numeric_data,
@@ -79,3 +81,14 @@ def smoothed_prolongator(A: BlockCSR, P_tent: BlockCSR,
     P = BlockCSR.from_arrays(axpy_plan.indptr, axpy_plan.indices, p_data,
                              axpy_plan.nbc)
     return P, omega, lam_max, dict(ap_plan=ap_plan, axpy_plan=axpy_plan)
+
+
+def resmooth_prolongator_data(ap_plan: SpGEMMPlan, axpy_plan: BlockAXPYPlan,
+                              a_data: torch.Tensor, dinv: torch.Tensor,
+                              omega: torch.Tensor, p_tent_data: torch.Tensor,
+                              row_of_nnz: torch.Tensor) -> torch.Tensor:
+    """Hot numeric re-smoothing with cached plans (new A values, the same
+    tentative prolongator): ``P = P~ - omega D^-1 A P~``."""
+    dinva = torch.einsum("nab,nbc->nac", dinv[row_of_nnz], a_data)
+    ap = spgemm_numeric_data(ap_plan, dinva.contiguous(), p_tent_data)
+    return block_axpy_numeric_data(axpy_plan, -omega, ap, p_tent_data)

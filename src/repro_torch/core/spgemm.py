@@ -264,6 +264,19 @@ def _fused_numeric(plan: SpGEMMPlan, a_data: torch.Tensor,
         accum_dtype=acc)
 
 
+def spgemm_numeric(plan: SpGEMMPlan, A: BlockCSR, B: BlockCSR, **kw
+                   ) -> BlockCSR:
+    """Numeric phase on the operands' payloads -> ``C`` (``path=`` and
+    ``accum_dtype=`` flow to ``spgemm_numeric_data``)."""
+    data = spgemm_numeric_data(plan, A.data, B.data, **kw)
+    return BlockCSR.from_arrays(plan.indptr, plan.indices, data, plan.nbc)
+
+
+def spgemm(A: BlockCSR, B: BlockCSR, **kw) -> BlockCSR:
+    """One-shot product (symbolic + numeric); hot paths cache the plan."""
+    return spgemm_numeric(spgemm_symbolic(A, B), A, B, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Native block AXPY (union sparsity, no scalar conversion).
 # ---------------------------------------------------------------------------
@@ -318,3 +331,10 @@ def block_axpy_numeric_data(plan: BlockAXPYPlan, alpha,
     out[xs] = alpha * x_data
     out[ys] = out[ys] + y_data
     return out
+
+
+def block_axpy(alpha, X: BlockCSR, Y: BlockCSR) -> BlockCSR:
+    """C = alpha*X + Y, natively blocked, no scalar conversion."""
+    plan = block_axpy_symbolic(X, Y)
+    data = block_axpy_numeric_data(plan, alpha, X.data, Y.data)
+    return BlockCSR.from_arrays(plan.indptr, plan.indices, data, plan.nbc)

@@ -3,7 +3,8 @@ Sec. 3.1).
 
 Expressed over the padded BlockELL layout: SpMV with the level operator
 and prolongation through the ``block_spmv`` kernel (``block_spmm`` on
-panels), transpose-free restriction off P's own blocks,
+panels), restriction off P's own blocks (transpose-free, the default) or
+through the same kernels on a stored ``r_ell``,
 pbjacobi-preconditioned Chebyshev (or damped block-Jacobi) smoothing — by
 default each recurrence step is one ``fused_smoother`` kernel launch —
 and a dense Cholesky coarse solve.  Every step takes a vector ``(n,)`` or
@@ -22,6 +23,7 @@ from repro_torch.core.block_csr import BlockELL, EllTransposePlan
 from repro_torch.core.spmv import apply_ell, apply_ell_t
 from repro_torch.kernels import backend
 from repro_torch.kernels.fused_smoother import ops as smoother_ops
+from repro_torch.robust import inject
 
 
 @dataclasses.dataclass
@@ -33,6 +35,7 @@ class LevelState:
     dinv: torch.Tensor              # (nbr, bs, bs) inverted diagonal blocks
     lam_max: torch.Tensor           # Chebyshev upper bound for D^-1 A
     p_t: Optional[EllTransposePlan] = None   # transpose-free P^T plan
+    r_ell: Optional[BlockELL] = None         # stored restriction P^T
 
 
 @dataclasses.dataclass
@@ -170,7 +173,11 @@ def apply_smoother(lv, b, x, smoother: str, degree: int,
 
 
 def apply_restriction(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
-    """Restrict a fine-level residual, ``P^T r``, off ``p_ell``'s blocks."""
+    """Restrict a fine-level residual, ``P^T r``: through the stored
+    ``r_ell`` when the level carries one (``block_spmv`` on vectors,
+    ``block_spmm`` on panels), else off ``p_ell``'s own blocks."""
+    if lv.r_ell is not None:
+        return apply_ell(lv.r_ell, r)
     return apply_ell_t(lv.p_ell, lv.p_t, r)
 
 
@@ -180,22 +187,29 @@ def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
     preconditioner), on a vector ``(n,)`` or a panel ``(n, k)``."""
     bs_stack, x_stack = [], []
     rhs = b
-    for lv in hier.levels:
+    for li, lv in enumerate(hier.levels):
         x = apply_smoother(lv, rhs, torch.zeros_like(rhs), smoother, degree)
         r = rhs - apply_ell(lv.a_ell, x)
         bs_stack.append(rhs)
         x_stack.append(x)
-        rhs = apply_restriction(lv, r)
+        # fault sites (repro_torch.robust.inject): x itself unless a
+        # schedule is installed
+        rhs = inject.maybe("vcycle", apply_restriction(lv, r), level=li)
     # cholesky_solve has no bf16 kernel on either device: a bf16 level
     # solves at f32 (the policy's factor dtype) and rounds to its dtype.
     # It returns column-major panels; the kernels take row-major panels.
     chol = hier.coarse_chol
     fd = torch.float32 if chol.dtype == torch.bfloat16 else chol.dtype
-    xc = torch.cholesky_solve(rhs.reshape(rhs.shape[0], -1).to(fd),
-                              chol.to(fd)).to(rhs.dtype).contiguous() \
-        .reshape(rhs.shape)
+    xc = inject.maybe("coarse", torch.cholesky_solve(
+        rhs.reshape(rhs.shape[0], -1).to(fd), chol.to(fd)).to(
+            rhs.dtype).contiguous().reshape(rhs.shape))
     for lv, rhs_l, x in zip(reversed(hier.levels), reversed(bs_stack),
                             reversed(x_stack)):
         x = x + apply_ell(lv.p_ell, xc)          # prolong + correct
         xc = apply_smoother(lv, rhs_l, x, smoother, degree)
     return xc
+
+
+def vcycle_apply_op(hier: Hierarchy, x: torch.Tensor) -> torch.Tensor:
+    """Finest-level operator application (for the Krylov wrapper)."""
+    return apply_ell(fine_operator(hier), x)

@@ -88,8 +88,10 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
     Each entry of ``levels`` holds ``A0`` and ``P`` as dicts of
     ``indptr, indices, data, nbc``, the aggregates ``node_to_agg`` and the
     damping ``omega``; ``coarse`` is the coarsest operator as such a dict.
-    The PtAP, ELL and transpose-apply plans are rebuilt from the
-    structures by the port's symbolic phases.  ``coarsener`` names the
+    A level that also holds ``R`` (such a dict: the stored restriction of
+    ``setup(restriction="stored")``) keeps it and its ELL form and gets no
+    transpose-apply plan.  The PtAP, ELL and transpose-apply plans are
+    rebuilt from the structures by the port's symbolic phases.  ``coarsener`` names the
     coarsener that made the aggregates (``"mis"``, the default, or
     ``"greedy"``), as ``setup`` records it; ``precision`` the policy, as
     ``setup`` takes it.
@@ -104,12 +106,16 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
         P = bcsr_from_numpy(**lv["P"], device=dev)
         agg = np.asarray(lv["node_to_agg"], dtype=np.int64)
         p_ell = P.to_ell()
+        R = bcsr_from_numpy(**lv["R"], device=dev) if lv.get("R") \
+            else None
         out.append(LevelSetup(
             A0=A0, P=P, ptap_cache=ptap_symbolic(A0, P),
             a_ell_plan=A0.ell_plan(), p_ell=p_ell,
             aggr=Aggregation(node_to_agg=agg, n_agg=P.nbc),
-            omega=_t(lv["omega"], dev), n_fine=A0.nbr,
-            n_coarse=P.nbc, pt=transpose_apply_plan(P, p_ell.kmax)))
+            omega=_t(lv["omega"], dev), n_fine=A0.nbr, n_coarse=P.nbc,
+            pt=None if R is not None else transpose_apply_plan(P,
+                                                               p_ell.kmax),
+            R=R, r_ell=None if R is None else R.to_ell()))
     Ac = bcsr_from_numpy(**coarse, device=dev)
     ops = [ls.A0 for ls in out] + [Ac]
     stats = {"level_rows": [a.nbr * a.br for a in ops],
@@ -133,21 +139,24 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse_chol, *,
                          device="cuda") -> Hierarchy:
     """A ``Hierarchy`` from per-level arrays: ``a_ell`` and ``p_ell`` as
     dicts of ``indices, data, mask, nbc``, ``dinv``, ``lam_max`` and
-    ``p_t`` as a dict of ``rows, gather, mask, nbr``; plus the coarse
+    ``p_t`` as a dict of ``rows, gather, mask, nbr`` (transpose-free) or
+    ``r_ell`` as a dict like ``a_ell`` (a stored restriction); plus the
+    coarse
     lower Cholesky factor and, for a mixed-precision hierarchy, the
     krylov-dtype finest operator ``a_fine_ell`` (a dict like ``a_ell``).
     Every payload keeps its dtype."""
     dev = resolve_device(device)
     states = []
     for lv in levels:
-        pt = lv["p_t"]
+        pt, r_ell = lv.get("p_t"), lv.get("r_ell")
         states.append(LevelState(
             a_ell=_ell(lv["a_ell"], dev), p_ell=_ell(lv["p_ell"], dev),
             dinv=_t(lv["dinv"], dev), lam_max=_t(lv["lam_max"], dev),
-            p_t=EllTransposePlan(rows=np.asarray(pt["rows"], np.int32),
-                                 gather=np.asarray(pt["gather"], np.int32),
-                                 mask=np.asarray(pt["mask"], bool),
-                                 nbr=int(pt["nbr"]))))
+            p_t=None if pt is None else EllTransposePlan(
+                rows=np.asarray(pt["rows"], np.int32),
+                gather=np.asarray(pt["gather"], np.int32),
+                mask=np.asarray(pt["mask"], bool), nbr=int(pt["nbr"])),
+            r_ell=None if r_ell is None else _ell(r_ell, dev)))
     return Hierarchy(levels=tuple(states), coarse_chol=_t(coarse_chol, dev),
                      a_fine_ell=None if a_fine_ell is None
                      else _ell(a_fine_ell, dev))

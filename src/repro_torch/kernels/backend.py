@@ -369,3 +369,45 @@ def resolve_tune(mode: str | None = None) -> str:
     raise ValueError(
         f"invalid autotune mode {mode!r}: expected 'off', 'cache' or "
         f"'sweep' (from REPRO_TORCH_TUNE or the mode= knob)")
+
+
+def resolve_faults(spec=None):
+    """The fault-injection schedule: a ``repro_torch.robust.inject
+    .FaultSchedule``, a spec string in its mini-language, or ``None`` —
+    which reads ``REPRO_TORCH_FAULTS`` (re-read per call; the reference's
+    ``REPRO_FAULTS`` is never read) and falls back to no injection
+    (``None``).  Invalid specs raise ``ValueError``."""
+    from repro_torch.robust import inject
+    if spec is None:
+        spec = os.environ.get("REPRO_TORCH_FAULTS")
+    if spec is None or isinstance(spec, inject.FaultSchedule):
+        return spec
+    return inject.parse_schedule(spec)
+
+
+def resolve_recover(policy=None):
+    """The breakdown-recovery policy: a ``repro_torch.robust.recover
+    .RecoveryPolicy``, a knob string ("off"/"0" disabled, "on"/"1" the
+    defaults, an integer that many ladder attempts), or ``None`` — which
+    reads ``REPRO_TORCH_RECOVER`` (re-read per call; never
+    ``REPRO_RECOVER``) and falls back to disabled (``None``).  Invalid
+    values raise ``ValueError``."""
+    from repro_torch.robust.recover import RecoveryPolicy
+    if isinstance(policy, RecoveryPolicy):
+        return policy
+    if policy is None:
+        policy = os.environ.get("REPRO_TORCH_RECOVER")
+    if policy is None:
+        return None
+    key = str(policy).strip().lower()
+    if key in ("0", "off", "false", "none", ""):
+        return None
+    if key in ("1", "on", "true", "default"):
+        return RecoveryPolicy()
+    try:
+        return RecoveryPolicy(max_attempts=int(key))
+    except ValueError as e:
+        raise ValueError(
+            f"invalid recovery knob {policy!r}: expected 'off', 'on' or a "
+            f"max-attempts integer (from REPRO_TORCH_RECOVER or the "
+            f"recover= knob)") from e

@@ -13,13 +13,15 @@ from repro_torch.core.block_csr import BlockELL
 from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
 
-SHAPES = ((3, 3), (3, 6), (6, 6))
+SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6))
 _ARGS = (backend.P,) * 4 + (backend.I,) * 7 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
 #: the same launches by payload dtype ("f64", "f32", "bf16")
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
+#: the same launches by block shape ``(br, bc)``
+launches_by_shape = dict.fromkeys(SHAPES, 0)
 
 
 def block_spmm_ell(indices: torch.Tensor, data: torch.Tensor,
@@ -61,6 +63,7 @@ def block_spmm_ell(indices: torch.Tensor, data: torch.Tensor,
     y = launch_lanes(indices, data, x_panels, lanes, threads, accum_dtype)
     launches += 1
     launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
+    launches_by_shape[(br, bc)] += 1
     return y
 
 

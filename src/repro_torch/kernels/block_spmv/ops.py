@@ -11,13 +11,15 @@ from repro_torch.core.block_csr import BlockELL
 from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
 
-SHAPES = ((3, 3), (3, 6), (6, 6))
+SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6))
 _ARGS = (backend.P,) * 4 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
 #: the same launches by payload dtype ("f64", "f32", "bf16")
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
+#: the same launches by block shape ``(br, bc)``
+launches_by_shape = dict.fromkeys(SHAPES, 0)
 
 
 def block_spmv_ell(indices: torch.Tensor, data: torch.Tensor,
@@ -55,6 +57,7 @@ def block_spmv_ell(indices: torch.Tensor, data: torch.Tensor,
     y = launch_lanes(indices, data, x_blocks, lanes, threads, accum_dtype)
     launches += 1
     launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
+    launches_by_shape[(br, bc)] += 1
     return y
 
 

@@ -26,6 +26,9 @@
 // rounds once), so the per-column identity with block_spmv holds at every
 // payload type.  KC is counted in registers of the accumulator, which is
 // no wider than at f64.
+//
+// Block shapes as block_spmv's: 3x3, 3x6, 6x6 and the stored restriction's
+// 6x3 (KC at most 4 there).
 #include "ell_row.cuh"
 
 namespace {
@@ -118,6 +121,8 @@ int entry(const void* indices, const void* data, const void* x, void* y,
     return launch<3, 6, T, Acc>(i, d, xv, yv, nbr, kmax, k, l, t, s);
   if (br == 6 && bc == 6)
     return launch<6, 6, T, Acc>(i, d, xv, yv, nbr, kmax, k, l, t, s);
+  if (br == 6 && bc == 3)
+    return launch<6, 3, T, Acc>(i, d, xv, yv, nbr, kmax, k, l, t, s);
   return repro::bad_shape();
 }
 

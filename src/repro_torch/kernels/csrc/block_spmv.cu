@@ -22,6 +22,9 @@
 // slots are zero blocks pointing at column 0: they add exact zeros and
 // need no mask.  A lane reads each block row of its slot in 16-byte pairs
 // where the block width is even (payloads must then be 16-byte aligned).
+// Block shapes: 3x3 (A0), 3x6 (P0), 6x6 (coarse A, P) and 6x3, the stored
+// restriction R0 = P0^T (gamg.setup(restriction="stored")); 3-wide rows
+// take the element-wise loads.
 #include "ell_row.cuh"
 
 namespace {
@@ -82,6 +85,8 @@ int entry(const void* indices, const void* data, const void* x, void* y,
     return launch<3, 6, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
   if (br == 6 && bc == 6)
     return launch<6, 6, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
+  if (br == 6 && bc == 3)
+    return launch<6, 3, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
   return repro::bad_shape();
 }
 

@@ -16,8 +16,9 @@ it freezes like a converged column, and its panel neighbours keep
 iterating.  As in ``repro_torch.core.krylov.pcg`` the reference's
 ``while_loop`` is a Python loop whose exit test, ``bool(active.any())``,
 is the one host sync per iteration; everything else stays on the device
-and follows the reference step for step.  Not ported yet (ROADMAP): the
-``tally=`` / ``obs=`` solve counters and the fault-injection sites.
+and follows the reference step for step, the fault-injection sites
+``spmv`` and ``precond`` included.  Not ported yet (ROADMAP): the
+``tally=`` / ``obs=`` solve counters.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 from repro_torch.core.krylov import wrap_precond
 from repro_torch.core.spmv import apply_ell
 from repro_torch.core.vcycle import Hierarchy, fine_operator, vcycle
+from repro_torch.robust import inject
 from repro_torch.robust.health import SolveHealth, status_of
 
 
@@ -97,13 +99,13 @@ def block_pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         active = (rnorm > thresh) & ~brk & ~nonf & (stall < stall_window)
         if not bool(active.any()):        # the one host sync per iteration
             break
-        Ap = apply_a(p)
+        Ap = inject.maybe("spmv", apply_a(p), step=k)
         pAp = col_dot(p, Ap)
         # frozen columns: guard the denominators, zero the step
         alpha = torch.where(active, rz / torch.where(active, pAp, 1.0), 0.0)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
-        z_new = apply_m(r_new)
+        z_new = inject.maybe("precond", apply_m(r_new), step=k)
         rz_new = col_dot(r_new, z_new)
         beta = torch.where(active, rz_new / torch.where(active, rz, 1.0),
                            0.0)

@@ -29,9 +29,13 @@ panel dtype, or non-finite values — is rejected at ``submit`` with a
 flight is quarantined per column by the masked PCG's health flags: the
 column's report says ``status="degraded"`` (usable best iterate) or
 ``status="failed"`` (solution zeroed), and its neighbours finish
-untouched.  Not ported yet, and refused with a ``ValueError`` when asked
-for: ``recover=`` (the bounded retry of flagged columns, ROADMAP Queue 1
-item 7).
+untouched.  With a ``recover=`` policy (or ``REPRO_TORCH_RECOVER``) a
+flagged column gets one bounded retry as a width-1 panel on a fresh
+hierarchy (from the stored fine values, or from the last coefficient
+fields through the device assembly) under
+``inject.suppress_transient()``: a transient fault is gone from the
+retry and the report says ``status="recovered"``; a persistent one keeps
+its explicit failure.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import torch
 from repro_torch.core import gamg
 from repro_torch.multirhs.block_krylov import make_block_solve
 from repro_torch.obs.server_metrics import ServerMetrics
+from repro_torch.robust import inject
 from repro_torch.robust.health import (
     BREAKDOWN,
     HEALTHY,
@@ -59,7 +64,7 @@ class SolveReport(NamedTuple):
     relres: float
     converged: bool
     k_bucket: int         # panel width the request was served in
-    status: str = "ok"    # "ok" | "degraded" | "failed"
+    status: str = "ok"    # "ok" | "degraded" | "failed" | "recovered"
     health: int = HEALTHY  # raw health code (STATUS_NAMES)
     # submit -> report latency, submit -> batch-start wait, and — when the
     # server records history — this request's per-iteration residual
@@ -78,11 +83,7 @@ class AMGSolveServer:
                  rtol: float = 1e-8, maxiter: int = 200,
                  assembler=None, recover=None,
                  record_history: bool = False):
-        if recover is not None:
-            raise ValueError(
-                "recover= is not ported yet: the bounded retry of flagged "
-                "columns waits for robust/recover.py (ROADMAP Queue 1 item "
-                "7)")
+        from repro_torch.kernels.backend import resolve_recover
         buckets_in = [int(k) for k in buckets]
         if not buckets_in:
             raise ValueError("buckets must be a non-empty sequence of "
@@ -102,14 +103,19 @@ class AMGSolveServer:
         self.dtype = torch.empty(
             (), dtype=setupd.precision.krylov_dtype).numpy().dtype
         self._record_history = bool(record_history)
+        self._rtol, self._maxiter = rtol, maxiter
         self._solve = make_block_solve(setupd, rtol=rtol, maxiter=maxiter,
                                        record_history=self._record_history)
-        self.hierarchy = gamg.recompute(setupd, self._on_device(a_fine_data))
+        self._a_fine_data = self._on_device(a_fine_data)
+        self.hierarchy = gamg.recompute(setupd, self._a_fine_data)
+        # one bounded retry of each flagged column (None disables)
+        self.recover = resolve_recover(recover)
         # optional device-assembly binding, built here so a mismatched
         # plan fails at construction, not at the first update
         self.assembler = assembler
         self._coeff_recompute = None if assembler is None else \
             gamg.make_coeff_recompute(setupd, assembler)
+        self._coeff_fields = None       # the last (E, nu), for retries
         self._pending: List[tuple] = []
         self._next_id = 0
         self.stats = {
@@ -142,9 +148,11 @@ class AMGSolveServer:
     # ---- operator lifecycle ---------------------------------------------
     def update_operator(self, a_fine_data) -> None:
         """Hot path: new fine values, same structure (the PtAP chain)."""
-        a = self._on_device(a_fine_data)
+        self._a_fine_data = self._on_device(a_fine_data)
+        self._coeff_fields = None
         with self._metrics.registry.timer("server/recompute_seconds") as t:
-            self.hierarchy = t.block(gamg.recompute(self.setupd, a))
+            self.hierarchy = t.block(gamg.recompute(self.setupd,
+                                                    self._a_fine_data))
         self.stats["recomputes"] += 1
 
     def update_coefficients(self, E, nu) -> None:
@@ -157,6 +165,7 @@ class AMGSolveServer:
                 "server with assembler=problem.assembler (device assembly "
                 "path)")
         E, nu = self.assembler.as_fields(E, nu)
+        self._coeff_fields = (E, nu)
         with self._metrics.registry.timer(
                 "server/coeff_update_seconds") as t:
             self.hierarchy = t.block(self._coeff_recompute(E, nu))
@@ -205,6 +214,25 @@ class AMGSolveServer:
                              f"largest bucket width {self.buckets[-1]}")
         return next(k for k in self.buckets if k >= count)
 
+    # ---- flagged-column recovery ----------------------------------------
+    def _retry_column(self, b: np.ndarray):
+        """One bounded retry of a flagged column: a fresh hierarchy (the
+        coefficient fields through the device assembly when the last
+        update was one) and a width-1 panel solve, under
+        ``suppress_transient``."""
+        with self._metrics.registry.timer("server/retry_seconds") as t, \
+                inject.suppress_transient():
+            solve = make_block_solve(self.setupd, rtol=self._rtol,
+                                     maxiter=self._maxiter)
+            if self._coeff_fields is not None:
+                coeff = gamg.make_coeff_recompute(self.setupd,
+                                                  self.assembler)
+                hier = coeff(*self._coeff_fields)
+            else:
+                hier = gamg.recompute(self.setupd, self._a_fine_data)
+            return t.block(solve(hier, torch.from_numpy(
+                np.array(b[:, None])).to(self.device)))
+
     @staticmethod
     def _classify(code: int, converged: bool) -> str:
         if code == HEALTHY and converged:
@@ -219,8 +247,10 @@ class AMGSolveServer:
 
         A flagged column degrades or fails its own report only.  Failed
         columns return zeros, degraded columns their best iterate; neither
-        carries a NaN.  ``queue_wait_s`` runs from submit to the batch
-        starting, ``latency_s`` from submit to the report.
+        carries a NaN.  With ``self.recover`` set, a flagged column gets
+        one retry (``_retry_column``) first.  ``queue_wait_s`` runs from
+        submit to the batch starting, ``latency_s`` from submit to the
+        report, after any retry.
         """
         reports: List[SolveReport] = []
         kmax = self.buckets[-1]
@@ -244,10 +274,19 @@ class AMGSolveServer:
             hist_np = None if hist is None else hist.cpu().numpy()
             # every result is on the host now: the clock stop is honest
             solve_s = time.perf_counter() - t_batch
-            for j, (rid, _, t_sub) in enumerate(chunk):
+            for j, (rid, b_j, t_sub) in enumerate(chunk):
                 code = int(codes[j])
                 status = self._classify(code, bool(conv[j]))
-                x_j = x[:, j]
+                x_j, it_j = x[:, j], int(iters[j])
+                rr_j = float(relres[j])
+                if status != "ok" and self.recover is not None:
+                    r1 = self._retry_column(b_j)
+                    c1 = int(r1.health.status[0])
+                    if c1 == HEALTHY and bool(r1.converged[0]):
+                        status, code = "recovered", c1
+                        x_j = r1.x[:, 0].cpu().numpy()
+                        it_j = int(r1.iters[0])
+                        rr_j = float(r1.relres[0])
                 if status == "failed":
                     # explicit failure: never hand back a maybe-iterate
                     x_j = np.zeros_like(x_j)
@@ -259,12 +298,11 @@ class AMGSolveServer:
                     self.stats[status] += 1
                 queue_wait = t_batch - t_sub
                 latency = time.perf_counter() - t_sub
-                it_j = int(iters[j])
                 self._metrics.record_request(status, it_j, queue_wait,
                                              latency)
                 reports.append(SolveReport(
-                    request_id=rid, x=x_j, iters=it_j,
-                    relres=float(relres[j]), converged=bool(conv[j]),
+                    request_id=rid, x=x_j, iters=it_j, relres=rr_j,
+                    converged=bool(conv[j]) or status == "recovered",
                     k_bucket=k, status=status, health=code,
                     latency_s=latency, queue_wait_s=queue_wait,
                     history=None if hist_np is None else hist_np[:, j]))

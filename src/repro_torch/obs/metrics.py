@@ -380,3 +380,43 @@ def _fmt(v: float) -> str:
         return "+Inf"
     f = float(v)
     return repr(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def parse_prometheus(text: str) -> dict:
+    """Parse the exposition text back into ``{name: {labels_str: value}}``:
+    only what ``to_prometheus`` emits (the round trip's other half), not
+    a general Prometheus parser."""
+    out: Dict[str, Dict[str, float]] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        name_labels, _, value = line.rpartition(" ")
+        if "{" in name_labels:
+            name, _, rest = name_labels.partition("{")
+            labels = "{" + rest
+        else:
+            name, labels = name_labels, ""
+        v = math.inf if value == "+Inf" else float(value)
+        out.setdefault(name, {})[labels] = v
+    return out
+
+
+_DEFAULT: Optional[MetricsRegistry] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_registry() -> MetricsRegistry:
+    """The shared process-local registry (created on first use)."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = MetricsRegistry()
+        return _DEFAULT
+
+
+def reset_default_registry() -> None:
+    """Drop the shared registry (tests isolate themselves with this)."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        _DEFAULT = None

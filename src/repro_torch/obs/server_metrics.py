@@ -10,8 +10,9 @@ to answer "is the reuse model paying off".
 Always on: these are pure host clocks and Python counters around calls
 the server already makes (the solve wall clock stops after the results
 were copied to the host, which the server does anyway), so they add no
-device work.  ``retry_seconds`` stays registered under its name and
-stays empty until recovery is ported (ROADMAP Queue 1 item 7).
+device work.  ``retry_seconds`` times each flagged column's retry
+(``AMGSolveServer(recover=)``), and ``status_recovered_total`` counts the
+retries that came back healthy.
 
 Instrument names (all under the server's private ``MetricsRegistry``):
 

@@ -73,7 +73,7 @@ def test_seg_sum_kernel(dev, br, bc):
     assert torch.equal(got, block_seg_sum_ref(vals, offsets, perm))
 
 
-@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 3), (6, 6)])
 def test_spmv_kernel(dev, br, bc):
     g = torch.Generator(device=dev).manual_seed(10 + br * bc)
     idx = torch.randint(0, 40, (70, 9), generator=g, device=dev,
@@ -233,7 +233,7 @@ def test_fused_pair_gemm_copies_misaligned_operands(dev, shape):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 3), (6, 6)])
 @pytest.mark.parametrize("k", [2, 5, 16])
 def test_spmm_kernel_bitwise_per_column(dev, br, bc, k):
     """Each panel column is bitwise ``block_spmv`` of that column."""
@@ -563,7 +563,8 @@ def test_invalid_threads_raise(dev, threads):
 #: below them, kmax 1 and 490 (A2's width), nbr not a multiple of the
 #: rows per block, nbr 1
 RAGGED = [(37, 7, 3, 3), (5, 3, 6, 6), (70, 27, 3, 3), (1, 1, 3, 6),
-          (9, 490, 6, 6), (1, 490, 6, 6), (33, 19, 6, 6), (1, 5, 3, 3)]
+          (9, 490, 6, 6), (1, 490, 6, 6), (33, 19, 6, 6), (1, 5, 3, 3),
+          (41, 125, 6, 3), (3, 9, 6, 3)]
 LANES = (1, 2, 4, 8, 16, 32)
 
 
@@ -857,7 +858,7 @@ def _near(got, want, tol):
 
 @pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
 @pytest.mark.parametrize("br,bc,kmax", [(3, 3, 27), (3, 6, 8), (6, 6, 45),
-                                        (6, 6, 490)])
+                                        (6, 6, 490), (6, 3, 125)])
 def test_low_precision_ell_kernels_match_plain(dev, dt, br, bc, kmax):
     """block_spmv, block_spmm, the vector and panel smoother and pbjacobi
     at f32 and bf16 (acc = the payload; bf16 also at an f32 accumulator)
@@ -1024,3 +1025,55 @@ def test_low_precision_refuses_misaligned_payloads(dev, dt):
         spmv_ops.block_spmv_ell(idx, good, x.double())
     with pytest.raises(ValueError, match="instantiation"):
         spmv_ops.block_spmv_ell(idx, good, x, accum_dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# The stored restriction (6x3 kernels) and the recovery ladder on the card
+# ---------------------------------------------------------------------------
+
+def test_stored_restriction_on_card_matches_transpose_free(dev):
+    """``restriction="stored"`` at m=7: ``R0`` applied by the 6x3
+    ``block_spmv`` / ``block_spmm``; iterations equal to the
+    transpose-free solve, solutions within 1e-12, vector and k=4 panel."""
+    prob = assemble_elasticity(7, path="host", device=dev)
+    opts = dict(coarse_size=12, coarsener="greedy")
+    tf = GAMGSolver(prob.A, prob.B, **opts)
+    st = GAMGSolver(prob.A, prob.B, restriction="stored", **opts)
+    assert st.setup_data.levels[0].r_ell.data.shape[2:] == (6, 3)
+    before = (spmv_ops.launches_by_shape[(6, 3)],
+              spmm_ops.launches_by_shape[(6, 3)])
+    a, b = tf.solve(prob.b), st.solve(prob.b)
+    assert a.iters == b.iters and int(b.health.status) == 0
+    _close(b.x, a.x)
+    B = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (prob.n, 4)), device=dev)
+    pa, pb = tf.solve_many(B), st.solve_many(B)
+    assert torch.equal(pa.iters, pb.iters)
+    _close(pb.x, pa.x)
+    torch.cuda.synchronize()
+    assert spmv_ops.launches_by_shape[(6, 3)] > before[0]
+    assert spmm_ops.launches_by_shape[(6, 3)] > before[1]
+
+
+def test_recovery_ladder_on_card(dev):
+    """m=6 on the card: a transient ``precond`` fault is recovered by the
+    recompute rung with the healthy solution's bits; a persistent one
+    climbs every rung, the last on the ``pairs`` kernels, and degrades,
+    as the reference does on the CPU."""
+    from repro_torch.robust import inject
+    from repro_torch.robust.recover import RobustSolver
+    prob = assemble_elasticity(6, path="host", device=dev)
+    rs = RobustSolver(prob.A, prob.B, coarse_size=100, coarsener="greedy")
+    ok = rs.solve(prob.b)
+    assert ok.status == "ok"
+    with inject.active(inject.parse_schedule("precond:nan@3")):
+        rec = rs.solve(prob.b)
+    assert (rec.status, rec.attempts) == ("recovered", ("recompute",))
+    assert torch.equal(rec.x, ok.x)
+    before = pair_ops.launches
+    with inject.active(inject.parse_schedule("precond:nan@3:persistent")):
+        bad = rs.solve(prob.b)
+    assert (bad.status, bad.attempts) == (
+        "degraded", ("recompute", "re-setup", "reference-path"))
+    assert pair_ops.launches > before
+    assert bool(torch.isfinite(bad.x).all())

@@ -226,7 +226,7 @@ def test_server_rejects_bad_requests(m6, rhs, match):
 @pytest.mark.parametrize("kw,match", [
     (dict(buckets=()), "non-empty"), (dict(buckets=(0, 2)), "positive"),
     (dict(buckets=(2, 2)), "duplicate"),
-    (dict(recover="retry"), "Queue 1 item 7"),
+    (dict(recover="retry"), "invalid recovery knob"),
     (dict(assembler="another mesh's"), "does not match")])
 def test_server_refuses_bad_or_unported_options(m6, kw, match):
     if kw.get("assembler") == "another mesh's":

@@ -110,15 +110,24 @@ def test_setup_from_numpy_rebuilds_the_plans(setups):
 
 
 def test_unported_options_raise():
-    """``restriction="stored"``, a bogus coarsener and a bogus precision
-    raise; ``precision="f32"`` builds an f32 hierarchy."""
+    """A bogus restriction mode, coarsener and precision raise;
+    ``restriction="stored"`` builds ``R`` / ``r_ell``; ``precision="f32"``
+    builds an f32 hierarchy."""
     A = assemble_elasticity(3, device="cpu")
     with pytest.raises(ValueError, match="invalid coarsener"):
         gamg.setup(A.A, A.B, coarsener="bogus")
     with pytest.raises(ValueError, match="invalid precision"):
         gamg.setup(A.A, A.B, precision="f16")
-    with pytest.raises(ValueError, match="transpose-free"):
-        gamg.setup(A.A, A.B, restriction="stored")
+    with pytest.raises(ValueError, match="invalid restriction mode"):
+        gamg.setup(A.A, A.B, restriction="bogus")
+    st = gamg.setup(A.A, A.B, restriction="stored", coarse_size=12,
+                    coarsener="greedy")
+    assert st.levels and all(
+        ls.R is not None and ls.pt is None
+        and ls.r_ell.data.shape[2:] == (ls.P.bc, ls.P.br)
+        for ls in st.levels)
+    assert all(lv.r_ell is not None
+               for lv in gamg.recompute(st, A.A.data).levels)
     s = gamg.setup(A.A, A.B, precision="f32", coarse_size=12,
                    coarsener="greedy")
     hier = gamg.recompute(s, A.A.data)

@@ -44,10 +44,12 @@ def bcsr_dict(A) -> dict:
 
 def setup_to_numpy(s):
     """A ``repro.core.gamg.GAMGSetup`` as ``interop.setup_from_numpy``'s
-    arguments."""
+    arguments (with ``R`` where the setup stores its restriction)."""
     levels = [dict(A0=bcsr_dict(ls.A0), P=bcsr_dict(ls.P),
                    node_to_agg=np.asarray(ls.aggr.node_to_agg),
-                   omega=np.asarray(ls.omega)) for ls in s.levels]
+                   omega=np.asarray(ls.omega),
+                   R=None if ls.R is None else bcsr_dict(ls.R))
+              for ls in s.levels]
     return levels, bcsr_dict(s.coarse_struct)
 
 
@@ -57,12 +59,14 @@ def _ell_dict(e) -> dict:
 
 
 def hierarchy_to_numpy(h):
-    """A ``repro.core.vcycle.Hierarchy`` (transpose-free) as
-    ``interop.hierarchy_from_numpy``'s arguments."""
+    """A ``repro.core.vcycle.Hierarchy`` (transpose-free, or with a stored
+    ``r_ell``) as ``interop.hierarchy_from_numpy``'s arguments."""
     levels = [dict(a_ell=_ell_dict(lv.a_ell), p_ell=_ell_dict(lv.p_ell),
                    dinv=np.asarray(lv.dinv), lam_max=np.asarray(lv.lam_max),
-                   p_t=dict(rows=np.asarray(lv.p_t.rows),
-                            gather=np.asarray(lv.p_t.gather),
-                            mask=np.asarray(lv.p_t.mask), nbr=lv.p_t.nbr))
+                   p_t=None if lv.p_t is None else dict(
+                       rows=np.asarray(lv.p_t.rows),
+                       gather=np.asarray(lv.p_t.gather),
+                       mask=np.asarray(lv.p_t.mask), nbr=lv.p_t.nbr),
+                   r_ell=None if lv.r_ell is None else _ell_dict(lv.r_ell))
               for lv in h.levels]
     return levels, np.asarray(h.coarse_chol)
