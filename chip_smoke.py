@@ -68,26 +68,31 @@ coarsener, which its pinned numbers were taken on:
    requests through ``AMGSolveServer``; ``block_spmv`` and ``block_spmm``
    must launch on 6x3 blocks.  ``R0``, ``R1`` and ``R2`` join the kernel
    cases of ``block_spmv`` and ``block_spmm`` (k=4, 16) at every dtype
-   (their bound counts every padded slot) and the bitwise column checks;
+   (their bound counts the valid blocks; the padded slots and the fill
+   are on their lines) and the bitwise column checks.  One stored hot
+   step is profiled (``profiled stored hot step``), and the stored path
+   line gives the device ms ``R2``'s products take in it;
 9. the robust path (after the byte witness) — the recovery ladder on the
    main path's step-0 values: ``RobustSolver`` healthy (bitwise the main
    path's step-0 solution), a transient ``precond:nan@3`` (recovered by
-   ``recompute``, bitwise), the same fault persistent (every rung, the
-   last on the ``pairs`` kernels, status ``degraded`` as the reference's
-   at m=6), the ``"bf16"`` policy whose coarse factor is NaN on these
+   ``recompute``, bitwise; a second solve under the schedule ``ok``), the
+   same fault persistent (every rung, the last on the ``pairs`` kernels,
+   status ``degraded`` as the reference's at m=6; an ``update_operator``
+   after it still launches ``block_pair_gemm``), the ``"bf16"`` policy whose coarse factor is NaN on these
    values (recovered by ``f64-rebuild``, 13 iterations, within 1e-12 of
    f64's) and a server with ``recover=`` under a transient fault (the
    faulted column ``recovered``, its neighbours ``ok``).  Then
    ``python -m repro_torch.quickstart 9`` runs on the card as a child
    process beside the same run on the CPU: equal levels and iterations.
 
-Every profiled hot step (static, tuned, and one per precision) is held
-to a witness: the library's kernel events in the profiler session (by
-the ``__global__`` names of ``csrc/``) must number the launches the
+Every profiled hot step (static, tuned, stored, and one per precision) is
+held to a witness: the library's kernel events in the profiler session
+(by the ``__global__`` names of ``csrc/``) must number the launches the
 library noted on the host across the step (``autotune.launch_record``);
-a blind session is profiled again in a child process
-(``--profile-witness``), three sessions in all, and the script fails
-when every one was blind.  The MIS and coefficient paths hold every
+a blind session's line names the launch whose event is missing (the
+host's launch log against the events, in order), and the step is
+profiled again in a child process (``--profile-witness``), three
+sessions in all; the script fails when every one was blind.  The MIS and coefficient paths hold every
 kernel against its plain version at their own shapes (``mis kernel case`` / ``coeff kernel case``
 lines).  Last, ``chip_smoke.py --h2d-witness`` runs in a child process
 (a fresh process, whose profiler records memcpy events): one profiler
@@ -197,6 +202,9 @@ H2D_SLACK = 4096        # bytes a coefficient update may move beyond E, nu
 H2D_FLAG = "--h2d-witness"      # the child process of h2d_check
 PROFILE_FLAG = "--profile-witness"  # the child of a blind profiled step
 PROFILE_TRIES = 3       # profiled-step sessions (the first in-process)
+WARMUP_KERNELS = 16     # launches of a profiled step's warm-up
+WINDOW_PAUSE_S = 0.02   # host pause between the profiled step and the
+                        # edges of the recorded window
 QUICKSTART_M = 9        # python -m repro_torch.quickstart's default m
 # SHA-256 (first 16 hex digits) of the pbjacobi cases' outputs (L0, L1,
 # L2 at the main path's dinv) as the first kernel produced them (omega
@@ -323,10 +331,11 @@ def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
 
 def main_path(m: int, device, coarse_size: int | None = None,
               steps: int = 3, verbose: bool = True,
-              precision: str = "f64") -> dict:
+              precision: str = "f64",
+              restriction: str = "transpose_free") -> dict:
     """Assemble, set up and run ``steps`` hot steps of the paper's loop
-    through the port's entry points under the ``precision`` policy;
-    returns the objects and records."""
+    through the port's entry points under the ``precision`` policy and
+    ``restriction``; returns the objects and records."""
     from repro_torch.configs.elasticity import ElasticityConfig
     from repro_torch.core.gamg import GAMGSolver
     from repro_torch.fem.assemble import assemble_elasticity
@@ -345,7 +354,7 @@ def main_path(m: int, device, coarse_size: int | None = None,
                         smoother=cfg.smoother, degree=cfg.degree,
                         coarse_size=cfg.coarse_size, coarsener="greedy",
                         rtol=cfg.rtol, maxiter=cfg.maxiter,
-                        precision=precision)
+                        precision=precision, restriction=restriction)
     sync(device)
     t_setup = time.perf_counter() - t0
     stats = solver.setup_data.stats
@@ -390,20 +399,24 @@ def main_path(m: int, device, coarse_size: int | None = None,
                          else v) for k, v in rec.items() if k != "x"}
             print(f"{label}hot step " + json.dumps(shown))
     return dict(prob=prob, solver=solver, records=records, setup_s=t_setup,
-                assemble_s=t_asm, a_data=a_data, precision=precision)
+                assemble_s=t_asm, a_data=a_data, precision=precision,
+                restriction=restriction)
 
 
 @functools.lru_cache(maxsize=1)
-def library_kernels() -> frozenset:
-    """The names of the ``__global__`` kernels ``csrc/`` defines: the
-    library's own kernels among a profiler's CUDA events."""
-    names = set()
+def library_kernels() -> dict:
+    """The ``__global__`` kernels ``csrc/`` defines, each to the stem of
+    the file that defines it (its family: ``spmv_kernel`` ->
+    ``block_spmv``): the library's own kernels among a profiler's CUDA
+    events."""
+    names = {}
     for src in sorted((SRC / "repro_torch" / "kernels" / "csrc")
                       .glob("*.cu")):
-        names.update(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
-            r"(\w+)\s*\(", src.read_text()))
-    return frozenset(names)
+        for name in re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)\s*\(", src.read_text()):
+            names[name] = src.stem
+    return names
 
 
 def _kernel_name(event_name: str) -> str:
@@ -414,39 +427,132 @@ def _kernel_name(event_name: str) -> str:
     return m.group(1) if m else event_name
 
 
+def _entry_family(entry: str) -> str:
+    """The family of a C entry point (``repro_fused_smoother_panel_f64``
+    -> ``fused_smoother``)."""
+    name = entry[len("repro_"):]
+    return max((f for f in KERNELS if name.startswith(f)), key=len)
+
+
+class LaunchLog:
+    """The host's side of the witness: every C entry point the library
+    launches inside the scope, in order, with its integer arguments (the
+    shapes, lanes and threads), read where ``backend.launch`` calls the
+    library.  Counts nothing and changes no launch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import backend
+        self._backend, self._launch = backend, backend.launch
+        self.entries = []
+
+        def logged(name, argtypes, *args):
+            self.entries.append((_entry_family(name), tuple(
+                v for t, v in zip(argtypes, args) if t is backend.I)))
+            return self._launch(name, argtypes, *args)
+
+        backend.launch = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._backend.launch = self._launch
+
+
+def _witness(entries: list, events: list) -> dict:
+    """The host's launches against the profiler's library events (in
+    start order): per family, the counts that differ, and the first
+    launch whose event is missing (its position, family and shape, and
+    the launch before it).  With every launch seen, each event's device
+    ms is that launch's, summed by the ELL products' shapes
+    (``block_spmv`` / ``block_spmm``: family, nbr, kmax, br, bc, k)."""
+    fams = library_kernels()
+    dev = [fams[_kernel_name(e.name)] for e in events]
+    host = [fam for fam, _ in entries]
+    counts = {f: [host.count(f), dev.count(f)] for f in KERNELS}
+    out = dict(by_kernel={f: c for f, c in counts.items() if c[0] != c[1]})
+    if host != dev:
+        i = next((i for i, (h, d) in enumerate(zip(host, dev)) if h != d),
+                 min(len(host), len(dev)))
+        out["first_missing"] = dict(
+            position=i, of=len(host),
+            launch=None if i >= len(host) else list(
+                (host[i],) + entries[i][1]),
+            before=None if i == 0 else list((host[i - 1],)
+                                            + entries[i - 1][1]))
+        return out
+    by_shape = {}
+    for (fam, ints), e in zip(entries, events):
+        if fam in ("block_spmv", "block_spmm"):
+            key = f"{fam} {tuple(ints[:4])}" + (
+                f" k={ints[4]}" if fam == "block_spmm" else "")
+            n, t = by_shape.get(key, (0, 0.0))
+            by_shape[key] = (n + 1, t + e.device_time / 1e3)
+    out["ell_ms_by_shape"] = {k: [n, t] for k, (n, t) in sorted(
+        by_shape.items(), key=lambda kv: -kv[1][1])}
+    return out
+
+
+def step_phases(prob, solver, run: dict, walls: dict) -> None:
+    """The profiled hot step: reassembly, ``update_operator`` and the
+    solve, each timed on the host between synchronizations."""
+    import torch
+    for phase in ("reassemble", "update_operator", "solve"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if phase == "reassemble":
+            a_new = prob.reassemble(1.3)
+        elif phase == "update_operator":
+            solver.update_operator(a_new.data)
+            run["a_data"] = a_new.data
+        else:
+            solver.solve(prob.b)
+        torch.cuda.synchronize()
+        walls[phase] = 1e3 * (time.perf_counter() - t0)
+
+
 def _profile_step(run: dict, top: int) -> tuple:
     """One more hot step under ``torch.profiler``: the summary (walls,
-    device busy time, idle share, the library's kernel events and the
-    launches ``autotune.launch_record`` noted across the step) and the
+    device busy time, idle share, the library's kernel events, the
+    launches ``autotune.launch_record`` noted across the step and the
+    ``_witness`` of the host's launch log against the events) and the
     ``top`` kernels by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.autotune import launch_record
 
     prob, solver = run["prob"], run["solver"]
     walls = {}
     torch.cuda.synchronize()
-    noted = launch_record()[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for phase in ("reassemble", "update_operator", "solve"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if phase == "reassemble":
-                a_new = prob.reassemble(1.3)
-            elif phase == "update_operator":
-                solver.update_operator(a_new.data)
-                run["a_data"] = a_new.data
-            else:
-                solver.solve(prob.b)
-            torch.cuda.synchronize()
-            walls[phase] = 1e3 * (time.perf_counter() - t0)
-    noted = launch_record()[0] - noted
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) \
+            as prof:
+        # A session opened late in a process lost the first device
+        # records of the step (the reassembly's block_seg_sum and the
+        # torch kernels before it).  So the tracer starts on a warm-up
+        # step whose records are dropped, and the step keeps a host pause
+        # from each edge of the recorded window
+        warm = torch.zeros(WARMUP_KERNELS, device="cuda")
+        for i in range(WARMUP_KERNELS):
+            warm[i:].add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(WINDOW_PAUSE_S)
+        noted = launch_record()[0]
+        with LaunchLog() as log:
+            step_phases(prob, solver, run, walls)
+        noted = launch_record()[0] - noted
+        time.sleep(WINDOW_PAUSE_S)
+        prof.step()
+    # the device's records, less the step's own annotation
+    # (``ProfilerStep*``, a device-side range the schedule adds around the
+    # step's kernels)
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
     ours = library_kernels()
-    lib = sum(1 for e in kernels if _kernel_name(e.name) in ours)
+    lib = sorted((e for e in kernels if _kernel_name(e.name) in ours),
+                 key=lambda e: e.time_range.start)
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     wall_ms = sum(walls.values())
     by_name = {}
@@ -458,9 +564,10 @@ def _profile_step(run: dict, top: int) -> tuple:
             for name, (n, t) in sorted(by_name.items(),
                                        key=lambda kv: -kv[1][1])[:top]]
     summary = dict(wall_ms=walls, device_busy_ms=busy_ms,
-                   device_events=len(kernels), library_events=lib,
-                   library_launches=noted,
-                   idle_share=1.0 - busy_ms / wall_ms)
+                   device_events=len(kernels), library_events=len(lib),
+                   library_launches=noted, logged_launches=len(log.entries),
+                   idle_share=1.0 - busy_ms / wall_ms,
+                   **_witness(log.entries, lib))
     return summary, rows
 
 
@@ -472,10 +579,12 @@ def profile_hot_step(run: dict, top: int = 12, label: str = "") -> dict:
     (``autotune.launch_record``).  A session with fewer or more was blind
     (profiler records go missing once a process has run other work): the
     step is profiled again in a child process (``--profile-witness``, the
-    same configuration, precision and tune mode), ``PROFILE_TRIES``
-    sessions in all; it fails when every one was blind."""
+    same configuration, precision, restriction and tune mode),
+    ``PROFILE_TRIES`` sessions in all; it fails when every one was blind.
+    A blind session's line names the launch whose event is missing."""
     from repro_torch.kernels import backend
     spec = dict(label=label, top=top, precision=run["precision"],
+                restriction=run.get("restriction", "transpose_free"),
                 tune=backend.resolve_tune())
     summary, rows = _profile_step(run, top)
     attempt = 1
@@ -483,7 +592,9 @@ def profile_hot_step(run: dict, top: int = 12, label: str = "") -> dict:
         print(f"profiled {label}hot step blind " + json.dumps(dict(
             attempt=attempt, library_events=summary["library_events"],
             library_launches=summary["library_launches"],
-            device_events=summary["device_events"])))
+            device_events=summary["device_events"],
+            by_kernel=summary["by_kernel"],
+            first_missing=summary.get("first_missing"))))
         if attempt == PROFILE_TRIES:
             raise AssertionError(
                 f"profiled {label}hot step: every one of {PROFILE_TRIES} "
@@ -493,6 +604,11 @@ def profile_hot_step(run: dict, top: int = 12, label: str = "") -> dict:
         summary, rows = _profile_child(spec)
     summary["attempt"] = attempt            # > 1: a child's session
     print(f"profiled {label}hot step " + json.dumps(summary))
+    if not 0.0 <= summary["idle_share"] < 1.0:
+        raise AssertionError(f"profiled {label}hot step: device busy "
+                             f"{summary['device_busy_ms']} ms against a "
+                             f"wall of {sum(summary['wall_ms'].values())} "
+                             f"ms")
     for row in rows:
         print(f"profile {label}kernel " + json.dumps(row))
     return summary
@@ -516,14 +632,15 @@ def _profile_child(spec: dict) -> tuple:
 def profile_witness(spec: dict) -> int:
     """``chip_smoke.py --profile-witness SPEC``, run by
     ``profile_hot_step`` in a process of its own: the main path's
-    configuration at ``spec["precision"]`` and ``spec["tune"]`` (one hot
-    step to warm it), then one profiled hot step; prints its summary and
-    top kernels as one JSON line."""
+    configuration at ``spec["precision"]``, ``spec["restriction"]`` and
+    ``spec["tune"]`` (one hot step to warm it), then one profiled hot
+    step; prints its summary and top kernels as one JSON line."""
     from repro_torch.kernels import backend
     backend.build_library()
     with tune_mode(spec["tune"]):
         run = main_path(MAIN_M, "cuda", steps=1, verbose=False,
-                        precision=spec["precision"])
+                        precision=spec["precision"],
+                        restriction=spec["restriction"])
         summary, rows = _profile_step(run, spec["top"])
     print("profile witness " + json.dumps(dict(summary=summary,
                                                rows=rows)))
@@ -1313,8 +1430,10 @@ def stored_path(run: dict, device="cuda", verbose: bool = True) -> tuple:
     13 iterations each, the stored solution within ``REL_TOL`` of the
     transpose-free one of the same step) and a burst of ``PREC_BURST``
     requests through ``AMGSolveServer``, so ``block_spmv`` and
-    ``block_spmm`` run on the 6x3 blocks of ``R0``.  The transpose-free
-    solver ends at the values it started from.
+    ``block_spmm`` run on the 6x3 blocks of ``R0``; between them one
+    profiled stored hot step, with the device ms of the last ``R``'s
+    products in it.  The transpose-free solver ends at the values it
+    started from.
     Prints the levels and every ``R``'s shape and fill.  Returns the
     path's launches and its ``(tag, r_ell)`` pairs."""
     import numpy as np
@@ -1380,6 +1499,15 @@ def stored_path(run: dict, device="cuda", verbose: bool = True) -> tuple:
         if res.iters != EXPECT_ITERS or int(res.health.status) != HEALTHY \
                 or res.iters != ref.iters or not rel <= REL_TOL:
             raise AssertionError(f"stored path step {step}: {steps[-1]}")
+    prof = profile_hot_step(dict(prob=prob, solver=solver, precision="f64",
+                                 restriction="stored"), label="stored ")
+    r2 = str(tuple(r_ells[-1][1].data.shape))
+    r2_rows = [v for key, v in prof["ell_ms_by_shape"].items()
+               if key.split(" ", 1)[1].startswith(r2)]
+    r2_ms = sum(t for _, t in r2_rows)
+    r2_share = dict(shape=r2, launches=sum(n for n, _ in r2_rows),
+                    device_ms=r2_ms,
+                    share=r2_ms / prof["device_busy_ms"])
     tf.update_operator(run["a_data"])
     rng = np.random.default_rng(23)
     rhs = [prob.b.cpu().numpy()] + [rng.standard_normal(prob.n)
@@ -1404,7 +1532,8 @@ def stored_path(run: dict, device="cuda", verbose: bool = True) -> tuple:
             R=shapes, steps=steps,
             serve=dict(requests=len(rhs), iters=[r.iters for r in reports],
                        buckets=sorted({r.k_bucket for r in reports})),
-            launches_6x3=by_shape, launches=counts.total)))
+            launches_6x3=by_shape, r2_in_profiled_step=r2_share,
+            launches=counts.total)))
     return counts.total, r_ells
 
 
@@ -1426,10 +1555,12 @@ def robust_path(run: dict, device="cuda", verbose: bool = True) -> dict:
     """The recovery ladder on the main path's step-0 values (``b``,
     ``ElasticityConfig(m=32)``, greedy): (a) ``RobustSolver`` healthy, its
     solution bitwise the main path's step 0; (b) a transient
-    ``precond:nan@3``: recovered by the recompute rung, bitwise (a); (c)
+    ``precond:nan@3``: recovered by the recompute rung, bitwise (a), and
+    a second solve under the schedule ``ok`` on the rung's closures; (c)
     the same fault persistent: every rung runs and the status is the
     reference's, the last rung on the ``pairs`` Galerkin kernels
-    (``block_pair_gemm`` launches); (d) the ``"bf16"`` policy, whose
+    (``block_pair_gemm`` launches, and launches again in a later
+    ``update_operator``); (d) the ``"bf16"`` policy, whose
     coarse factor is NaN on these values: recovered by the f64 rebuild,
     13 iterations, within ``REL_TOL`` of (a); (e) ``AMGSolveServer(
     recover=...)`` under a transient fault: the faulted column recovered
@@ -1454,16 +1585,24 @@ def robust_path(run: dict, device="cuda", verbose: bool = True) -> dict:
     A0 = counts.run(lambda: prob.reassemble(1.0))[0]
     out = {}
 
-    def ladder(case, solver, schedule=None):
-        sync(device)
-        t0 = time.perf_counter()
-        pairs0 = pair.launches
+    def ladder(case, schedule=None, **kw):
+        """A ``RobustSolver`` set up under ``schedule`` (the reference's
+        schedules bind at trace time, so a faulted solver is built under
+        its schedule) and its first solve; returns the solver and the
+        outcome."""
         with inject.active(schedule):
+            sync(device)
+            t0 = time.perf_counter()
+            solver, _ = counts.run(lambda: RobustSolver(A0, prob.B,
+                                                        **opts, **kw))
+            sync(device)
+            t1 = time.perf_counter()
+            pairs0 = pair.launches
             res, _ = counts.run(lambda: solver.solve(prob.b))
-        sync(device)
+            sync(device)
         rec = dict(status=res.status, attempts=list(res.attempts),
                    iters=res.result.iters, relres=float(res.result.relres),
-                   ms=1e3 * (time.perf_counter() - t0),
+                   setup_s=t1 - t0, ms=1e3 * (time.perf_counter() - t1),
                    pair_gemm_launches=pair.launches - pairs0)
         if (res.status, tuple(res.attempts)) != ROBUST_EXPECT[case]:
             raise AssertionError(f"robust {case}: {rec}, expected "
@@ -1471,30 +1610,44 @@ def robust_path(run: dict, device="cuda", verbose: bool = True) -> dict:
         if res.status == "failed" and bool(res.x.any()):
             raise AssertionError(f"robust {case}: a failed x is not zero")
         out[case] = rec
-        return res
+        return solver, res
 
-    t0 = time.perf_counter()
-    rs, _ = counts.run(lambda: RobustSolver(A0, prob.B, **opts))
-    setup_s = time.perf_counter() - t0
-    a = ladder("healthy", rs)
+    _, a = ladder("healthy")
     if a.result.iters != EXPECT_ITERS or not torch.equal(a.x, x_main):
         raise AssertionError(f"robust healthy: {a.result.iters} iterations,"
                              f" x bitwise the main path's step 0: "
                              f"{torch.equal(a.x, x_main)}")
-    b = ladder("transient", rs, inject.parse_schedule("precond:nan@3"))
+    transient = inject.parse_schedule("precond:nan@3")
+    rs, b = ladder("transient", transient)
     if b.result.iters != EXPECT_ITERS or not torch.equal(b.x, a.x):
         raise AssertionError(f"robust transient: {b.result.iters} "
                              f"iterations, x bitwise (a): "
                              f"{torch.equal(b.x, a.x)}")
-    c = ladder("persistent", rs,
-               inject.parse_schedule("precond:nan@3:persistent"))
+    # the rung's rebuilt closures stay clean of the transient fault
+    with inject.active(transient):
+        again, _ = counts.run(lambda: rs.solve(prob.b))
+    out["transient"]["second_solve"] = again.status
+    if again.status != "ok" or not torch.equal(again.x, a.x):
+        raise AssertionError(f"robust transient, second solve: "
+                             f"{again.status}, x bitwise (a): "
+                             f"{torch.equal(again.x, a.x)}")
+    rs, c = ladder("persistent",
+                   inject.parse_schedule("precond:nan@3:persistent"))
     cuda = torch.device(device).type == "cuda"
     if (cuda and out["persistent"]["pair_gemm_launches"] <= 0) \
             or not bool(torch.isfinite(c.x).all()):
         raise AssertionError(f"robust persistent: {out['persistent']}")
-    low, _ = counts.run(lambda: RobustSolver(A0, prob.B, precision="bf16",
-                                             **opts))
-    d = ladder("bf16", low)
+    # ... and keep the reference-path rung's Galerkin path afterwards
+    pairs0 = pair.launches
+    counts.run(lambda: rs.update_operator(A0.data))
+    sync(device)
+    out["persistent"]["update_pair_gemm_launches"] = n = \
+        pair.launches - pairs0
+    if cuda and n <= 0:
+        raise AssertionError(f"robust persistent: update_operator after "
+                             f"the reference-path rung launched no "
+                             f"block_pair_gemm")
+    _, d = ladder("bf16", precision="bf16")
     out["bf16"]["rel_diff_vs_f64"] = rel = _rel(d.x, a.x)
     if d.result.iters != EXPECT_ITERS or not rel <= REL_TOL:
         raise AssertionError(f"robust bf16: {out['bf16']}")
@@ -1519,7 +1672,7 @@ def robust_path(run: dict, device="cuda", verbose: bool = True) -> dict:
         raise AssertionError(f"robust server: {out['server']}")
     if verbose:
         print("robust path " + json.dumps(dict(
-            m=MAIN_M, setup_s=setup_s, **out, launches=counts.total)))
+            m=MAIN_M, **out, launches=counts.total)))
     return counts.total
 
 
@@ -1603,7 +1756,8 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
     the run's hierarchy holds its payloads at the run's policy dtype);
     ``block_spmv`` and ``block_spmm`` also on each ``(tag, ell)`` of
     ``extra_ells`` (the stored restrictions ``R0``.., cast to ``dtype``),
-    whose byte bound counts every padded slot, as the kernel reads it.
+    whose bound, like every ELL case's, counts the valid blocks only;
+    their lines add the padded slots and the fill.
     Below f64 the COO stream (assembled at the Krylov dtype, f64) is left
     out, the Galerkin products run at the policy's kernel accumulator (f32
     for bf16) and ``block_pair_gemm`` at bf16 keeps its products at that
@@ -1670,11 +1824,14 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
 
     def ell_cases(name, ell, padded=False):
         """``block_spmv`` and ``block_spmm`` (``PANEL_KS``) on ``ell``;
-        the bound's blocks are the valid ones, or every slot."""
-        nnz = int(ell.mask.sum())
-        blocks = ell.nbr * ell.kmax if padded else nnz
-        extra = dict(valid_blocks=nnz, padded_blocks=ell.nbr * ell.kmax) \
-            if padded else None
+        the bound counts the valid blocks, which is all the product
+        needs.  ``padded`` cases (the stored ``R``, whose rows are
+        ragged) also carry their valid and padded blocks and fill, so the
+        padding the kernel reads shows as its gap to the bound."""
+        nnz = blocks = int(ell.mask.sum())
+        slots = ell.nbr * ell.kmax
+        extra = dict(valid_blocks=nnz, padded_blocks=slots,
+                     fill=nnz / slots) if padded else None
         x = randn(ell.nbc, ell.bc)
         csr = _scalar_csr(ell)
         xf = x.reshape(-1)

@@ -10,8 +10,10 @@ twin of ``repro.core.gamg``).
                level operator is rebuilt through the cached PtAP plans,
                plus ``dinv``, ``lam_max`` and the coarse Cholesky.
 ``make_recompute`` / ``make_solve``  the hot closures (the reference's
-               jitted ones; eager here): ``fine values -> Hierarchy`` and
-               ``(Hierarchy, b, x0=None) -> CGResult``.
+               jitted ones; eager here, with the fault schedule and the
+               SpGEMM path bound at the first call, as a trace binds
+               them: ``robust.inject.traced``): ``fine values ->
+               Hierarchy`` and ``(Hierarchy, b, x0=None) -> CGResult``.
 ``make_coeff_recompute``  the coefficient hot loop: per-element material
                fields -> device assembly (``fem.device_stiffness``) ->
                ``recompute``; only the two fields cross to the device.
@@ -326,8 +328,11 @@ def _coarse_dense(setupd: GAMGSetup, a_data: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(cs.shape)
 
 
-def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
+def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor, *,
+              spgemm_path: str | None = None) -> Hierarchy:
     """Hot numeric hierarchy rebuild: a function of the fine values only.
+    ``spgemm_path``: the Galerkin products' path (``None``: the
+    ``REPRO_TORCH_SPGEMM_PATH`` knob, read at this call).
 
     Every level (operator, transfer, ``dinv``, coarse factor) is built and
     stored at the policy's hierarchy dtype, the PtAP chain at that dtype
@@ -343,7 +348,8 @@ def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
         a_data = inject.maybe("hierarchy", a_data, level=li)
         states.append(level_state(ls, a_data, policy))
         a_data = ptap_numeric_data(ls.ptap_cache, a_data, ls.P.data.to(h),
-                                   accum_dtype=policy.kernel_accum_dtype)
+                                   accum_dtype=policy.kernel_accum_dtype,
+                                   path=spgemm_path)
     a_data = inject.maybe("hierarchy", a_data, level=len(setupd.levels))
     chol = coarse_cholesky(_coarse_dense(setupd, a_data), policy)
     a_fine_ell = None
@@ -354,14 +360,23 @@ def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor) -> Hierarchy:
                      a_fine_ell=a_fine_ell)
 
 
-def make_recompute(setupd: GAMGSetup):
-    """The hot recompute closure ``a_fine_data -> Hierarchy`` (the
-    reference jits it; the port runs it eagerly, so a closure made before
-    a fault schedule is installed sees the schedule at its next call)."""
-    def hot_recompute(a_fine_data):
-        return recompute(setupd, a_fine_data)
+def _spgemm_knob(setupd: GAMGSetup):
+    """The knobs a recompute closure binds at its first call: the SpGEMM
+    path then resolved (a jitted reference closure keeps the path it was
+    traced on)."""
+    return lambda: dict(spgemm_path=backend.resolve_spgemm_path(
+        setupd.device))
 
-    return hot_recompute
+
+def make_recompute(setupd: GAMGSetup):
+    """The hot recompute closure ``a_fine_data -> Hierarchy``.  The
+    reference jits it; here the fault schedule and the SpGEMM path in
+    force at its first call hold for every later call
+    (``robust.inject.traced``)."""
+    def hot_recompute(a_fine_data, *, spgemm_path):
+        return recompute(setupd, a_fine_data, spgemm_path=spgemm_path)
+
+    return inject.traced(hot_recompute, _spgemm_knob(setupd))
 
 
 def make_solve(setupd: GAMGSetup, rtol: float = 1e-8, maxiter: int = 200):
@@ -371,7 +386,7 @@ def make_solve(setupd: GAMGSetup, rtol: float = 1e-8, maxiter: int = 200):
               x0: torch.Tensor | None = None) -> CGResult:
         return hier_solve(setupd, hier, b, x0, rtol=rtol, maxiter=maxiter)
 
-    return solve
+    return inject.traced(solve)
 
 
 def _check_assembler(setupd: GAMGSetup, assembler) -> None:
@@ -398,10 +413,11 @@ def make_coeff_recompute(setupd: GAMGSetup, assembler):
     fields already there, nothing crosses from the host."""
     _check_assembler(setupd, assembler)
 
-    def coeff_recompute(E, nu):
-        return recompute(setupd, assembler.coo_data(E, nu))
+    def coeff_recompute(E, nu, *, spgemm_path):
+        return recompute(setupd, assembler.coo_data(E, nu),
+                         spgemm_path=spgemm_path)
 
-    return coeff_recompute
+    return inject.traced(coeff_recompute, _spgemm_knob(setupd))
 
 
 def make_coeff_solve(setupd: GAMGSetup, assembler, rtol: float = 1e-8,
@@ -411,11 +427,12 @@ def make_coeff_solve(setupd: GAMGSetup, assembler, rtol: float = 1e-8,
     the previous step's iterate; zeros for a cold start)."""
     _check_assembler(setupd, assembler)
 
-    def coeff_solve(E, nu, b, x0):
-        hier = recompute(setupd, assembler.coo_data(E, nu))
+    def coeff_solve(E, nu, b, x0, *, spgemm_path):
+        hier = recompute(setupd, assembler.coo_data(E, nu),
+                         spgemm_path=spgemm_path)
         return hier_solve(setupd, hier, b, x0, rtol=rtol, maxiter=maxiter)
 
-    return coeff_solve
+    return inject.traced(coeff_solve, _spgemm_knob(setupd))
 
 
 def hier_solve(setupd: GAMGSetup, hier: Hierarchy, b: torch.Tensor,

@@ -156,7 +156,10 @@ def make_block_solve(setupd, rtol: float = 1e-8, maxiter: int = 200,
     """Hot panel solve ``(Hierarchy, B (n, k), x0=None) -> BlockCGResult``
     (``(result, history)`` under ``record_history=True``): the multi-RHS
     twin of ``repro_torch.core.gamg.hier_solve``, with the same smoother
-    configuration and panel products everywhere."""
+    configuration and panel products everywhere.  The fault schedule in
+    force at the first call with each panel shape holds for every later
+    call with it (``robust.inject.traced``), as the reference's per-shape
+    traces do."""
     smoother, degree = setupd.smoother, setupd.degree
     precond_dtype = setupd.precision.smoother_dtype
 
@@ -172,4 +175,4 @@ def make_block_solve(setupd, rtol: float = 1e-8, maxiter: int = 200,
                          maxiter=maxiter, precond_dtype=precond_dtype,
                          record_history=record_history)
 
-    return solve
+    return inject.traced(solve)

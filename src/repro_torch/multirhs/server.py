@@ -106,8 +106,9 @@ class AMGSolveServer:
         self._rtol, self._maxiter = rtol, maxiter
         self._solve = make_block_solve(setupd, rtol=rtol, maxiter=maxiter,
                                        record_history=self._record_history)
+        self._recompute = gamg.make_recompute(setupd)
         self._a_fine_data = self._on_device(a_fine_data)
-        self.hierarchy = gamg.recompute(setupd, self._a_fine_data)
+        self.hierarchy = self._recompute(self._a_fine_data)
         # one bounded retry of each flagged column (None disables)
         self.recover = resolve_recover(recover)
         # optional device-assembly binding, built here so a mismatched
@@ -151,8 +152,7 @@ class AMGSolveServer:
         self._a_fine_data = self._on_device(a_fine_data)
         self._coeff_fields = None
         with self._metrics.registry.timer("server/recompute_seconds") as t:
-            self.hierarchy = t.block(gamg.recompute(self.setupd,
-                                                    self._a_fine_data))
+            self.hierarchy = t.block(self._recompute(self._a_fine_data))
         self.stats["recomputes"] += 1
 
     def update_coefficients(self, E, nu) -> None:
@@ -229,7 +229,7 @@ class AMGSolveServer:
                                                   self.assembler)
                 hier = coeff(*self._coeff_fields)
             else:
-                hier = gamg.recompute(self.setupd, self._a_fine_data)
+                hier = gamg.make_recompute(self.setupd)(self._a_fine_data)
             return t.block(solve(hier, torch.from_numpy(
                 np.array(b[:, None])).to(self.device)))
 

@@ -28,17 +28,23 @@ corrupts a copy of ``x``; the input is never written.
 Determinism: a fault is a pure function of (site, step / level, index) —
 no RNG, no clock — so a faulted run is exactly reproducible.
 
-One difference from the reference.  The reference bakes a schedule into
-its jitted programs at trace time: programs traced before ``install``
-stay clean, and a recovery retry is clean of transient faults because it
-runs on fresh traces.  The port runs eagerly: ``maybe`` reads the
-installed schedule at every call, so a schedule takes effect at the next
-call of any closure, and a retry is clean of transient faults because it
-runs under ``suppress_transient()``.  Every ladder reaches the same
-outcome as the reference's.
+Trace-time binding.  The reference bakes a schedule into its jitted
+programs at trace time: programs traced before ``install`` stay clean, a
+recovery retry is clean of transient faults because its fresh traces are
+made under ``suppress_transient()``, and the retried closures stay clean
+(and on the rung's knobs) at every later call.  The port runs eagerly, so
+``maybe`` reads the installed schedule at each call; the hot closures the
+reference jits (``gamg.make_recompute``, ``gamg.make_solve``,
+``gamg.make_coeff_recompute``, ``gamg.make_coeff_solve``,
+``multirhs.block_krylov.make_block_solve``) are wrapped in ``traced``,
+which binds the schedule, and the knobs the closure names, at the first
+call with each argument signature, as a trace does.  A bare ``maybe``
+outside those closures (``gamg.recompute`` called directly, say) sees the
+schedule installed at that call, as the reference's un-jitted code does.
 
-``REPRO_TORCH_FAULTS`` (read once, at import; the reference's
-``REPRO_FAULTS`` is never read): semicolon-separated specs
+``REPRO_TORCH_FAULTS`` (read once, at import, through
+``kernels.backend.resolve_faults``; the reference's ``REPRO_FAULTS`` is
+never read): semicolon-separated specs
 ``site:kind[@step][:level=N][:index=N][:persistent]``, e.g.
 ``REPRO_TORCH_FAULTS="precond:nan@3;vcycle:bitflip:level=1"``.  Faults are
 transient unless marked ``:persistent``.
@@ -47,8 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -187,8 +192,9 @@ def current() -> Optional[FaultSchedule]:
 
 
 @contextlib.contextmanager
-def active(schedule: FaultSchedule):
-    """Scoped installation (always restores the previous schedule)."""
+def active(schedule: Optional[FaultSchedule]):
+    """Scoped installation (always restores the previous schedule);
+    ``None`` runs the scope with no schedule."""
     prev = _SCHEDULE
     install(schedule)
     try:
@@ -219,8 +225,37 @@ def maybe(site: str, x: torch.Tensor, *, step=None,
     return _SCHEDULE.apply(site, x, step=step, level=level)
 
 
-# a set REPRO_TORCH_FAULTS arms the schedule for the whole process
-_env_spec = os.environ.get("REPRO_TORCH_FAULTS")
-if _env_spec:
-    install(parse_schedule(_env_spec))
-del _env_spec
+def _signature(args) -> tuple:
+    """What a jit cache keys a call on: each tensor's shape, dtype and
+    device, and the type of every other argument (``None`` included)."""
+    return tuple((tuple(a.shape), a.dtype, a.device)
+                 if isinstance(a, torch.Tensor) else type(a) for a in args)
+
+
+def traced(fn: Callable, knobs: Callable[[], dict] = dict) -> Callable:
+    """``fn`` with the reference's trace-time binding: the schedule
+    installed at the first call with each argument signature, and the
+    keyword arguments ``knobs()`` returns then, are what every later call
+    with that signature runs under, as a jitted program keeps what it was
+    traced with (module docstring)."""
+    bound = {}
+
+    def call(*args):
+        key = _signature(args)
+        if key not in bound:
+            bound[key] = (_SCHEDULE, knobs())
+        schedule, kw = bound[key]
+        with active(schedule):
+            return fn(*args, **kw)
+
+    return call
+
+
+def _arm_from_env() -> None:
+    """A set ``REPRO_TORCH_FAULTS`` arms the schedule for the whole
+    process."""
+    from repro_torch.kernels import backend
+    install(backend.resolve_faults())
+
+
+_arm_from_env()

@@ -26,10 +26,12 @@ When a monitored solve comes back flagged (``SolveHealth.status != 0``),
     has no SpMM path knob.  The rung keeps its name, so ``attempts``
     compare equal to the reference's.
 
-Every rung runs under ``inject.suppress_transient()``.  The reference
-relies on fresh traces being clean of transient faults; the port runs
-eagerly and reads the schedule at each call, so the suppression alone
-makes a retry clean, with the same outcome.
+Every rung rebuilds its closures under ``inject.suppress_transient()``
+and the rung's knobs.  The reference's fresh traces keep both, and so do
+the port's closures (``inject.traced`` binds the schedule and the SpGEMM
+path at their first call): after a recovery, later ``solve`` and
+``update_operator`` calls stay clean of transient faults, and after the
+reference-path rung they stay on its Galerkin path.
 
 A recovered solve reports ``"recovered"``; an exhausted ladder reports
 ``"degraded"`` when the best iterate made progress (finite ``best_relres

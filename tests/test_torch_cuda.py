@@ -1057,23 +1057,34 @@ def test_stored_restriction_on_card_matches_transpose_free(dev):
 
 def test_recovery_ladder_on_card(dev):
     """m=6 on the card: a transient ``precond`` fault is recovered by the
-    recompute rung with the healthy solution's bits; a persistent one
+    recompute rung with the healthy solution's bits, and a second solve
+    under the schedule is ``ok`` on the rung's closures; a persistent one
     climbs every rung, the last on the ``pairs`` kernels, and degrades,
-    as the reference does on the CPU."""
+    as the reference does on the CPU, and a later ``update_operator``
+    stays on the ``pairs`` kernels.  Each faulted solver is built under
+    its schedule, as the reference's schedules bind at trace time."""
     from repro_torch.robust import inject
     from repro_torch.robust.recover import RobustSolver
     prob = assemble_elasticity(6, path="host", device=dev)
-    rs = RobustSolver(prob.A, prob.B, coarse_size=100, coarsener="greedy")
-    ok = rs.solve(prob.b)
+    opts = dict(coarse_size=100, coarsener="greedy")
+    ok = RobustSolver(prob.A, prob.B, **opts).solve(prob.b)
     assert ok.status == "ok"
     with inject.active(inject.parse_schedule("precond:nan@3")):
+        rs = RobustSolver(prob.A, prob.B, **opts)
         rec = rs.solve(prob.b)
+        again = rs.solve(prob.b)
     assert (rec.status, rec.attempts) == ("recovered", ("recompute",))
     assert torch.equal(rec.x, ok.x)
+    assert again.status == "ok" and torch.equal(again.x, ok.x)
     before = pair_ops.launches
     with inject.active(inject.parse_schedule("precond:nan@3:persistent")):
+        rs = RobustSolver(prob.A, prob.B, **opts)
         bad = rs.solve(prob.b)
     assert (bad.status, bad.attempts) == (
         "degraded", ("recompute", "re-setup", "reference-path"))
     assert pair_ops.launches > before
     assert bool(torch.isfinite(bad.x).all())
+    before = pair_ops.launches
+    rs.update_operator(prob.A.data)
+    torch.cuda.synchronize()
+    assert pair_ops.launches > before

@@ -592,6 +592,99 @@ def test_ladder_outcomes_match_reference(m6, case):
         assert torch.equal(got.x, again.x)
 
 
+def test_traced_binds_the_schedule_per_signature():
+    """``inject.traced`` keeps, per argument signature, the schedule and
+    knobs of its first call with that signature, as a jit trace does: a
+    closure first called clean stays clean under a later schedule, a new
+    shape binds the schedule then installed, and the bound schedule holds
+    after it is cleared."""
+    knob = {"path": "fused"}
+    seen = []
+
+    def fn(x, *, path):
+        seen.append(path)
+        return inject.maybe("spmv", x)
+
+    f = inject.traced(fn, lambda: dict(knob))
+    x3, x4 = torch.ones(3, dtype=torch.float64), torch.ones(4)
+    assert f(x3) is x3
+    knob["path"] = "pairs"
+    with inject.active(inject.parse_schedule("spmv:nan")):
+        assert f(x3) is x3
+        assert bool(torch.isnan(f(x4)[0]))
+    assert bool(torch.isnan(f(x4)[0])) and f(x3) is x3
+    assert seen == ["fused", "fused", "pairs", "pairs", "fused"]
+    assert inject.current() is None
+
+
+def test_second_solve_after_recovery_is_ok(m6):
+    """Under one transient schedule the first solve recovers and the
+    second, on the rung's rebuilt closures, is ``ok`` with the recovered
+    solution, on port and reference alike (the reference's rebuilt traces
+    are clean of the transient fault; the port's closures bind the
+    suppressed schedule at their first call)."""
+    pp, rp = m6
+    spec = "precond:nan@3"
+    with inject.active(inject.parse_schedule(spec)):
+        rs = RobustSolver(pp.A, pp.B, **M6)
+        got = [rs.solve(pp.b) for _ in range(2)]
+    with rinject.active(rinject.parse_schedule(spec)):
+        ref = rrecover.RobustSolver(rp.A, rp.B, **M6)
+        want = [ref.solve(rp.b) for _ in range(2)]
+    assert [(r.status, r.attempts) for r in got] == \
+        [(r.status, r.attempts) for r in want] == \
+        [("recovered", ("recompute",)), ("ok", ())]
+    assert [r.result.iters for r in got] == \
+        [int(r.result.iters) for r in want]
+    assert torch.equal(got[0].x, got[1].x)
+    assert_close(got[1].x, want[1].x)
+
+
+def test_update_operator_after_reference_path_rung_keeps_its_path(
+        m6, monkeypatch):
+    """After an exhausted ladder whose last rung is "reference-path",
+    ``update_operator`` runs on that rung's closures: the port's keep the
+    rung's SpGEMM path (``reference`` on the CPU; ``pairs``, hence
+    ``block_pair_gemm``, on the card: ``tests/test_torch_cuda.py``) once
+    the rung's environment is restored, and the reference's do not
+    retrace.  The updated hierarchies agree."""
+    pp, rp = m6
+    spec = "precond:nan@3:persistent"
+    with inject.active(inject.parse_schedule(spec)):
+        rs = RobustSolver(pp.A, pp.B, **M6)
+        assert rs.solve(pp.b).attempts[-1] == "reference-path"
+    with rinject.active(rinject.parse_schedule(spec)):
+        ref = rrecover.RobustSolver(rp.A, rp.B, **M6)
+        assert ref.solve(rp.b).attempts[-1] == "reference-path"
+    monkeypatch.delenv("REPRO_TORCH_SPGEMM_PATH", raising=False)
+    monkeypatch.delenv("REPRO_SPGEMM_PATH", raising=False)
+    seen = {"port": [], "ref": []}
+
+    def spy(resolve, log):
+        def wrapped(*args, **kw):
+            path = resolve(*args, **kw)
+            log.append(path)
+            return path
+        return wrapped
+
+    from repro.kernels import backend as rbackend
+    monkeypatch.setattr(backend, "resolve_spgemm_path",
+                        spy(backend.resolve_spgemm_path, seen["port"]))
+    monkeypatch.setattr(rbackend, "resolve_spgemm_path",
+                        spy(rbackend.resolve_spgemm_path, seen["ref"]))
+    rs.update_operator(1.1 * pp.A.data)
+    ref.update_operator(1.1 * rp.A.data)
+    assert seen["port"] and set(seen["port"]) == {"reference"}
+    assert seen["ref"] == []
+    assert_close(rs.hierarchy.levels[0].a_ell.data,
+                 ref.hierarchy.levels[0].a_ell.data)
+    assert_close(rs.hierarchy.coarse_chol, ref.hierarchy.coarse_chol)
+    fresh = gamg.make_recompute(rs.setupd)
+    seen["port"].clear()
+    fresh(pp.A.data)
+    assert set(seen["port"]) == {"fused"}
+
+
 def test_server_retry_matches_reference(m6):
     """A transient ``precond`` fault poisons column 0 of the panel; with
     ``recover=`` its report comes back ``recovered`` after one retry and
