@@ -6,14 +6,15 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives nine
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives ten
 paths of the port, each with the launch counts set to 0 just before it
-and read just after, and the torch quickstart.  The autotuner's cache
-is a fresh temporary file (``REPRO_TORCH_TUNE_CACHE``), and every path but
-the tune path runs with ``REPRO_TORCH_TUNE=off`` (the static 256-thread
-launch).  The first four run the paper's configuration
-``ElasticityConfig(m=32)`` on the host assembly path and the greedy
-coarsener, which its pinned numbers were taken on:
+and read just after, the observability layer and the torch
+quickstart.  The autotuner's cache is a fresh temporary file
+(``REPRO_TORCH_TUNE_CACHE``), and every path but the tune path runs with
+``REPRO_TORCH_TUNE=off`` (the static 256-thread launch).  The first
+four run the paper's configuration ``ElasticityConfig(m=32)`` on the host
+assembly path and the greedy coarsener, which its pinned numbers were
+taken on:
 
 1. the main path — blocked-COO assembly, cold GAMG setup, then 3 hot steps
    of reassembly, ``update_operator`` (the PtAP chain) and the AMG-PCG
@@ -83,7 +84,31 @@ coarsener, which its pinned numbers were taken on:
    f64's) and a server with ``recover=`` under a transient fault (the
    faulted column ``recovered``, its neighbours ``ok``).  Then
    ``python -m repro_torch.quickstart 9`` runs on the card as a child
-   process beside the same run on the CPU: equal levels and iterations.
+   process beside the same run on the CPU: equal levels and iterations;
+10. the march path (after the coefficient path) — ``repro_torch.sim``'s
+   time march at m=32 on the device-assembled problem with the paper's
+   greedy setting: ``SofteningScenario`` (rate ``MARCH_RATE``),
+   ``MARCH_STEPS`` steps under ``frozen``, ``adaptive`` and ``resetup``
+   in turns (each ``ok``, every step healthy; the adaptive march sets up
+   at least twice and fewer times than ``resetup``), per mode the
+   setups, segments, iterations per step and ms per step, then every
+   kernel against its plain version on the hierarchy of the adaptive
+   march's final fields (``march kernel case``).  ``march cpu vs cuda``
+   runs ``python -m repro_torch.march``'s setting at m=5 (the
+   reference's acceptance battery) on both: equal iterations, statuses,
+   segments and setups, final states within 1e-10.
+
+The observability phase (after the stored path) profiles one hot step
+through closures built under ``use("spans")``: every expected span
+(``vcycle/level{i}/smooth|restrict|prolong``, ``vcycle/coarse``,
+``recompute/level{i}/smoother_data|ptap``, ``recompute/coarse_chol`` and
+the kernel families) in the trace with the device ms under it, and the
+solution's SHA-256 equal to the off step's; a ``make_solve(obs=
+"counters")`` and a ``make_block_solve(obs="counters")`` k=4 solve,
+bitwise the off solves, with tallies equal to the analytic counts, the
+extra device kernels a cycle of the tally and the modeled MB beside the
+counted solve's device ms (``obs counters``); and the static profiled
+hot step's device events beside PR 21's (``obs off``).
 
 Every profiled hot step (static, tuned, stored, and one per precision) is
 held to a witness: the library's kernel events in the profiler session
@@ -102,7 +127,8 @@ array, ``torch.tensor`` of a list, the last out of the aten count's
 sight).  Each control must read its size in the profiler's memcpy
 bytes, and each update must move between its two per-element fields and
 those plus 4 KB host to device by both the profiler and the aten count
-(``repro_torch.obs.transfer``).
+(``repro_torch.obs.transfer``); the same session holds the second and
+third steps of a frozen march segment, which must move 0 bytes by both.
 
 After the main path it prints a ``coarse operators`` line: SHA-256 of the
 setup's coarse operators and prolongators (all products of
@@ -271,6 +297,24 @@ TUNED = ("block_spmv", "block_spmm", "pbjacobi", "fused_smoother",
 #: tests/test_kernels.py:41-48)
 PRECISIONS = {"f32": 2e-5, "bf16": 5e-2}
 PREC_BURST = 4           # requests of the precision path's serve burst
+#: the obs phase: the kernel-family spans of a vector hot step, the panel
+#: width of the counted panel solve, and the f64 static profiled hot
+#: step's device events in PR 21's final run (PERF.md section 5)
+KERNEL_SPANS = ("kernels/block_seg_sum", "kernels/fused_pair_gemm",
+                "kernels/block_spmv", "kernels/fused_smoother", "spmv_ell",
+                "apply_ell_t")
+OBS_K = 4
+PR21_HOT_EVENTS = 3778
+#: the march phase at m=32 (softening rate, steps, StalenessConfig's
+#: iter_drift / ref_window / coeff_rtol, the paper's setup setting) and
+#: its CPU-vs-card check at m=5 (the reference's acceptance battery:
+#: 8 steps, rtol 1e-10, coarse_size 8 with the MIS coarsener)
+MARCH_RATE = 0.25
+MARCH_STEPS = 6
+MARCH_STALENESS = (2, 2, 0.25)
+MARCH_SETUP = {"coarsener": "greedy", "coarse_size": 100}
+MARCH_CHECK_M, MARCH_CHECK_STEPS = 5, 8
+MARCH_TOL = 1e-10        # final state, CPU against the card
 
 
 def _ops():
@@ -1061,7 +1105,8 @@ def h2d_witness() -> int:
     may not once a process has run other profiled work.  One profiler
     session, opened before any other work, holds a ``record_function``
     range for each of three control copies, each of the coefficient
-    path's four updates (``ElasticityConfig(m=32)`` as built) and the
+    path's four updates (``ElasticityConfig(m=32)`` as built), the second
+    and third steps of a frozen march segment on that problem and the
     three controls again; prints one JSON line of the bytes each range
     moved host to device by the profiler's memcpy events and by
     ``obs.transfer.count_h2d``."""
@@ -1073,6 +1118,9 @@ def h2d_witness() -> int:
     from repro_torch.fem.assemble import inclusion_fields
     from repro_torch.kernels import backend
     from repro_torch.obs.transfer import count_h2d
+    from repro_torch.sim import (MarchConfig, SofteningScenario,
+                                 StalenessConfig, init_carry, make_segment)
+    from repro_torch.sim.driver import _setup_from_fields
 
     backend.build_library()
     n = 2 ** 20
@@ -1101,6 +1149,18 @@ def h2d_witness() -> int:
         for c in CONTRASTS:
             E, nu = inclusion_fields(prob.mesh, E_inclusion=c)
             ranged(f"update {c}", lambda: solver.update_coefficients(E, nu))
+        # a frozen march segment: its first step (outside the ranges) puts
+        # the setup's index arrays on the card; the next two copy nothing
+        scen = SofteningScenario.build(prob, rate=MARCH_RATE)
+        cfg = MarchConfig(n_steps=3, seg_len=8, staleness=StalenessConfig(
+            iter_drift=10**6, ref_window=1, coeff_rtol=10**6))
+        carry = init_carry(scen, prob.b)
+        E, nu, _ = scen.step_fields(carry.scen, carry.x, carry.step)
+        seg = make_segment(_setup_from_fields(prob, E, nu, MARCH_SETUP),
+                           prob.assembler, scen, cfg)
+        _, carry, _, _ = seg(prob.b, carry, 1)
+        ranged("march segment steps 2-3",
+               lambda: seg(prob.b, carry, cfg.n_steps))
         for k, fn in controls.items():
             ranged(f"control {k} after", fn)
     by_range, outside = _h2d_by_range(prof)
@@ -1160,7 +1220,8 @@ def h2d_check(tries: int = 3) -> dict:
     fields plus ``H2D_SLACK`` bytes by both counts.  A child whose
     profiler missed a control copy measured nothing, so another child
     runs (at most ``tries`` in all); the updates are held only in a child
-    whose every control read its size."""
+    whose every control read its size.  The march segment's second and
+    third steps must move 0 bytes by both counts."""
     for attempt in range(1, tries + 1):
         rec = _h2d_witness_run()
         size = rec["control_bytes"]
@@ -1181,6 +1242,10 @@ def h2d_check(tries: int = 3) -> dict:
             if name.startswith("control to") and got["aten"] != size:
                 raise AssertionError(f"h2d {name}: the aten count read "
                                      f"{got['aten']} bytes of {size}")
+        elif name.startswith("march"):
+            if got["profiler"] or got["aten"]:
+                raise AssertionError(f"h2d {name}: {got} bytes host to "
+                                     f"device; expected 0")
         elif not all(fields <= got[k] <= fields + H2D_SLACK
                      for k in ("profiler", "aten")):
             raise AssertionError(f"h2d {name}: {got} bytes host to device;"
@@ -2621,6 +2686,338 @@ def aggregates_vs_cpu(run: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Observability and the time march
+# ---------------------------------------------------------------------------
+
+def expected_spans(n_smoothed: int) -> set:
+    """The span names of a vector hot step (reassembly, recompute, solve)
+    on a hierarchy of ``n_smoothed`` smoothed levels."""
+    names = {"vcycle/coarse", "recompute/coarse_chol"} | set(KERNEL_SPANS)
+    for li in range(n_smoothed):
+        names |= {f"vcycle/level{li}/{s}"
+                  for s in ("smooth", "restrict", "prolong")}
+        names |= {f"recompute/level{li}/{s}"
+                  for s in ("smoother_data", "ptap")}
+    return names
+
+
+def _profiled(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``, after a dropped warm-up step and
+    a host pause on each side of the recorded window (as
+    ``_profile_step``): its result, the device kernel events and the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) \
+            as prof:
+        warm = torch.zeros(WARMUP_KERNELS, device="cuda")
+        for i in range(WARMUP_KERNELS):
+            warm[i:].add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(WINDOW_PAUSE_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_PAUSE_S)
+        prof.step()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
+    return out, kernels, prof
+
+
+def _device_ms_by_range(prof, names) -> dict:
+    """Device ms of the kernels launched inside each ``record_function``
+    range named in ``names`` (every instance summed), by the launch's
+    runtime call (joined on the correlation id) falling in the range's
+    host span: the library's kernels are launched from C, outside any
+    aten op, so the profiler's op tree does not hold them."""
+    import bisect
+    events = _trace(prof)
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in names:
+            spans.setdefault(e["name"], []).append((e["ts"],
+                                                    e["ts"] + e["dur"]))
+    for v in spans.values():
+        v.sort()
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    out = {name: 0.0 for name in spans}
+    for k in events:
+        if k.get("cat") != "kernel":
+            continue
+        ts = launched.get(k.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        for name, iv in spans.items():
+            i = bisect.bisect_right(iv, (ts, float("inf"))) - 1
+            if i >= 0 and iv[i][0] <= ts <= iv[i][1]:
+                out[name] += k["dur"] / 1e3
+    return out
+
+
+def _expect_tally(tally, cycles: int, n_smoothed: int, label: str) -> None:
+    """The reference's analytic counts (``tests/test_obs.py``): one
+    operator apply, one V-cycle and one coarse solve a cycle, a visit and
+    two smoother applications a smoothed level a cycle."""
+    got = dict(precond=int(tally.precond_applies),
+               op=int(tally.operator_applies),
+               coarse=int(tally.coarse_solves),
+               level_visits=tally.level_visits.tolist(),
+               smoother=tally.smoother_applies.tolist())
+    want = dict(precond=cycles, op=cycles, coarse=cycles,
+                level_visits=[cycles] * n_smoothed,
+                smoother=[2 * cycles] * n_smoothed)
+    if got != want:
+        raise AssertionError(f"obs counters {label}: tally {got}, the "
+                             f"analytic counts are {want}")
+
+
+def obs_phase(run: dict, hot: dict) -> dict:
+    """The observability layer on the main path's m=32 setup.
+
+    spans: one hot step (reassembly, recompute, solve) profiled through
+    closures built under ``use("spans")``: every expected span name in
+    the trace, the device ms under each, and the solution's SHA-256 equal
+    to the same step's under ``"off"``.  counters: a
+    ``make_solve(obs="counters")`` vector solve and a
+    ``make_block_solve(obs="counters")`` solve at k=4, bitwise the off
+    solves, their tallies equal to the analytic counts, the extra device
+    kernels a cycle costs (profiled off and counted solves), and the
+    modeled MB beside the counted solve's device time.  off: the static
+    profiled hot step's device events beside PR 21's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gamg
+    from repro_torch.multirhs.block_krylov import make_block_solve
+    from repro_torch.obs import trace
+
+    prob, solver = run["prob"], run["solver"]
+    sd = solver.setup_data
+    nl = len(sd.levels)
+    kw = dict(rtol=solver.rtol, maxiter=solver.maxiter)
+    a = prob.reassemble(1.3).data              # the profiled step's values
+    with trace.use("off"):
+        off_rec, off_solve = gamg.make_recompute(sd), gamg.make_solve(sd,
+                                                                      **kw)
+        hier = off_rec(a)
+        off = off_solve(hier, prob.b)
+    with trace.use("spans"):
+        rec, solve = gamg.make_recompute(sd), gamg.make_solve(sd, **kw)
+        solve(rec(a), prob.b)                  # the closures bind "spans"
+
+        def step():
+            return solve(rec(prob.reassemble(1.3).data), prob.b)
+
+        res, kernels, prof = _profiled(step)
+    want = expected_spans(nl)
+    by_span = _device_ms_by_range(prof, want)
+    missing = sorted(want - set(by_span))
+    same = _sha(res.x) == _sha(off.x) and res.iters == off.iters
+    print("obs spans " + json.dumps(dict(
+        expected=len(want), found=len(by_span), missing=missing,
+        iters=res.iters, sha=_sha(res.x), off_sha=_sha(off.x),
+        bitwise_off=same, device_events=len(kernels),
+        device_busy_ms=sum(e.device_time for e in kernels) / 1e3,
+        device_ms_by_span=dict(sorted(by_span.items())))))
+    if missing or not same:
+        raise AssertionError(f"obs spans: missing {missing}, solution "
+                             f"bitwise the off solve's: {same}")
+
+    counted = gamg.make_solve(sd, obs="counters", **kw)
+    res_c = counted(hier, prob.b)
+    cycles = off.iters + 1
+    _expect_tally(res_c.counters, cycles, nl, "vector")
+    if not (torch.equal(res_c.x, off.x) and res_c.iters == off.iters):
+        raise AssertionError("obs counters: the counted solve is not "
+                             "bitwise the off solve")
+    B = torch.as_tensor(np.random.default_rng(22).standard_normal(
+        (prob.n, OBS_K)), device="cuda")
+    B[:, 0] = prob.b
+    off_p = make_block_solve(sd, obs="off", **kw)(hier, B)
+    cnt_p = make_block_solve(sd, obs="counters", **kw)(hier, B)
+    _expect_tally(cnt_p.counters, int(off_p.iters.max()) + 1, nl, "panel")
+    if not (torch.equal(cnt_p.x, off_p.x)
+            and torch.equal(cnt_p.iters, off_p.iters)):
+        raise AssertionError("obs counters: the counted k=4 panel is not "
+                             "bitwise the off panel")
+    _, k_off, _ = _profiled(lambda: off_solve(hier, prob.b))
+    res_p, k_cnt, _ = _profiled(lambda: counted(hier, prob.b))
+    busy_ms = sum(e.device_time for e in k_cnt) / 1e3
+    modeled = float(res_p.counters.modeled_bytes)
+    out = dict(
+        vector=trace.describe_tally(res_c.counters),
+        panel=trace.describe_tally(cnt_p.counters), iters=off.iters,
+        panel_iters=off_p.iters.tolist(), bitwise_off=True,
+        off_solve_device_events=len(k_off),
+        counted_solve_device_events=len(k_cnt),
+        extra_kernels_per_iteration=(len(k_cnt) - len(k_off)) / cycles,
+        modeled_MB=modeled / 1e6, counted_solve_device_ms=busy_ms,
+        off_solve_device_ms=sum(e.device_time for e in k_off) / 1e3,
+        modeled_GB_per_s=modeled / (busy_ms * 1e-3) / 1e9)
+    print("obs counters " + json.dumps(out))
+    print("obs off " + json.dumps(dict(
+        hot_step_device_events=hot["device_events"],
+        pr21_device_events=PR21_HOT_EVENTS,
+        equal=hot["device_events"] == PR21_HOT_EVENTS,
+        library_events=hot["library_events"])))
+    return out
+
+
+def _march_cfg(n_steps: int, rtol: float = 1e-8):
+    from repro_torch.sim import MarchConfig, StalenessConfig
+    return MarchConfig(n_steps=n_steps, seg_len=8, rtol=rtol, maxiter=400,
+                       staleness=StalenessConfig(*MARCH_STALENESS))
+
+
+def _segments(res) -> list:
+    return [f"{s.steps}@setup{s.setup_id}({s.reason})" for s in res.segments]
+
+
+def march_phase(device="cuda") -> tuple:
+    """The time march at m=32: ``SofteningScenario`` (rate
+    ``MARCH_RATE``) on the device-assembled problem, the paper's greedy
+    setting, ``MARCH_STEPS`` steps under ``frozen``, ``adaptive`` and
+    ``resetup`` in turns.  Each mode must end ``ok`` with every step
+    healthy, and the adaptive march must rebuild at least once and set up
+    fewer times than ``resetup``.  Then one setup at the adaptive march's
+    final fields (timed) and every kernel against its plain version on
+    that hierarchy (``march kernel case`` lines).  Returns the path's
+    launches and the kernel checks."""
+    import types
+
+    import torch
+
+    from repro_torch.core import gamg
+    from repro_torch.fem.assemble import assemble_elasticity
+    from repro_torch.robust.health import HEALTHY
+    from repro_torch.sim import SofteningScenario, march
+    from repro_torch.sim.driver import _setup_from_fields
+
+    counts = PathCounts()
+    prob, _ = counts.run(lambda: assemble_elasticity(MAIN_M, path="device",
+                                                     device=device))
+    scen = SofteningScenario.build(prob, rate=MARCH_RATE)
+    cfg = _march_cfg(MARCH_STEPS)
+    runs = {}
+    for mode in ("frozen", "adaptive", "resetup"):
+        sync(device)
+        t0 = time.perf_counter()
+        res, _ = counts.run(lambda: march(prob, scen, cfg, mode=mode,
+                                          setup_opts=MARCH_SETUP))
+        sync(device)
+        wall = time.perf_counter() - t0
+        runs[mode] = res
+        print("march " + json.dumps(dict(
+            mode=mode, m=MAIN_M, status=res.status, setups=res.n_setups,
+            segments=_segments(res), iters=res.iters.tolist(),
+            total_iters=res.total_iters, wall_s=wall,
+            ms_per_step=1e3 * wall / max(res.steps_done, 1),
+            max_relres=float(res.relres.max()),
+            coeff_drift=res.coeff_drift.tolist())))
+        if res.status != "ok" or res.steps_done != MARCH_STEPS or not (
+                res.step_status == HEALTHY).all():
+            raise AssertionError(f"march {mode}: status {res.status}, "
+                                 f"{res.steps_done} steps, statuses "
+                                 f"{res.step_status.tolist()}")
+    frozen, adaptive, resetup = (runs[k] for k in ("frozen", "adaptive",
+                                                   "resetup"))
+    if not 2 <= adaptive.n_setups < resetup.n_setups:
+        raise AssertionError(f"march: adaptive set up {adaptive.n_setups} "
+                             f"times, resetup {resetup.n_setups}")
+    rel = float(torch.linalg.vector_norm(adaptive.x - resetup.x)
+                / torch.linalg.vector_norm(resetup.x))
+    sync(device)
+    t0 = time.perf_counter()
+    sd = _setup_from_fields(prob, adaptive.E, adaptive.nu, MARCH_SETUP)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    hier = gamg.recompute(sd, prob.assembler.coo_data(adaptive.E,
+                                                      adaptive.nu))
+    step_ms = march_step_ms(prob, scen, sd)
+    print("march compare " + json.dumps(dict(
+        rate=MARCH_RATE, n_steps=MARCH_STEPS, staleness=MARCH_STALENESS,
+        setup_opts=MARCH_SETUP,
+        setups={k: r.n_setups for k, r in runs.items()},
+        adaptive_vs_resetup_rel=rel,
+        total_iters={k: r.total_iters for k, r in runs.items()},
+        setup_s_at_final_fields=setup_s, frozen_step_ms=step_ms,
+        level_rows=sd.stats["level_rows"], launches=counts.total)))
+    solver = types.SimpleNamespace(setup_data=sd, hierarchy=hier)
+    per = check_kernels(build_cases(dict(prob=prob, solver=solver), device),
+                        PEAKS, timed=False, label="march ")
+    return counts.total, per
+
+
+def march_step_ms(prob, scen, sd, steps: int = 4) -> list:
+    """Host ms of each step of a frozen segment on ``sd`` (after one
+    warm step; a ``torch.cuda.synchronize()`` closes each): a march step
+    apart from its setups."""
+    from repro_torch.sim import init_carry, make_segment
+    from repro_torch.sim.driver import MarchConfig, StalenessConfig
+    cfg = MarchConfig(n_steps=steps + 1, seg_len=1, rtol=1e-8,
+                      maxiter=400, staleness=StalenessConfig(
+                          iter_drift=10**6, ref_window=1,
+                          coeff_rtol=10**6))
+    seg = make_segment(sd, prob.assembler, scen, cfg)
+    carry = init_carry(scen, prob.b)
+    out = []
+    for i in range(steps + 1):
+        sync(prob.b.device)
+        t0 = time.perf_counter()
+        _, carry, _, _ = seg(prob.b, carry, cfg.n_steps)
+        sync(prob.b.device)
+        if i:
+            out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def march_cpu_vs_cuda(devices=("cpu", "cuda")) -> dict:
+    """``python -m repro_torch.march``'s setting (the reference's
+    acceptance battery, ``tests/test_march.py``) at m=5 on the CPU and on
+    the card, rtol 1e-10: per mode equal iterations per step, statuses,
+    segments and setups, and final states within ``MARCH_TOL``."""
+    from repro_torch.fem.assemble import assemble_elasticity
+    from repro_torch.sim import SofteningScenario, march
+
+    cfg = _march_cfg(MARCH_CHECK_STEPS, rtol=1e-10)
+    runs = {}
+    for dev in devices:
+        prob = assemble_elasticity(MARCH_CHECK_M, device=dev)
+        scen = SofteningScenario.build(prob, rate=MARCH_RATE)
+        runs[dev] = {mode: march(prob, scen, cfg, mode=mode,
+                                 setup_opts={"coarse_size": 8})
+                     for mode in ("frozen", "adaptive", "resetup")}
+    cpu, gpu = (runs[d] for d in devices)
+    out = {}
+    for mode, rc in cpu.items():
+        rg = gpu[mode]
+        same = (rc.iters.tolist() == rg.iters.tolist()
+                and rc.step_status.tolist() == rg.step_status.tolist()
+                and _segments(rc) == _segments(rg)
+                and rc.n_setups == rg.n_setups and rc.status == rg.status
+                == "ok")
+        rel = _rel(rg.x, rc.x)
+        out[mode] = dict(iters=rc.iters.tolist(), setups=rc.n_setups,
+                         segments=_segments(rc), equal=same, x_rel=rel)
+        if not same or not rel <= MARCH_TOL:
+            raise AssertionError(
+                f"march {mode} m={MARCH_CHECK_M}: CPU {rc.iters.tolist()} "
+                f"{_segments(rc)}, card {rg.iters.tolist()} "
+                f"{_segments(rg)}; x differs by {rel:.3e}")
+    out["adaptive_vs_resetup_rel"] = _rel(cpu["adaptive"].x,
+                                          cpu["resetup"].x)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2737,7 +3134,7 @@ def run_all() -> int:
         print("main path launches " + json.dumps(by_path["main"]))
         print("launches per hot step " + json.dumps(per_step))
         print("coarse operators " + json.dumps(check_fingerprint(run)))
-        profile_hot_step(run)
+        hot = profile_hot_step(run)
 
         by_path["serve"] = serve_path(run, "cuda", EXPECT_ITERS)
     check_path_launches("serve", by_path["serve"],
@@ -2746,6 +3143,7 @@ def run_all() -> int:
     check_path_launches("pairs", by_path["pairs"],
                         ("block_pair_gemm", "block_seg_sum"))
     by_path["stored"], run["r_ells"] = stored_path(run)
+    obs_phase(run, hot)
 
     print("bitwise per column " + json.dumps(
         check_bitwise(run, "cuda", extra_ells=run["r_ells"])))
@@ -2782,7 +3180,10 @@ def run_all() -> int:
     check_path_launches("mis", by_path["mis"], MAIN_KERNELS)
     by_path["coeff"], coeff_per = coefficient_path()
     check_path_launches("coeff", by_path["coeff"], MAIN_KERNELS)
-    for other in (mis_per, coeff_per):
+    by_path["march"], march_per = march_phase()
+    check_path_launches("march", by_path["march"], MAIN_KERNELS)
+    print("march cpu vs cuda " + json.dumps(march_cpu_vs_cuda()))
+    for other in (mis_per, coeff_per, march_per):
         fold_errors(per, other)
     print("coefficient h2d " + json.dumps(h2d_check()))
     by_path["robust"] = robust_path(run)

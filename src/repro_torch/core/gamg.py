@@ -19,6 +19,14 @@ twin of ``repro.core.gamg``).
                ``recompute``; only the two fields cross to the device.
 ``hier_solve`` hot KSPSolve: AMG-preconditioned CG.
 
+Observability (``repro_torch.obs``): the recompute's stages run in spans
+(``recompute/level{i}/smoother_data|ptap``, ``recompute/coarse_chol``);
+``make_solve(obs=)`` and ``GAMGSolver(obs=)`` resolve the mode when they
+are built, and under ``"counters"`` the solve threads a ``CycleTally``
+and reports it in ``CGResult.counters`` with the modeled bytes of its
+cycles.  ``GAMGSolver.march`` is the front door of the time march
+(``repro_torch.sim``).
+
 Reuse model = PETSc ``-pc_gamg_reuse_interpolation true``: aggregates and
 prolongator values stay fixed across recomputes.  The device placement of
 the whole hierarchy follows the fine operator's data tensor; its dtypes
@@ -64,6 +72,7 @@ from repro_torch.core.tentative import tentative_prolongator
 from repro_torch.core.vcycle import Hierarchy, LevelState, fine_operator, \
     vcycle
 from repro_torch.kernels import backend
+from repro_torch.obs import trace as obs_trace
 from repro_torch.robust import inject
 
 
@@ -343,15 +352,20 @@ def recompute(setupd: GAMGSetup, a_fine_data: torch.Tensor, *,
     h = policy.hierarchy_dtype
     a_data = a_fine_data.to(h)
     states = []
+    span = obs_trace.span
     for li, ls in enumerate(setupd.levels):
         # level-gated fault site (repro_torch.robust.inject)
         a_data = inject.maybe("hierarchy", a_data, level=li)
-        states.append(level_state(ls, a_data, policy))
-        a_data = ptap_numeric_data(ls.ptap_cache, a_data, ls.P.data.to(h),
-                                   accum_dtype=policy.kernel_accum_dtype,
-                                   path=spgemm_path)
+        with span(f"recompute/level{li}/smoother_data"):
+            states.append(level_state(ls, a_data, policy))
+        with span(f"recompute/level{li}/ptap"):
+            a_data = ptap_numeric_data(ls.ptap_cache, a_data,
+                                       ls.P.data.to(h),
+                                       accum_dtype=policy.kernel_accum_dtype,
+                                       path=spgemm_path)
     a_data = inject.maybe("hierarchy", a_data, level=len(setupd.levels))
-    chol = coarse_cholesky(_coarse_dense(setupd, a_data), policy)
+    with span("recompute/coarse_chol"):
+        chol = coarse_cholesky(_coarse_dense(setupd, a_data), policy)
     a_fine_ell = None
     if policy.mixed and setupd.levels:
         a_fine_ell = setupd.levels[0].a_ell_plan.build(
@@ -379,14 +393,49 @@ def make_recompute(setupd: GAMGSetup):
     return inject.traced(hot_recompute, _spgemm_knob(setupd))
 
 
-def make_solve(setupd: GAMGSetup, rtol: float = 1e-8, maxiter: int = 200):
-    """The hot KSPSolve closure ``(Hierarchy, b, x0=None) -> CGResult``:
-    AMG-preconditioned CG, ``x0`` warm-starting it."""
-    def solve(hier: Hierarchy, b: torch.Tensor,
-              x0: torch.Tensor | None = None) -> CGResult:
-        return hier_solve(setupd, hier, b, x0, rtol=rtol, maxiter=maxiter)
+def _solve_fn(setupd: GAMGSetup, rtol: float, maxiter: int, mode: str):
+    """The solve of a resolved observability ``mode``: ``hier_solve``
+    itself, or under ``"counters"`` the same solve threading a fresh
+    ``CycleTally`` whose ``modeled_bytes`` are the cycles it counted times
+    ``vcycle_traffic``'s bytes a cycle at the hierarchy's itemsize."""
+    if not obs_trace.counters_enabled(mode):
+        def solve(hier: Hierarchy, b: torch.Tensor,
+                  x0: torch.Tensor | None = None) -> CGResult:
+            return hier_solve(setupd, hier, b, x0, rtol=rtol,
+                              maxiter=maxiter)
+        return solve
 
-    return inject.traced(solve)
+    from repro_torch.obs.model import cycle_bytes
+    per_cycle = cycle_bytes(setupd)
+    smoother, degree = setupd.smoother, setupd.degree
+
+    def counted_solve(hier: Hierarchy, b: torch.Tensor,
+                      x0: torch.Tensor | None = None) -> CGResult:
+        def apply_a(x):
+            return spmv_ell(fine_operator(hier), x)
+
+        def apply_m(r, tl):
+            return vcycle(hier, r, smoother=smoother, degree=degree,
+                          tally=tl)
+
+        res = pcg(apply_a, apply_m, b, x0=x0, rtol=rtol, maxiter=maxiter,
+                  precond_dtype=setupd.precision.smoother_dtype,
+                  tally=obs_trace.zero_tally(setupd.n_levels, b.device))
+        return res._replace(counters=obs_trace.attach_model_bytes(
+            res.counters, per_cycle))
+
+    return counted_solve
+
+
+def make_solve(setupd: GAMGSetup, rtol: float = 1e-8, maxiter: int = 200,
+               obs: str | None = None):
+    """The hot KSPSolve closure ``(Hierarchy, b, x0=None) -> CGResult``:
+    AMG-preconditioned CG, ``x0`` warm-starting it.  ``obs`` (None: the
+    ``use`` scope, else ``REPRO_TORCH_OBS``) is resolved here and holds
+    for every call: ``"counters"`` fills ``CGResult.counters``; ``"off"``
+    dispatches exactly ``hier_solve``'s ops."""
+    mode = obs_trace.resolve(obs)
+    return inject.traced(_solve_fn(setupd, rtol, maxiter, mode), obs=mode)
 
 
 def _check_assembler(setupd: GAMGSetup, assembler) -> None:
@@ -452,19 +501,25 @@ def hier_solve(setupd: GAMGSetup, hier: Hierarchy, b: torch.Tensor,
 
 class GAMGSolver:
     """PETSc-shaped front door: setup once, re-solve many times.  Runs on
-    the device of ``A.data``."""
+    the device of ``A.data``.  ``obs`` (None: the ``use`` scope, else
+    ``REPRO_TORCH_OBS``) is resolved at construction; the recomputes and
+    solves run under it, and the panel solves take it too."""
 
     def __init__(self, A: BlockCSR, B: torch.Tensor, *, rtol: float = 1e-8,
-                 maxiter: int = 200, **opts):
+                 maxiter: int = 200, obs: str | None = None, **opts):
         self.rtol, self.maxiter = rtol, maxiter
+        self.obs = obs_trace.resolve(obs)
         self.setup_data = setup(A, B, **opts)
-        self.hierarchy = recompute(self.setup_data, A.data)
+        self._solve = _solve_fn(self.setup_data, rtol, maxiter, self.obs)
+        with obs_trace.use(self.obs):
+            self.hierarchy = recompute(self.setup_data, A.data)
         self.n_recomputes = 0
         self.assembler = None
 
     def update_operator(self, a_fine_data: torch.Tensor) -> None:
         """Hot path: new operator values, same structure (Newton step)."""
-        self.hierarchy = recompute(self.setup_data, a_fine_data)
+        with obs_trace.use(self.obs):
+            self.hierarchy = recompute(self.setup_data, a_fine_data)
         self.n_recomputes += 1
 
     def bind_assembler(self, assembler) -> None:
@@ -490,8 +545,8 @@ class GAMGSolver:
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None
               ) -> CGResult:
         """Solve; ``x0`` warm-starts CG from a prior iterate."""
-        return hier_solve(self.setup_data, self.hierarchy, b, x0,
-                          rtol=self.rtol, maxiter=self.maxiter)
+        with obs_trace.use(self.obs):
+            return self._solve(self.hierarchy, b, x0)
 
     def solve_many(self, B: torch.Tensor, x0: torch.Tensor | None = None):
         """Panel solve: ``B (n, k)`` -> ``BlockCGResult`` (per-column
@@ -500,5 +555,16 @@ class GAMGSolver:
         of requests go through ``repro_torch.multirhs.AMGSolveServer``."""
         from repro_torch.multirhs.block_krylov import make_block_solve
         solve = make_block_solve(self.setup_data, rtol=self.rtol,
-                                 maxiter=self.maxiter)
+                                 maxiter=self.maxiter, obs=self.obs)
         return solve(self.hierarchy, B, x0)
+
+    def march(self, prob, scenario, cfg, **kw):
+        """Front door of the time march (``repro_torch.sim.driver
+        .march``): quasi-static coefficient evolution through fused
+        assembly, recompute and warm-started solve steps, re-coarsened at
+        staleness boundaries.  ``prob`` is the assembled problem this
+        solver was built from (device assembly path); ``setup_opts``
+        defaults to ``{}`` (``setup``'s defaults), as the reference's."""
+        from repro_torch.sim.driver import march as _march
+        kw.setdefault("setup_opts", {})
+        return _march(prob, scenario, cfg, **kw)

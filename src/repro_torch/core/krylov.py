@@ -7,7 +7,9 @@ the discarded broken step, the best (minimum-residual) iterate returned on
 a non-converged exit, the ``finfo.tiny`` floor of ``||b||`` — stays on the
 device and follows the reference step for step.  The fault-injection
 sites ``spmv`` and ``precond`` (``repro_torch.robust.inject``) sit where
-the reference's do, gated on the host iteration counter.
+the reference's do, gated on the host iteration counter.  With a
+``tally=`` (``repro_torch.obs.trace.CycleTally``) the loop also counts
+operator and preconditioner applications on the device.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.robust import inject
 from repro_torch.robust.health import SolveHealth, status_of
 
@@ -25,6 +28,9 @@ class CGResult(NamedTuple):
     relres: torch.Tensor
     converged: torch.Tensor
     health: SolveHealth
+    # the device solve counters (obs.trace.CycleTally) of a counted
+    # solve; None otherwise
+    counters: "obs_trace.CycleTally | None" = None
 
 
 def wrap_precond(apply_m: Callable[[torch.Tensor], torch.Tensor],
@@ -45,7 +51,7 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         apply_m: Callable[[torch.Tensor], torch.Tensor],
         b: torch.Tensor, x0: torch.Tensor | None = None, rtol: float = 1e-8,
         maxiter: int = 200, precond_dtype=None,
-        stall_window: int = 40) -> CGResult:
+        stall_window: int = 40, tally=None) -> CGResult:
     """Standard PCG with a fixed SPD preconditioner (one AMG V-cycle).
 
     ``x0`` warm-starts the iteration (``None``: zero start).  The loop
@@ -53,11 +59,26 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
     or ``stall_window`` iterations without a new best residual; a broken
     step's update is discarded, and a non-converged exit returns the
     minimum-residual iterate.
+
+    ``tally`` (an ``obs.trace.CycleTally``) threads the device counters:
+    ``apply_m`` then has the form ``(r, tally) -> (z, tally)`` (``vcycle``
+    with ``tally=``), each operator apply adds 1 to ``operator_applies``,
+    and the result's ``counters`` holds the totals.  ``None`` (default)
+    leaves the recurrence and its ops exactly the uncounted ones.
     """
-    apply_m = wrap_precond(apply_m, precond_dtype, b.dtype)
+    counted = tally is not None
+    if counted:
+        apply_m = obs_trace.wrap_threaded_precond(apply_m, precond_dtype,
+                                                  b.dtype)
+    else:
+        apply_m = wrap_precond(apply_m, precond_dtype, b.dtype)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_a(x)
-    z = apply_m(r)
+    if counted:
+        tally = tally._replace(operator_applies=tally.operator_applies + 1)
+        z, tally = apply_m(r, tally)
+    else:
+        z = apply_m(r)
     p = z
     rz = torch.dot(r, z)
     bnorm = torch.clamp_min(torch.linalg.vector_norm(b),
@@ -81,7 +102,13 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         alpha = rz / pAp
         x_new = x + alpha * p
         r_new = r - alpha * Ap
-        z_new = inject.maybe("precond", apply_m(r_new), step=k)
+        if counted:
+            tally = tally._replace(
+                operator_applies=tally.operator_applies + 1)
+            z_new, tally = apply_m(r_new, tally)
+            z_new = inject.maybe("precond", z_new, step=k)
+        else:
+            z_new = inject.maybe("precond", apply_m(r_new), step=k)
         rz_new = torch.dot(r_new, z_new)
         beta = rz_new / rz
         p_new = z_new + beta * p
@@ -114,4 +141,4 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         nonfinite=nonf, stagnation=stag, best_iter=best_k,
         best_relres=best_rnorm / bnorm)
     return CGResult(x=x_out, iters=k, relres=rnorm_out / bnorm,
-                    converged=converged, health=health)
+                    converged=converged, health=health, counters=tally)

@@ -25,8 +25,10 @@ from repro_torch.core.block_csr import BlockCSR, BlockELL, \
     EllTransposePlan, device_array
 from repro_torch.kernels.block_spmm import ops as spmm_ops
 from repro_torch.kernels.block_spmv import ops as spmv_ops
+from repro_torch.obs import trace as obs_trace
 
 
+@obs_trace.spanned("spmv_ell")
 def spmv_ell(ell: BlockELL, x: torch.Tensor, *,
              accum_dtype=None) -> torch.Tensor:
     """y = A @ x on the padded ELL layout.  x: (nbc*bc,) -> y: (nbr*br,),
@@ -35,6 +37,7 @@ def spmv_ell(ell: BlockELL, x: torch.Tensor, *,
     return spmv_ops.block_spmv(ell, x, accum_dtype=accum_dtype)
 
 
+@obs_trace.spanned("spmm_ell")
 def spmm_ell(ell: BlockELL, X: torch.Tensor, *,
              accum_dtype=None) -> torch.Tensor:
     """Y = A @ X for a panel X: ``(nbc*bc, k)`` -> ``(nbr*br, k)``.  ``k ==
@@ -102,6 +105,7 @@ def apply_ell(ell: BlockELL, x: torch.Tensor) -> torch.Tensor:
     return spmv_ell(ell, x) if x.ndim == 1 else spmm_ell(ell, x)
 
 
+@obs_trace.spanned("apply_ell_t")
 def apply_ell_t(ell: BlockELL, pt: EllTransposePlan,
                 x: torch.Tensor) -> torch.Tensor:
     """y = A^T @ x straight off A's ELL blocks (transpose-free

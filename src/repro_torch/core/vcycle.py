@@ -10,7 +10,10 @@ default each recurrence step is one ``fused_smoother`` kernel launch —
 and a dense Cholesky coarse solve.  Every step takes a vector ``(n,)`` or
 a column panel ``(n, k)``, so the multi-RHS solve runs this same cycle.
 Nothing in the cycle waits on the host: the Chebyshev coefficients are
-device scalars derived from the device ``lam_max``.
+device scalars derived from the device ``lam_max``.  Each stage runs in a
+span (``vcycle/level{i}/smooth|restrict|prolong``, ``vcycle/coarse``;
+``repro_torch.obs.trace``), and with a ``tally=`` the cycle counts its
+level visits, smoother applications and coarse solve on the device.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.core.block_csr import BlockELL, EllTransposePlan
 from repro_torch.core.spmv import apply_ell, apply_ell_t
 from repro_torch.kernels import backend
 from repro_torch.kernels.fused_smoother import ops as smoother_ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.robust import inject
 
 
@@ -182,32 +186,60 @@ def apply_restriction(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
 
 
 def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
-           degree: int = 2) -> torch.Tensor:
+           degree: int = 2, tally: "obs_trace.CycleTally | None" = None):
     """One V(degree, degree) cycle with zero initial guess (the
-    preconditioner), on a vector ``(n,)`` or a panel ``(n, k)``."""
+    preconditioner), on a vector ``(n,)`` or a panel ``(n, k)``.
+
+    With a ``tally`` (``obs.trace.CycleTally``) it returns ``(x,
+    tally')``: one preconditioner application, a visit and a smoother
+    application per level on the way down, one coarse solve, a smoother
+    application per level on the way up, at the reference's places.
+    ``tally=None`` returns ``x`` and dispatches the uncounted ops."""
+    span = obs_trace.span
+    counted = tally is not None
     bs_stack, x_stack = [], []
     rhs = b
+    if counted:
+        tally = tally._replace(precond_applies=tally.precond_applies + 1)
     for li, lv in enumerate(hier.levels):
-        x = apply_smoother(lv, rhs, torch.zeros_like(rhs), smoother, degree)
+        with span(f"vcycle/level{li}/smooth"):
+            x = apply_smoother(lv, rhs, torch.zeros_like(rhs), smoother,
+                               degree)
         r = rhs - apply_ell(lv.a_ell, x)
         bs_stack.append(rhs)
         x_stack.append(x)
         # fault sites (repro_torch.robust.inject): x itself unless a
         # schedule is installed
-        rhs = inject.maybe("vcycle", apply_restriction(lv, r), level=li)
+        with span(f"vcycle/level{li}/restrict"):
+            rhs = inject.maybe("vcycle", apply_restriction(lv, r), level=li)
+        if counted:
+            tally = tally._replace(
+                level_visits=obs_trace.bump(tally.level_visits, li),
+                smoother_applies=obs_trace.bump(tally.smoother_applies, li))
     # cholesky_solve has no bf16 kernel on either device: a bf16 level
     # solves at f32 (the policy's factor dtype) and rounds to its dtype.
     # It returns column-major panels; the kernels take row-major panels.
-    chol = hier.coarse_chol
-    fd = torch.float32 if chol.dtype == torch.bfloat16 else chol.dtype
-    xc = inject.maybe("coarse", torch.cholesky_solve(
-        rhs.reshape(rhs.shape[0], -1).to(fd), chol.to(fd)).to(
-            rhs.dtype).contiguous().reshape(rhs.shape))
-    for lv, rhs_l, x in zip(reversed(hier.levels), reversed(bs_stack),
-                            reversed(x_stack)):
-        x = x + apply_ell(lv.p_ell, xc)          # prolong + correct
-        xc = apply_smoother(lv, rhs_l, x, smoother, degree)
-    return xc
+    with span("vcycle/coarse"):
+        chol = hier.coarse_chol
+        fd = torch.float32 if chol.dtype == torch.bfloat16 else chol.dtype
+        xc = inject.maybe("coarse", torch.cholesky_solve(
+            rhs.reshape(rhs.shape[0], -1).to(fd), chol.to(fd)).to(
+                rhs.dtype).contiguous().reshape(rhs.shape))
+    if counted:
+        tally = tally._replace(coarse_solves=tally.coarse_solves + 1)
+    nlev = len(hier.levels)
+    for up, (lv, rhs_l, x) in enumerate(zip(reversed(hier.levels),
+                                            reversed(bs_stack),
+                                            reversed(x_stack))):
+        li = nlev - 1 - up
+        with span(f"vcycle/level{li}/prolong"):
+            x = x + apply_ell(lv.p_ell, xc)          # prolong + correct
+        with span(f"vcycle/level{li}/smooth"):
+            xc = apply_smoother(lv, rhs_l, x, smoother, degree)
+        if counted:
+            tally = tally._replace(
+                smoother_applies=obs_trace.bump(tally.smoother_applies, li))
+    return (xc, tally) if counted else xc
 
 
 def vcycle_apply_op(hier: Hierarchy, x: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,9 @@ made for the JAX reference never reach it):
 * ``resolve_tune`` — the kernel autotuner's mode (``REPRO_TORCH_TUNE``):
   ``"off"``, ``"cache"`` (default) or ``"sweep"``; see
   ``repro_torch.kernels.autotune``.
+* ``resolve_obs`` — the observability mode (``REPRO_TORCH_OBS``):
+  ``"off"`` (default), ``"spans"`` or ``"counters"``; see
+  ``repro_torch.obs.trace``.
 
 ``"reference"`` runs plain versions, so it is CPU-only: asked for on a CUDA
 device it raises.  On the card the port launches its kernels.
@@ -369,6 +372,38 @@ def resolve_tune(mode: str | None = None) -> str:
     raise ValueError(
         f"invalid autotune mode {mode!r}: expected 'off', 'cache' or "
         f"'sweep' (from REPRO_TORCH_TUNE or the mode= knob)")
+
+
+def resolve_obs(mode: str | None = None) -> str:
+    """The observability mode; honours ``REPRO_TORCH_OBS`` (the
+    reference's ``REPRO_OBS`` is never read).
+
+    "off"       (default) no spans, no counters: a solve dispatches the
+                same aten ops as an unobserved one.
+    "spans"     ``torch.profiler.record_function`` ranges around every
+                kernel family and V-cycle stage (no op added).
+    "counters"  spans plus the device ``CycleTally`` threaded through
+                ``pcg`` / ``block_pcg`` / ``vcycle``.
+
+    Accepts the strings ``repro.kernels.backend.resolve_obs`` accepts,
+    with the same meaning; re-read per call (the closures bind the mode
+    when they are built, ``repro_torch.obs.trace``).  Invalid values raise
+    ``ValueError``.
+    """
+    if mode is None:
+        mode = os.environ.get("REPRO_TORCH_OBS")
+    if mode is None:
+        return "off"
+    key = str(mode).strip().lower()
+    if key in ("", "0", "off", "false", "none"):
+        return "off"
+    if key in ("1", "on", "true", "spans"):
+        return "spans"
+    if key == "counters":
+        return "counters"
+    raise ValueError(
+        f"invalid observability mode {mode!r}: expected 'off', 'spans' or "
+        f"'counters' (from REPRO_TORCH_OBS or the obs= knob)")
 
 
 def resolve_faults(spec=None):

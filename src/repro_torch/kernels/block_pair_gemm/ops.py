@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.block_pair_gemm.ref import block_pair_gemm_ref
+from repro_torch.obs import trace as obs_trace
 
 SHAPES = ((3, 3, 6), (6, 3, 6), (6, 6, 6))
 _ARGS = (backend.P,) * 3 + (backend.I,) * 4 + (backend.P,)
@@ -19,6 +20,7 @@ launches = 0
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
+@obs_trace.spanned("kernels/block_pair_gemm")
 def block_pair_gemm(lhs: torch.Tensor, rhs: torch.Tensor, *,
                     accum_dtype=None, out_dtype=None) -> torch.Tensor:
     """``(npairs, br, bk) @ (npairs, bk, bc)`` -> ``(npairs, br, bc)``.

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
+from repro_torch.obs import trace as obs_trace
 
 SHAPES = ((3, 3), (3, 6), (6, 6))
 _ARGS = (backend.P,) * 4 + (backend.I,) * 3 + (backend.P,)
@@ -20,6 +21,7 @@ launches = 0
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
+@obs_trace.spanned("kernels/block_seg_sum")
 def block_seg_sum(vals: torch.Tensor, offsets: torch.Tensor,
                   perm: torch.Tensor | None = None, *,
                   accum_dtype=None) -> torch.Tensor:

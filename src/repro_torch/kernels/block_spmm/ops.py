@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.block_csr import BlockELL
 from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
+from repro_torch.obs import trace as obs_trace
 
 SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6))
 _ARGS = (backend.P,) * 4 + (backend.I,) * 7 + (backend.P,)
@@ -24,6 +25,7 @@ launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 launches_by_shape = dict.fromkeys(SHAPES, 0)
 
 
+@obs_trace.spanned("kernels/block_spmm")
 def block_spmm_ell(indices: torch.Tensor, data: torch.Tensor,
                    x_panels: torch.Tensor, *, threads: int | None = None,
                    accum_dtype=None) -> torch.Tensor:

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import autotune, backend
 from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
+from repro_torch.obs import trace as obs_trace
 
 SHAPES = ((3, 3, 6), (6, 3, 6), (6, 6, 6))
 _ARGS = (backend.P,) * 6 + (backend.I,) * 6 + (backend.P,)
@@ -19,6 +20,7 @@ launches = 0
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
+@obs_trace.spanned("kernels/fused_pair_gemm")
 def fused_pair_gemm(a_data: torch.Tensor, b_data: torch.Tensor,
                     tile_a: torch.Tensor, tile_b: torch.Tensor,
                     tile_mask: torch.Tensor, *, threads: int | None = None,

@@ -11,6 +11,7 @@ import torch
 from repro_torch.core.block_csr import BlockELL
 from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
+from repro_torch.obs import trace as obs_trace
 
 SHAPES = (3, 6)
 _ARGS = (backend.P,) * 9 + (backend.I,) * 5 + (backend.P,)
@@ -22,6 +23,7 @@ launches = 0
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
+@obs_trace.spanned("kernels/fused_smoother")
 def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                       dinv: torch.Tensor, b_blocks: torch.Tensor,
                       x_blocks: torch.Tensor, d_blocks: torch.Tensor,

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import autotune, backend
 from repro_torch.kernels.pbjacobi.ref import pbjacobi_update_ref
+from repro_torch.obs import trace as obs_trace
 
 SHAPES = (3, 6)
 _ARGS = (backend.P,) * 4 + (backend.D,) + (backend.P,) + (backend.I,) * 3 \
@@ -21,6 +22,7 @@ launches = 0
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 
 
+@obs_trace.spanned("kernels/pbjacobi")
 def pbjacobi_update(dinv: torch.Tensor, r_blocks: torch.Tensor,
                     x_blocks: torch.Tensor, omega, *,
                     threads: int | None = None,

@@ -17,8 +17,9 @@ iterating.  As in ``repro_torch.core.krylov.pcg`` the reference's
 ``while_loop`` is a Python loop whose exit test, ``bool(active.any())``,
 is the one host sync per iteration; everything else stays on the device
 and follows the reference step for step, the fault-injection sites
-``spmv`` and ``precond`` included.  Not ported yet (ROADMAP): the
-``tally=`` / ``obs=`` solve counters.
+``spmv`` and ``precond`` included.  With a ``tally=`` the panel counts its
+applications on the device (``repro_torch.obs.trace``), one operator apply
+and one V-cycle per iteration for all columns, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from repro_torch.core.krylov import wrap_precond
 from repro_torch.core.spmv import apply_ell
 from repro_torch.core.vcycle import Hierarchy, fine_operator, vcycle
+from repro_torch.obs import trace as obs_trace
 from repro_torch.robust import inject
 from repro_torch.robust.health import SolveHealth, status_of
 
@@ -39,6 +41,8 @@ class BlockCGResult(NamedTuple):
     relres: torch.Tensor     # (k,) final per-column relative residual
     converged: torch.Tensor  # (k,) bool
     health: SolveHealth      # per-column (k,) health record
+    # the device solve counters of a counted panel solve; None otherwise
+    counters: "obs_trace.CycleTally | None" = None
 
 
 def _col_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,7 +59,8 @@ def block_pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
               B: torch.Tensor, x0: torch.Tensor | None = None,
               rtol: float = 1e-8, maxiter: int = 200, *,
               col_dot=_col_dot, col_norm=_col_norm, precond_dtype=None,
-              stall_window: int = 40, record_history: bool = False):
+              stall_window: int = 40, record_history: bool = False,
+              tally=None):
     """PCG on a panel ``B (..., k)`` with per-column masking.
 
     ``x0`` warm-starts every column from a prior ``(..., k)`` panel
@@ -71,11 +76,24 @@ def block_pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
     ``record_history=True`` also returns a ``(maxiter, k)`` tensor of
     per-column residual norms: ``[i, c]`` is column ``c``'s ``||r||``
     after iteration ``i + 1``, NaN once the column froze.
+
+    ``tally`` threads the device counters as in ``core.krylov.pcg``
+    (``apply_m`` then ``(R, tally) -> (Z, tally)``): one operator and one
+    preconditioner application per iteration for the whole panel.
     """
-    apply_m = wrap_precond(apply_m, precond_dtype, B.dtype)
+    counted = tally is not None
+    if counted:
+        apply_m = obs_trace.wrap_threaded_precond(apply_m, precond_dtype,
+                                                  B.dtype)
+    else:
+        apply_m = wrap_precond(apply_m, precond_dtype, B.dtype)
     x = torch.zeros_like(B) if x0 is None else x0
     r = B - apply_a(x)
-    z = apply_m(r)
+    if counted:
+        tally = tally._replace(operator_applies=tally.operator_applies + 1)
+        z, tally = apply_m(r, tally)
+    else:
+        z = apply_m(r)
     p = z
     rz = col_dot(r, z)
     bnorm = torch.clamp_min(col_norm(B), torch.finfo(B.dtype).tiny)
@@ -105,7 +123,13 @@ def block_pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         alpha = torch.where(active, rz / torch.where(active, pAp, 1.0), 0.0)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
-        z_new = inject.maybe("precond", apply_m(r_new), step=k)
+        if counted:
+            tally = tally._replace(
+                operator_applies=tally.operator_applies + 1)
+            z_new, tally = apply_m(r_new, tally)
+            z_new = inject.maybe("precond", z_new, step=k)
+        else:
+            z_new = inject.maybe("precond", apply_m(r_new), step=k)
         rz_new = col_dot(r_new, z_new)
         beta = torch.where(active, rz_new / torch.where(active, rz, 1.0),
                            0.0)
@@ -147,32 +171,53 @@ def block_pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         nonfinite=nonf, stagnation=stag, best_iter=best_iter,
         best_relres=best_rnorm / bnorm)
     res = BlockCGResult(x=x_out, iters=iters, relres=rnorm_out / bnorm,
-                        converged=converged, health=health)
+                        converged=converged, health=health, counters=tally)
     return (res, hist) if record_history else res
 
 
 def make_block_solve(setupd, rtol: float = 1e-8, maxiter: int = 200,
-                     record_history: bool = False):
+                     record_history: bool = False, obs: str | None = None):
     """Hot panel solve ``(Hierarchy, B (n, k), x0=None) -> BlockCGResult``
     (``(result, history)`` under ``record_history=True``): the multi-RHS
     twin of ``repro_torch.core.gamg.hier_solve``, with the same smoother
     configuration and panel products everywhere.  The fault schedule in
     force at the first call with each panel shape holds for every later
     call with it (``robust.inject.traced``), as the reference's per-shape
-    traces do."""
+    traces do.  ``obs`` (None: the ``use`` scope, else
+    ``REPRO_TORCH_OBS``) is resolved here; under ``"counters"`` the panel
+    threads a ``CycleTally`` and ``counters`` carries it with the modeled
+    bytes of its cycles."""
     smoother, degree = setupd.smoother, setupd.degree
     precond_dtype = setupd.precision.smoother_dtype
+    mode = obs_trace.resolve(obs)
+    counted = obs_trace.counters_enabled(mode)
+    if counted:
+        from repro_torch.obs.model import cycle_bytes
+        per_cycle = cycle_bytes(setupd)
 
     def solve(hier: Hierarchy, B: torch.Tensor,
               x0: torch.Tensor | None = None):
         def apply_a(X):
             return apply_ell(fine_operator(hier), X)
 
-        def apply_m(R):
-            return vcycle(hier, R, smoother=smoother, degree=degree)
+        if counted:
+            def apply_m(R, tl):
+                return vcycle(hier, R, smoother=smoother, degree=degree,
+                              tally=tl)
+            tally = obs_trace.zero_tally(setupd.n_levels, B.device)
+        else:
+            def apply_m(R):
+                return vcycle(hier, R, smoother=smoother, degree=degree)
+            tally = None
 
-        return block_pcg(apply_a, apply_m, B, x0=x0, rtol=rtol,
-                         maxiter=maxiter, precond_dtype=precond_dtype,
-                         record_history=record_history)
+        out = block_pcg(apply_a, apply_m, B, x0=x0, rtol=rtol,
+                        maxiter=maxiter, precond_dtype=precond_dtype,
+                        record_history=record_history, tally=tally)
+        if not counted:
+            return out
+        res, hist = out if record_history else (out, None)
+        res = res._replace(counters=obs_trace.attach_model_bytes(
+            res.counters, per_cycle))
+        return (res, hist) if record_history else res
 
-    return inject.traced(solve)
+    return inject.traced(solve, obs=mode)

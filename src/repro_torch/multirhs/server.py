@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import gamg
 from repro_torch.multirhs.block_krylov import make_block_solve
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.server_metrics import ServerMetrics
 from repro_torch.robust import inject
 from repro_torch.robust.health import (
@@ -82,7 +83,7 @@ class AMGSolveServer:
                  buckets: Sequence[int] = (1, 2, 4, 8, 16),
                  rtol: float = 1e-8, maxiter: int = 200,
                  assembler=None, recover=None,
-                 record_history: bool = False):
+                 record_history: bool | None = None):
         from repro_torch.kernels.backend import resolve_recover
         buckets_in = [int(k) for k in buckets]
         if not buckets_in:
@@ -102,6 +103,10 @@ class AMGSolveServer:
         # cast to it at submit, so no request's dtype decides the panel's
         self.dtype = torch.empty(
             (), dtype=setupd.precision.krylov_dtype).numpy().dtype
+        # per-request residual histories: None follows the observability
+        # knob (on whenever it is not "off"), as the reference's default
+        if record_history is None:
+            record_history = obs_trace.resolve() != "off"
         self._record_history = bool(record_history)
         self._rtol, self._maxiter = rtol, maxiter
         self._solve = make_block_solve(setupd, rtol=rtol, maxiter=maxiter,

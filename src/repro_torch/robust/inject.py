@@ -37,8 +37,9 @@ made under ``suppress_transient()``, and the retried closures stay clean
 reference jits (``gamg.make_recompute``, ``gamg.make_solve``,
 ``gamg.make_coeff_recompute``, ``gamg.make_coeff_solve``,
 ``multirhs.block_krylov.make_block_solve``) are wrapped in ``traced``,
-which binds the schedule, and the knobs the closure names, at the first
-call with each argument signature, as a trace does.  A bare ``maybe``
+which binds the schedule, the knobs the closure names and the
+observability mode (``repro_torch.obs.trace``) at the first call with
+each argument signature, as a trace does.  A bare ``maybe``
 outside those closures (``gamg.recompute`` called directly, say) sees the
 schedule installed at that call, as the reference's un-jitted code does.
 
@@ -56,6 +57,8 @@ import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from repro_torch.obs import trace as obs_trace
 
 KINDS = ("nan", "inf", "bitflip")
 SITES = ("spmv", "precond", "vcycle", "coarse", "hierarchy", "halo")
@@ -232,20 +235,23 @@ def _signature(args) -> tuple:
                  if isinstance(a, torch.Tensor) else type(a) for a in args)
 
 
-def traced(fn: Callable, knobs: Callable[[], dict] = dict) -> Callable:
+def traced(fn: Callable, knobs: Callable[[], dict] = dict,
+           obs: Optional[str] = None) -> Callable:
     """``fn`` with the reference's trace-time binding: the schedule
-    installed at the first call with each argument signature, and the
-    keyword arguments ``knobs()`` returns then, are what every later call
-    with that signature runs under, as a jitted program keeps what it was
-    traced with (module docstring)."""
+    installed at the first call with each argument signature, the keyword
+    arguments ``knobs()`` returns then, and the observability mode then in
+    force (``obs``, when given, instead: a closure that resolved it at
+    build time) are what every later call with that signature runs under,
+    as a jitted program keeps what it was traced with (module
+    docstring)."""
     bound = {}
 
     def call(*args):
         key = _signature(args)
         if key not in bound:
-            bound[key] = (_SCHEDULE, knobs())
-        schedule, kw = bound[key]
-        with active(schedule):
+            bound[key] = (_SCHEDULE, knobs(), obs_trace.resolve(obs))
+        schedule, kw, mode = bound[key]
+        with active(schedule), obs_trace.use(mode):
             return fn(*args, **kw)
 
     return call

@@ -1088,3 +1088,59 @@ def test_recovery_ladder_on_card(dev):
     rs.update_operator(prob.A.data)
     torch.cuda.synchronize()
     assert pair_ops.launches > before
+
+
+# ---------------------------------------------------------------------------
+# Observability and the time march on the card
+# ---------------------------------------------------------------------------
+
+def test_spans_and_counters_bitwise_off_on_card(dev):
+    """m=7 on the card: the spans and counters solves, vector and k=4
+    panel, are bitwise the off solve (a range adds no launch, a tally
+    only adds its own), and the vector tally takes ``iters + 1``
+    cycles."""
+    from repro_torch.core import gamg
+    from repro_torch.multirhs.block_krylov import make_block_solve
+    prob = assemble_elasticity(7, path="host", device=dev)
+    sd = gamg.setup(prob.A, prob.B, coarse_size=12, coarsener="greedy")
+    hier = gamg.make_recompute(sd)(prob.A.data)
+    B = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (prob.n, 4)), device=dev)
+    out = {mode: (gamg.make_solve(sd, obs=mode)(hier, prob.b),
+                  make_block_solve(sd, obs=mode)(hier, B))
+           for mode in ("off", "spans", "counters")}
+    off, poff = out["off"]
+    for mode in ("spans", "counters"):
+        res, pres = out[mode]
+        assert res.iters == off.iters and torch.equal(res.x, off.x)
+        assert torch.equal(pres.iters, poff.iters)
+        assert torch.equal(pres.x, poff.x)
+    tally = out["counters"][0].counters
+    assert tally.precond_applies.is_cuda
+    assert int(tally.precond_applies) == off.iters + 1
+    assert tally.smoother_applies.tolist() == [2 * (off.iters + 1)] * 2
+
+
+def test_frozen_segment_copies_nothing_host_to_device(dev):
+    """A frozen march segment at m=5 on the card: after its first step
+    (which puts the setup's index arrays on the device), the next steps
+    copy no byte from the host (``obs.transfer.count_h2d``)."""
+    from repro_torch import sim
+    from repro_torch.obs.transfer import count_h2d
+    from repro_torch.sim.driver import _setup_from_fields
+    prob = assemble_elasticity(5, device=dev)
+    scen = sim.SofteningScenario.build(prob, rate=0.25)
+    cfg = sim.MarchConfig(n_steps=4, seg_len=8, staleness=sim.StalenessConfig(
+        iter_drift=10**6, ref_window=1, coeff_rtol=10**6))
+    carry = sim.init_carry(scen, prob.b)
+    E, nu, _ = scen.step_fields(carry.scen, carry.x, carry.step)
+    sd = _setup_from_fields(prob, E, nu, {"coarse_size": 8})
+    seg = sim.make_segment(sd, prob.assembler, scen, cfg)
+    k, carry, _, _ = seg(prob.b, carry, 1)
+    assert k == 1
+    (k, carry, recs, blocked), nbytes, count = count_h2d(
+        lambda: seg(prob.b, carry, cfg.n_steps))
+    torch.cuda.synchronize()
+    assert k == 3 and not bool(blocked) and int(carry.step) == 4
+    assert (nbytes, count) == (0, 0)
+    assert recs.status[:3].tolist() == [0, 0, 0]

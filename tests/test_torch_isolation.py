@@ -78,6 +78,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         ElasticityConfig(m=3).build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bcsr_from_numpy([0, 1], [0], np.eye(3)[None], 1)
+    # the observability and time-march entry points
+    from repro_torch import march as march_cli
+    from repro_torch import sim
+    from repro_torch.core.gamg import GAMGSolver
+    from repro_torch.obs import trace
+    cfg = sim.MarchConfig(n_steps=1)
+    calls = [
+        lambda: trace.zero_tally(3),
+        lambda: sim.march(assemble_elasticity(3), None, cfg),
+        lambda: sim.SofteningScenario.build(assemble_elasticity(3)),
+        lambda: GAMGSolver(assemble_elasticity(3).A, None, obs="counters"),
+        lambda: march_cli.main(3, 1),
+        lambda: march_cli.cli(["3", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.march", "3",
+                          "1"], capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
 
 
 def _cpu_calls():
