@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives ten
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives eleven
 paths of the port, each with the launch counts set to 0 just before it
 and read just after, the observability layer and the torch
 quickstart.  The autotuner's cache is a fresh temporary file
@@ -96,7 +96,24 @@ taken on:
    march's final fields (``march kernel case``).  ``march cpu vs cuda``
    runs ``python -m repro_torch.march``'s setting at m=5 (the
    reference's acceptance battery) on both: equal iterations, statuses,
-   segments and setups, final states within 1e-10.
+   segments and setups, final states within 1e-10;
+11. the scalar path (after the observability phase) — the scalar (AIJ)
+   baseline (``core.scalar_path``) on the main path's m=32 setup: the
+   cold expansion, ``recompute_scalar`` against ``gamg.recompute`` and
+   the scalar hot solve against the blocked one, in turns (13
+   iterations each, the solutions within 1e-6, ms of both), A0's SpMV
+   blocked, 1x1 and through cuSPARSE CSR, both formats' bytes (A0 by
+   the paper's formulas, ``EXPECT_A0_BYTES``) and Galerkin pair counts,
+   a profiled scalar solve held to the launch record; the scalar solve
+   on the CPU and on the card at m=7 (equal iterations, within 1e-12);
+   the scalar PtAP chain at m=16 (within 1e-11 of the expanded blocked
+   chain; the m=32 scalar plans' host symbolic would need tens of GB).
+   Each of the four scalar entries (``SCALAR_KERNELS``: ``block_spmv``,
+   ``fused_pair_gemm`` and ``block_seg_sum`` at 1x1 and the scalar-row
+   ``fused_smoother``) must launch on the path; then every 1x1 and
+   scalar-row case against its plain version (``scalar kernel case``)
+   and the scalar smoother's identity step bitwise ``b -
+   block_spmv(x)`` on every level.
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -128,7 +145,8 @@ sight).  Each control must read its size in the profiler's memcpy
 bytes, and each update must move between its two per-element fields and
 those plus 4 KB host to device by both the profiler and the aten count
 (``repro_torch.obs.transfer``); the same session holds the second and
-third steps of a frozen march segment, which must move 0 bytes by both.
+third steps of a frozen march segment and a second ``recompute_scalar``,
+which must move 0 bytes by both.
 
 After the main path it prints a ``coarse operators`` line: SHA-256 of the
 setup's coarse operators and prolongators (all products of
@@ -172,7 +190,8 @@ the staged redesign.
 The second-to-last line is the per-kernel JSON record (the f64 kernels
 under their names, the f32 and bf16 instantiations as ``<name>_f32`` and
 ``<name>_bf16`` with the precision path's launches and cases; their
-bounds take the datasheet's fp32 FLOP/s, the rate they compute at) and
+bounds take the datasheet's fp32 FLOP/s, the rate they compute at; the
+scalar path's entries under their ``SCALAR_KERNELS`` names) and
 the last line
 ``{"ok": true, "device": ...}``.  Any failure raises (exit code not 0).
 Without a CUDA device, or outside a checkout, it exits with code 2 before
@@ -315,6 +334,23 @@ MARCH_STALENESS = (2, 2, 0.25)
 MARCH_SETUP = {"coarsener": "greedy", "coarse_size": 100}
 MARCH_CHECK_M, MARCH_CHECK_STEPS = 5, 8
 MARCH_TOL = 1e-10        # final state, CPU against the card
+#: the scalar (AIJ) baseline: its 1x1 / scalar-row kernel entries (the
+#: record's rows, each a subset of a family's launches: family and the
+#: wrapper's ``launches_by_shape`` keys); the rung of its scalar PtAP chain
+#: (the host symbolic of the scalar plans at m=32 would need tens of GB);
+#: the chain's tolerance against the expanded blocked chain
+#: (tests/test_scalar_chain.py); the CPU-vs-card check's m and tolerance;
+#: A0's bytes by bcsr_matrix_bytes / csr_matrix_bytes at m=32
+SCALAR_KERNELS = {
+    "block_spmv_1x1": ("block_spmv", ((1, 1),)),
+    "fused_smoother_scalar": ("fused_smoother", ((1, 3), (1, 6))),
+    "fused_pair_gemm_1x1": ("fused_pair_gemm", ((1, 1, 1),)),
+    "block_seg_sum_1x1": ("block_seg_sum", ((1, 1),)),
+}
+SCALAR_CHAIN_M = 16
+SCALAR_CHAIN_TOL = 1e-11
+SCALAR_CHECK_M, SCALAR_CPU_TOL = 7, 1e-12
+EXPECT_A0_BYTES = {"bcsr": 61_363_736, "csr": 87_602_072}
 
 
 def _ops():
@@ -553,8 +589,9 @@ def step_phases(prob, solver, run: dict, walls: dict) -> None:
         walls[phase] = 1e3 * (time.perf_counter() - t0)
 
 
-def _profile_step(run: dict, top: int) -> tuple:
-    """One more hot step under ``torch.profiler``: the summary (walls,
+def _profile_step(run: dict, top: int, phases=step_phases) -> tuple:
+    """One more hot step (``phases``; the scalar path passes its solve)
+    under ``torch.profiler``: the summary (walls,
     device busy time, idle share, the library's kernel events, the
     launches ``autotune.launch_record`` noted across the step and the
     ``_witness`` of the host's launch log against the events) and the
@@ -583,7 +620,7 @@ def _profile_step(run: dict, top: int) -> tuple:
         time.sleep(WINDOW_PAUSE_S)
         noted = launch_record()[0]
         with LaunchLog() as log:
-            step_phases(prob, solver, run, walls)
+            phases(prob, solver, run, walls)
         noted = launch_record()[0] - noted
         time.sleep(WINDOW_PAUSE_S)
         prof.step()
@@ -615,7 +652,8 @@ def _profile_step(run: dict, top: int) -> tuple:
     return summary, rows
 
 
-def profile_hot_step(run: dict, top: int = 12, label: str = "") -> dict:
+def profile_hot_step(run: dict, top: int = 12, label: str = "",
+                     scalar: bool = False) -> dict:
     """One more hot step under ``torch.profiler``: device time by kernel
     and the card's idle share of the step's wall time, held to a witness.
     The library's kernel events in the session must number the launches
@@ -625,12 +663,15 @@ def profile_hot_step(run: dict, top: int = 12, label: str = "") -> dict:
     step is profiled again in a child process (``--profile-witness``, the
     same configuration, precision, restriction and tune mode),
     ``PROFILE_TRIES`` sessions in all; it fails when every one was blind.
-    A blind session's line names the launch whose event is missing."""
+    A blind session's line names the launch whose event is missing.
+    ``scalar``: the step is one scalar solve on ``run["scalar_hier"]``
+    (``scalar_solve_phases``)."""
     from repro_torch.kernels import backend
     spec = dict(label=label, top=top, precision=run["precision"],
                 restriction=run.get("restriction", "transpose_free"),
-                tune=backend.resolve_tune())
-    summary, rows = _profile_step(run, top)
+                tune=backend.resolve_tune(), scalar=scalar)
+    summary, rows = _profile_step(
+        run, top, scalar_solve_phases if scalar else step_phases)
     attempt = 1
     while summary["library_events"] != summary["library_launches"]:
         print(f"profiled {label}hot step blind " + json.dumps(dict(
@@ -678,14 +719,23 @@ def profile_witness(spec: dict) -> int:
     ``profile_hot_step`` in a process of its own: the main path's
     configuration at ``spec["precision"]``, ``spec["restriction"]`` and
     ``spec["tune"]`` (one hot step to warm it), then one profiled hot
-    step; prints its summary and top kernels as one JSON line."""
+    step (``spec["scalar"]``: one warm and one profiled scalar solve on
+    the step's values); prints its summary and top kernels as one JSON
+    line."""
     from repro_torch.kernels import backend
     backend.build_library()
     with tune_mode(spec["tune"]):
         run = main_path(MAIN_M, "cuda", steps=1, verbose=False,
                         precision=spec["precision"],
                         restriction=spec["restriction"])
-        summary, rows = _profile_step(run, spec["top"])
+        phases = step_phases
+        if spec.get("scalar"):
+            from repro_torch.core.scalar_path import recompute_scalar
+            run["scalar_hier"] = recompute_scalar(
+                run["solver"].setup_data, run["a_data"])
+            scalar_solve_phases(run["prob"], run["solver"], run, {})
+            phases = scalar_solve_phases
+        summary, rows = _profile_step(run, spec["top"], phases)
     print("profile witness " + json.dumps(dict(summary=summary,
                                                rows=rows)))
     return 0
@@ -751,17 +801,22 @@ def check_fingerprint(run: dict) -> dict:
 
 class PathCounts:
     """Kernel launches of one path: the sum of the count deltas around the
-    path's own calls (checks made in between do not count)."""
+    path's own calls (checks made in between do not count), by family
+    (``total``) and by scalar-baseline entry (``entries``,
+    ``SCALAR_KERNELS``)."""
 
     def __init__(self):
         self.total = {name: 0 for name in KERNELS}
+        self.entries = dict.fromkeys(SCALAR_KERNELS, 0)
 
     def run(self, fn):
-        c0 = read_counts()
+        c0, e0 = read_counts(), _scalar_entry_counts()
         out = fn()
         delta = _diff(read_counts(), c0)
         for k, v in delta.items():
             self.total[k] += v
+        for k, v in _diff(_scalar_entry_counts(), e0).items():
+            self.entries[k] += v
         return out, delta
 
 
@@ -1106,8 +1161,8 @@ def h2d_witness() -> int:
     session, opened before any other work, holds a ``record_function``
     range for each of three control copies, each of the coefficient
     path's four updates (``ElasticityConfig(m=32)`` as built), the second
-    and third steps of a frozen march segment on that problem and the
-    three controls again; prints one JSON line of the bytes each range
+    and third steps of a frozen march segment on that problem, a second
+    ``recompute_scalar`` on its setup and the three controls again; prints one JSON line of the bytes each range
     moved host to device by the profiler's memcpy events and by
     ``obs.transfer.count_h2d``."""
     import numpy as np
@@ -1115,6 +1170,7 @@ def h2d_witness() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.core.scalar_path import recompute_scalar
     from repro_torch.fem.assemble import inclusion_fields
     from repro_torch.kernels import backend
     from repro_torch.obs.transfer import count_h2d
@@ -1161,6 +1217,13 @@ def h2d_witness() -> int:
         _, carry, _, _ = seg(prob.b, carry, 1)
         ranged("march segment steps 2-3",
                lambda: seg(prob.b, carry, cfg.n_steps))
+        # the scalar baseline: the first recompute_scalar (outside the
+        # ranges) expands the structures and puts their index arrays on
+        # the card; the second copies nothing
+        sd = solver.setup_data
+        recompute_scalar(sd, prob.A.data)
+        ranged("scalar recompute 2", lambda: recompute_scalar(
+            sd, prob.A.data))
         for k, fn in controls.items():
             ranged(f"control {k} after", fn)
     by_range, outside = _h2d_by_range(prof)
@@ -1221,7 +1284,8 @@ def h2d_check(tries: int = 3) -> dict:
     profiler missed a control copy measured nothing, so another child
     runs (at most ``tries`` in all); the updates are held only in a child
     whose every control read its size.  The march segment's second and
-    third steps must move 0 bytes by both counts."""
+    third steps and the second ``recompute_scalar`` must move 0 bytes by
+    both counts."""
     for attempt in range(1, tries + 1):
         rec = _h2d_witness_run()
         size = rec["control_bytes"]
@@ -1242,7 +1306,7 @@ def h2d_check(tries: int = 3) -> dict:
             if name.startswith("control to") and got["aten"] != size:
                 raise AssertionError(f"h2d {name}: the aten count read "
                                      f"{got['aten']} bytes of {size}")
-        elif name.startswith("march"):
+        elif name.startswith(("march", "scalar")):
             if got["profiler"] or got["aten"]:
                 raise AssertionError(f"h2d {name}: {got} bytes host to "
                                      f"device; expected 0")
@@ -1603,6 +1667,362 @@ def stored_path(run: dict, device="cuda", verbose: bool = True) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# The scalar (AIJ) baseline
+# ---------------------------------------------------------------------------
+
+def scalar_solve_phases(prob, solver, run: dict, walls: dict) -> None:
+    """The profiled scalar step: one ``gamg.hier_solve`` on the scalar
+    hierarchy ``run["scalar_hier"]`` (the main path's setup and ``b``),
+    timed on the host between synchronizations."""
+    from repro_torch.core import gamg
+    sync("cuda")
+    t0 = time.perf_counter()
+    run["scalar_res"] = gamg.hier_solve(
+        solver.setup_data, run["scalar_hier"], prob.b, rtol=solver.rtol,
+        maxiter=solver.maxiter)
+    sync("cuda")
+    walls["solve"] = 1e3 * (time.perf_counter() - t0)
+
+
+def _timed(fn, device="cuda") -> tuple:
+    """``fn()`` and its host ms between synchronizations."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _in_turns(fns: dict, rounds: int = 2) -> tuple:
+    """Each ``fns[name]()`` ``2 * rounds`` times in turns (a, b, b, a,
+    ...): the last result of each, the median host ms of each and every
+    host ms of each in the order taken."""
+    names, out, ms = list(fns), {}, {name: [] for name in fns}
+    for r in range(rounds):
+        order = names if r % 2 == 0 else names[::-1]
+        for name in order + order[::-1]:
+            out[name], t = _timed(fns[name])
+            ms[name].append(t)
+    return out, {name: statistics.median(v) for name, v in ms.items()}, ms
+
+
+def pair_counts(setupd) -> list:
+    """Each Galerkin product's pairs in the blocked plan and in the scalar
+    plan of the expanded operators, from the blocked structures alone:
+    the expansion keeps every structural entry, so a block pair is
+    ``br * bk * bc`` scalar pairs."""
+    return [dict(level=li, product=tag, blocked=sp.npairs,
+                 scalar=sp.npairs * sp.br * sp.bk * sp.bc)
+            for li, ls in enumerate(setupd.levels)
+            for tag, sp in (("AP", ls.ptap_cache.ap_plan),
+                            ("R(AP)", ls.ptap_cache.ac_plan))]
+
+
+def scalar_byte_counts(setupd, hier_b, hier_s) -> dict:
+    """The two formats' bytes: every level operator by the paper's
+    formulas (``bcsr_matrix_bytes`` / ``csr_matrix_bytes``) and the
+    device bytes of the two numeric hierarchies (``hierarchy_bytes``)."""
+    from repro_torch.core.scalar_csr import bcsr_matrix_bytes, \
+        csr_matrix_bytes
+    ops = [ls.A0 for ls in setupd.levels]
+    levels = [dict(level=li, bcsr=bcsr_matrix_bytes(A),
+                   csr=csr_matrix_bytes(A),
+                   ratio=csr_matrix_bytes(A) / bcsr_matrix_bytes(A))
+              for li, A in enumerate(ops)]
+    if {"bcsr": levels[0]["bcsr"], "csr": levels[0]["csr"]} != \
+            EXPECT_A0_BYTES:
+        raise AssertionError(f"A0 bytes {levels[0]}, expected "
+                             f"{EXPECT_A0_BYTES}")
+    hb, hs = hierarchy_bytes(hier_b), hierarchy_bytes(hier_s)
+    return dict(operators=levels, hierarchy_blocked=hb, hierarchy_scalar=hs,
+                hierarchy_ratio=hs / hb)
+
+
+def scalar_cases(hier_s, device) -> list:
+    """``block_spmv`` at 1x1 on every scalar ``A``, ``P`` and ``R`` of the
+    scalar hierarchy (``ell_cases``: valid entries in the bound, padded
+    slots and fill on the line, cuSPARSE CSR the yardstick), and the
+    scalar-row smoother step on every level; both rows of their own in the
+    record."""
+    import torch
+
+    from repro_torch.kernels.autotune import DEFAULT_THREADS
+    from repro_torch.kernels.ell_rows import lanes
+    from repro_torch.kernels.fused_smoother import ops as smooth
+    from repro_torch.kernels.fused_smoother.ref import \
+        smoother_step_scalar_ref
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    f64 = dict(dtype=torch.float64, device=device)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, **f64)
+
+    cases = []
+    for li, lv in enumerate(hier_s.levels):
+        for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell), ("R", lv.r_ell)):
+            cases += ell_cases(f"{tag}{li}s", ell, randn, 8, padded=True,
+                               panel_ks=(), record="block_spmv_1x1")
+        a = lv.a_ell
+        nbr, bs = lv.dinv.shape[:2]
+        nnz = int(a.mask.sum())
+        b, x, d = (randn(nbr, bs) for _ in range(3))
+        args = (a.indices, a.data, lv.dinv, b, x, d,
+                torch.tensor([0.3, 0.7], **f64))
+        cases.append(Case(
+            "fused_smoother",
+            f"A{li}s scalar rows ({a.nbr},{a.kmax},1,1) nodes of {bs}",
+            lambda threads=None, args=args: smooth.smoother_step_scalar_ell(
+                *args, threads=threads),
+            lambda args=args: smoother_step_scalar_ref(*args),
+            nbytes=nnz * (8 + 4) + nbr * bs * bs * 8 + 5 * nbr * bs * 8,
+            flops=2 * nnz + 2 * nbr * bs * bs + 4 * nbr * bs,
+            lanes=lanes(1, 1, a.kmax),
+            at_lanes=lambda n, args=args: smooth.launch_scalar_lanes(
+                *args, n, DEFAULT_THREADS),
+            extra=dict(valid_blocks=nnz, padded_blocks=a.nbr * a.kmax),
+            record="fused_smoother_scalar"))
+    return cases
+
+
+def check_scalar_identity(hier_s, device) -> int:
+    """With ``dinv = I`` and ``coef = [0, 1]`` the scalar-row step's
+    ``d'`` is bitwise ``b - block_spmv(x)`` at 1x1, on every level."""
+    import torch
+
+    from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.kernels.fused_smoother import ops as smooth
+    gen = torch.Generator(device=device).manual_seed(4)
+    f64 = dict(dtype=torch.float64, device=device)
+    for li, lv in enumerate(hier_s.levels):
+        a = lv.a_ell
+        nbr, bs = lv.dinv.shape[:2]
+        b, x, d = (torch.randn(nbr, bs, generator=gen, **f64)
+                   for _ in range(3))
+        eye = torch.eye(bs, **f64).expand(nbr, bs, bs).contiguous()
+        _, dn = smooth.smoother_step_scalar_ell(
+            a.indices, a.data, eye, b, x, d, torch.tensor([0.0, 1.0], **f64))
+        res = b.reshape(-1) - spmv.block_spmv_ell(
+            a.indices, a.data, x.reshape(-1, 1)).reshape(-1)
+        if not torch.equal(dn.reshape(-1), res):
+            raise AssertionError(f"identity scalar smoother A{li}s: d' not "
+                                 f"bitwise b - block_spmv(x)")
+    return len(hier_s.levels)
+
+
+def scalar_cpu_vs_cuda(devices=("cpu", "cuda")) -> dict:
+    """The scalar solve at m=7 (greedy, coarse_size 12, host assembly) on
+    the CPU and on the card: equal levels and iterations (the blocked
+    solve's too), solutions within ``SCALAR_CPU_TOL``."""
+    from repro_torch.core import gamg
+    from repro_torch.core.scalar_path import recompute_scalar
+    from repro_torch.fem.assemble import assemble_elasticity
+    got = {}
+    for dev in devices:
+        prob = assemble_elasticity(SCALAR_CHECK_M, path="host", device=dev)
+        sd = gamg.setup(prob.A, prob.B, coarse_size=CHECK_COARSE,
+                        coarsener="greedy")
+        res = gamg.hier_solve(sd, recompute_scalar(sd, prob.A.data), prob.b)
+        blocked = gamg.hier_solve(sd, gamg.recompute(sd, prob.A.data),
+                                  prob.b)
+        got[dev] = (sd.stats["level_rows"], res, blocked.iters)
+    (rows_c, rc, bc), (rows_g, rg, bg) = got[devices[0]], got[devices[1]]
+    rel = _rel(rg.x, rc.x)
+    out = dict(m=SCALAR_CHECK_M, level_rows=rows_c, iters=[rc.iters,
+                                                           rg.iters],
+               blocked_iters=[bc, bg], rel_diff=rel)
+    if rows_c != rows_g or not rc.iters == rg.iters == bc == bg \
+            or not rel <= SCALAR_CPU_TOL:
+        raise AssertionError(f"scalar cpu vs cuda: {out}")
+    return out
+
+
+def scalar_chain_phase(counts: PathCounts, device="cuda") -> tuple:
+    """The scalar PtAP chain at ``SCALAR_CHAIN_M`` (the paper's setting,
+    greedy, host assembly): its cold build (host symbolic of the scalar
+    plans), its outputs against the expansion of the blocked chain's per
+    level (``SCALAR_CHAIN_TOL``), both chains' ms in turns and both
+    formats' pair counts.  The chain's build and runs count in
+    ``counts``.  Returns the line and the chain's stages and expanded fine
+    payload (``galerkin_cases``' inputs)."""
+    from repro_torch.configs.elasticity import ElasticityConfig
+    from repro_torch.core import gamg
+    from repro_torch.core.block_csr import BlockCSR
+    from repro_torch.core.ptap import ptap_numeric_data
+    from repro_torch.core.scalar_csr import expand_bcsr
+    from repro_torch.core.scalar_path import build_scalar_ptap_chain
+    from repro_torch.fem.assemble import assemble_elasticity
+
+    cfg = ElasticityConfig(m=SCALAR_CHAIN_M)
+    prob = assemble_elasticity(cfg.m, order=cfg.order, E=cfg.E, nu=cfg.nu,
+                               path="host", device=device)
+    sd = gamg.setup(prob.A, prob.B, theta=cfg.theta,
+                    coarse_size=cfg.coarse_size, coarsener="greedy")
+    chain, build_ms = _timed(
+        _counted(counts, lambda: build_scalar_ptap_chain(sd)), device)
+
+    def blocked():
+        a, outs = prob.A.data, []
+        for ls in sd.levels:
+            a = ptap_numeric_data(ls.ptap_cache, a, ls.P.data)
+            outs.append(a)
+        return outs
+
+    outs, ms, _ = _in_turns({
+        "blocked": blocked,
+        "scalar": _counted(counts, lambda: chain(prob.A.data))})
+    rel = []
+    for ls, b_out, s_out in zip(sd.levels, outs["blocked"], outs["scalar"]):
+        cache = ls.ptap_cache
+        want = expand_bcsr(BlockCSR.from_arrays(
+            cache.ac_plan.indptr, cache.ac_plan.indices, b_out,
+            cache.n_coarse)).data
+        rel.append(_rel(s_out, want))
+    pairs = [dict(level=li, product=tag, blocked=bp.npairs,
+                  scalar=sp.npairs,
+                  expected=bp.npairs * bp.br * bp.bk * bp.bc)
+             for li, (ls, (cs, _)) in enumerate(zip(sd.levels, chain.stages))
+             for tag, bp, sp in (("AP", ls.ptap_cache.ap_plan,
+                                  cs.ap_plan),
+                                 ("R(AP)", ls.ptap_cache.ac_plan,
+                                  cs.ac_plan))]
+    line = dict(m=SCALAR_CHAIN_M, level_rows=sd.stats["level_rows"],
+                cold_build_s=build_ms / 1e3, rel_vs_expanded_blocked=rel,
+                blocked_chain_ms=ms["blocked"], scalar_chain_ms=ms["scalar"],
+                ratio=ms["scalar"] / ms["blocked"], pairs=pairs,
+                scalar_tile_plans=[
+                    [sp.tile_rows, sp.pair_kmax, sp.tile_identity]
+                    for cs, _ in chain.stages
+                    for sp in (cs.ap_plan, cs.ac_plan)])
+    if not all(r <= SCALAR_CHAIN_TOL for r in rel) or any(
+            p["scalar"] != p["expected"] for p in pairs):
+        raise AssertionError(f"scalar chain: {line}")
+    return line, chain.stages, chain.expand_fine(prob.A.data)
+
+
+def _counted(counts: PathCounts, fn):
+    """``fn`` with its launches counted in ``counts``."""
+    return lambda: counts.run(fn)[0]
+
+
+def scalar_path(run: dict, peaks: tuple, device="cuda") -> tuple:
+    """The scalar (AIJ) baseline on the main path's m=32 setup and values:
+    the cold expansion, ``recompute_scalar`` against ``gamg.recompute``
+    (in turns), the scalar hot solve on ``b`` against the blocked one (in
+    turns, every wall printed: equal iterations, ``EXPECT_ITERS``; relres;
+    the solutions' difference), A0's SpMV three ways (blocked
+    ``block_spmv``, 1x1 ``block_spmv``, cuSPARSE CSR), both formats'
+    bytes and pair counts, one profiled scalar solve, then the CPU-vs-card
+    scalar solve at ``SCALAR_CHECK_M`` and the scalar PtAP chain at
+    ``SCALAR_CHAIN_M``.  The path's launches are those of its own calls
+    only: the scalar levels, ``recompute_scalar``, the scalar solves and
+    the scalar chain (not the blocked comparators, the timing loops, the
+    checks or the profiled solve).  Then every 1x1 and scalar-row case
+    against its plain version and the identity-residual check.  Returns
+    ``(launches of the blocked instantiations by family, launches by
+    scalar entry, launches per scalar hot step, per)``."""
+    import torch
+
+    from repro_torch.core import gamg
+    from repro_torch.core.scalar_path import recompute_scalar, \
+        scalar_levels
+    from repro_torch.kernels.autotune import device_ms
+    from repro_torch.kernels.block_spmv import ops as spmv
+
+    prob, solver = run["prob"], run["solver"]
+    sd, a = solver.setup_data, run["a_data"]
+    kw = dict(rtol=solver.rtol, maxiter=solver.maxiter)
+    t_phase = time.perf_counter()
+    counts = PathCounts()
+    _, cold_ms = _timed(_counted(counts, lambda: scalar_levels(sd)))
+    _, first_ms = _timed(_counted(counts, lambda: recompute_scalar(sd, a)))
+    hiers, rec_ms, _ = _in_turns({
+        "blocked": lambda: gamg.recompute(sd, a),
+        "scalar": _counted(counts, lambda: recompute_scalar(sd, a))})
+    hier_b, hier_s = hiers["blocked"], hiers["scalar"]
+    e0 = dict(counts.entries)
+    counts.run(lambda: gamg.hier_solve(sd, recompute_scalar(sd, a), prob.b,
+                                       **kw))
+    per_step = _diff(counts.entries, e0)
+    res, solve_ms, walls = _in_turns({
+        "blocked": lambda: gamg.hier_solve(sd, hier_b, prob.b, **kw),
+        "scalar": _counted(counts, lambda: gamg.hier_solve(
+            sd, hier_s, prob.b, **kw))})
+    rb, rs = res["blocked"], res["scalar"]
+    rel = _rel(rs.x, rb.x)
+    solve = dict(iters=[rb.iters, rs.iters],
+                 relres=[float(rb.relres), float(rs.relres)],
+                 rel_diff=rel, blocked_ms=solve_ms["blocked"],
+                 scalar_ms=solve_ms["scalar"], walls_ms=walls)
+    if not rb.iters == rs.iters == EXPECT_ITERS or not rel <= 1e-6 \
+            or not (rb.converged and rs.converged):
+        raise AssertionError(f"scalar solve: {solve}")
+    a0b, a0s = hier_b.levels[0].a_ell, hier_s.levels[0].a_ell
+    x = torch.randn(a0b.nbc * a0b.bc, dtype=torch.float64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(5))
+    csr = _scalar_csr(a0b)
+    spmv_ms = dict(
+        blocked_3x3=device_ms(lambda: spmv.block_spmv(a0b, x)),
+        scalar_1x1=device_ms(lambda: spmv.block_spmv(a0s, x)),
+        cusparse_csr=device_ms(lambda: torch.mv(csr, x)))
+    if _rel(spmv.block_spmv(a0s, x), spmv.block_spmv(a0b, x)) > REL_TOL:
+        raise AssertionError("scalar A0 SpMV disagrees with the blocked one")
+    spmv_ms["scalar_over_blocked"] = spmv_ms["scalar_1x1"] / \
+        spmv_ms["blocked_3x3"]
+    run["scalar_hier"] = hier_s
+    prof = profile_hot_step(run, label="scalar ", scalar=True)
+    print("scalar path " + json.dumps(dict(
+        m=MAIN_M, level_rows=sd.stats["level_rows"],
+        cold_expansion_ms=cold_ms, first_recompute_scalar_ms=first_ms,
+        recompute_ms=rec_ms, solve=solve, a0_spmv_device_ms=spmv_ms,
+        bytes=scalar_byte_counts(sd, hier_b, hier_s),
+        pairs_m32=pair_counts(sd),
+        scalar_levels=[dict(a=list(lv.a_ell.data.shape[:2]),
+                            p=list(lv.p_ell.data.shape[:2]),
+                            r=list(lv.r_ell.data.shape[:2]),
+                            dinv=list(lv.dinv.shape))
+                       for lv in hier_s.levels],
+        profiled=dict(device_busy_ms=prof["device_busy_ms"],
+                      idle_share=prof["idle_share"],
+                      library_events=prof["library_events"],
+                      library_launches=prof["library_launches"]))))
+    print("scalar cpu vs cuda " + json.dumps(scalar_cpu_vs_cuda(
+        ("cpu", device))))
+    line, stages, s_fine = scalar_chain_phase(counts, device)
+    print("scalar chain " + json.dumps(line))
+    # each family's row counts its blocked instantiations; the 1x1 and
+    # scalar-row launches are the entries' own rows
+    blocked = dict(counts.total)
+    for rec, (fam, _) in SCALAR_KERNELS.items():
+        blocked[fam] -= counts.entries[rec]
+    print("scalar path launches " + json.dumps(dict(
+        blocked_families=blocked, entries=counts.entries,
+        per_scalar_hot_step=per_step,
+        driven_s=time.perf_counter() - t_phase)))
+    if torch.device(device).type == "cuda":     # the CPU runs no kernel
+        for rec, n in counts.entries.items():
+            if n <= 0:
+                raise AssertionError(f"{rec} did not launch on the scalar "
+                                     f"path")
+    cases = scalar_cases(hier_s, device) + galerkin_cases(
+        stages, s_fine, device, scalar=True)
+    attach_floors(cases)
+    per = check_kernels(cases, peaks, label="scalar ")
+    print("scalar identity smoother " + json.dumps(dict(
+        levels_bitwise=check_scalar_identity(hier_s, device),
+        phase_s=time.perf_counter() - t_phase)))
+    return blocked, counts.entries, per_step, per
+
+
+def _scalar_entry_counts() -> dict:
+    """Launches of the scalar baseline's entries (``SCALAR_KERNELS``),
+    from the wrappers' ``launches_by_shape``."""
+    ops = _ops()
+    return {rec: sum(ops[fam].launches_by_shape[k] for k in keys)
+            for rec, (fam, keys) in SCALAR_KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
 # The robustness layer: fault schedules and the recovery ladder
 # ---------------------------------------------------------------------------
 
@@ -1795,8 +2215,12 @@ class Case:
     tuned kernel's ``run`` takes ``threads=`` (None resolves it)."""
 
     def __init__(self, kernel, label, run, plain, nbytes, flops,
-                 library=None, lanes=None, at_lanes=None, extra=None):
+                 library=None, lanes=None, at_lanes=None, extra=None,
+                 record=None):
         self.kernel, self.label = kernel, label
+        # the record's row the case adds to (default: its family's; the
+        # scalar baseline's entries have rows of their own)
+        self.record = record or kernel
         self.run, self.plain, self.library = run, plain, library
         self.nbytes, self.flops = nbytes, flops
         # printed with the case (fused_pair_gemm: gather bytes, the time
@@ -1833,20 +2257,10 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
 
     from repro_torch.core.block_csr import device_array
     from repro_torch.core.gamg import _at
-    from repro_torch.core.ptap import ptap_numeric_data
-    from repro_torch.core.spgemm import spgemm_numeric_data
-    from repro_torch.kernels.block_pair_gemm import ops as pair
-    from repro_torch.kernels.block_pair_gemm.ref import block_pair_gemm_ref
+    from repro_torch.kernels.autotune import DEFAULT_THREADS
     from repro_torch.kernels.block_seg_sum import ops as seg
     from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
-    from repro_torch.kernels.block_spmm import ops as spmm
-    from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
-    from repro_torch.kernels.block_spmv import ops as spmv
-    from repro_torch.kernels.autotune import DEFAULT_THREADS
-    from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
     from repro_torch.kernels.ell_rows import lanes
-    from repro_torch.kernels.fused_pair_gemm import ops as gemm
-    from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
     from repro_torch.kernels.fused_smoother import ops as smooth
     from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
     from repro_torch.kernels.pbjacobi import ops as pbj
@@ -1858,9 +2272,6 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
     dtype = dtype or torch.float64
     f64 = dict(dtype=dtype, device=device)
     es = torch.empty((), dtype=dtype).element_size()   # payload bytes
-    bf16 = dtype == torch.bfloat16
-    acc = torch.float32 if bf16 else None       # the policy's accumulator
-    acc_es = 4 if bf16 else es
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, dtype=torch.float64,
@@ -1887,57 +2298,11 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
             library=lambda: torch.zeros((plan.nnzb, 3, 3), **f64)
             .index_add_(0, slot_of_kept, kept)))
 
-    def ell_cases(name, ell, padded=False):
-        """``block_spmv`` and ``block_spmm`` (``PANEL_KS``) on ``ell``;
-        the bound counts the valid blocks, which is all the product
-        needs.  ``padded`` cases (the stored ``R``, whose rows are
-        ragged) also carry their valid and padded blocks and fill, so the
-        padding the kernel reads shows as its gap to the bound."""
-        nnz = blocks = int(ell.mask.sum())
-        slots = ell.nbr * ell.kmax
-        extra = dict(valid_blocks=nnz, padded_blocks=slots,
-                     fill=nnz / slots) if padded else None
-        x = randn(ell.nbc, ell.bc)
-        csr = _scalar_csr(ell)
-        xf = x.reshape(-1)
-        nl = lanes(ell.br, ell.bc, ell.kmax)
-        shape = f"{name} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})"
-        cases.append(Case(
-            "block_spmv", shape,
-            lambda threads=None, ell=ell, x=x: spmv.block_spmv_ell(
-                ell.indices, ell.data, x, threads=threads),
-            lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices,
-                                                    ell.data, x),
-            nbytes=blocks * (ell.br * ell.bc * es + 4) + x.numel() * es
-            + ell.nbr * ell.br * es,
-            flops=2 * blocks * ell.br * ell.bc,
-            library=lambda csr=csr, xf=xf: torch.mv(csr, xf), lanes=nl,
-            at_lanes=lambda n, ell=ell, x=x: spmv.launch_lanes(
-                ell.indices, ell.data, x, n, DEFAULT_THREADS),
-            extra=extra))
-        for k in PANEL_KS:
-            X = randn(ell.nbc, ell.bc, k)
-            Xf = X.reshape(ell.nbc * ell.bc, k)
-            cases.append(Case(
-                "block_spmm", f"{shape} k={k}",
-                lambda threads=None, ell=ell, X=X: spmm.block_spmm_ell(
-                    ell.indices, ell.data, X, threads=threads),
-                lambda ell=ell, X=X: block_spmm_ell_ref(
-                    ell.indices, ell.data, X),
-                nbytes=blocks * (ell.br * ell.bc * es + 4)
-                + X.numel() * es + ell.nbr * ell.br * k * es,
-                flops=2 * blocks * ell.br * ell.bc * k,
-                library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf),
-                lanes=nl, at_lanes=lambda n, ell=ell, X=X:
-                spmm.launch_lanes(ell.indices, ell.data, X, n,
-                                  DEFAULT_THREADS),
-                extra=None if extra is None else dict(extra)))
-
     # --- block_spmv and fused_smoother on every level operator, block_spmv
     # on every prolongator --------------------------------------------------
     for li, lv in enumerate(hier.levels):
         for tag, ell in (("A", lv.a_ell), ("P", lv.p_ell)):
-            ell_cases(f"{tag}{li}", ell)
+            cases += ell_cases(f"{tag}{li}", ell, randn, es)
         a = lv.a_ell
         bs = a.br
         nnz = int(a.mask.sum())
@@ -1974,12 +2339,108 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
                 x[..., None], lv.dinv, r[..., None], alpha=OMEGA)[..., 0],
             extra=dict(nbr=a.nbr, bs=bs)))
 
-    # --- fused_pair_gemm on both Galerkin products of every level, and the
-    # block_seg_sum row-split combine where rows split -----------------------
-    a_data = prob.A.data.to(dtype)
-    for li, ls in enumerate(setupd.levels):
-        cache = ls.ptap_cache
-        p_data = ls.P.data.to(dtype)
+    # --- the Galerkin products of every level -------------------------------
+    cases += galerkin_cases(
+        [(ls.ptap_cache, ls.P.data.to(dtype)) for ls in setupd.levels],
+        prob.A.data.to(dtype), device, dtype)
+    # --- the stored restrictions (6x3 at level 0) ---------------------------
+    for tag, ell in extra_ells:
+        cases += ell_cases(tag, _at(ell, dtype), randn, es, padded=True)
+    return cases
+
+
+def ell_cases(name, ell, randn, es, padded=False, panel_ks=PANEL_KS,
+              record=None) -> list:
+    """``block_spmv`` and ``block_spmm`` (``panel_ks``) on ``ell``, inputs
+    from ``randn``, payloads of ``es`` bytes; the bound counts the valid
+    blocks, which is all the product needs.  ``padded`` cases (the stored
+    ``R``, the scalar operators, whose rows are ragged) also carry their
+    valid and padded blocks and fill, so the padding the kernel reads
+    shows as its gap to the bound.  ``record``: the record's row of the
+    ``block_spmv`` cases (default the family's)."""
+    import torch
+
+    from repro_torch.kernels.autotune import DEFAULT_THREADS
+    from repro_torch.kernels.block_spmm import ops as spmm
+    from repro_torch.kernels.block_spmm.ref import block_spmm_ell_ref
+    from repro_torch.kernels.block_spmv import ops as spmv
+    from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
+    from repro_torch.kernels.ell_rows import lanes
+
+    cases = []
+    nnz = blocks = int(ell.mask.sum())
+    slots = ell.nbr * ell.kmax
+    extra = dict(valid_blocks=nnz, padded_blocks=slots,
+                 fill=nnz / slots) if padded else None
+    x = randn(ell.nbc, ell.bc)
+    csr = _scalar_csr(ell)
+    xf = x.reshape(-1)
+    nl = lanes(ell.br, ell.bc, ell.kmax)
+    shape = f"{name} ({ell.nbr},{ell.kmax},{ell.br},{ell.bc})"
+    cases.append(Case(
+        "block_spmv", shape,
+        lambda threads=None, ell=ell, x=x: spmv.block_spmv_ell(
+            ell.indices, ell.data, x, threads=threads),
+        lambda ell=ell, x=x: block_spmv_ell_ref(ell.indices, ell.data, x),
+        nbytes=blocks * (ell.br * ell.bc * es + 4) + x.numel() * es
+        + ell.nbr * ell.br * es,
+        flops=2 * blocks * ell.br * ell.bc,
+        library=lambda csr=csr, xf=xf: torch.mv(csr, xf), lanes=nl,
+        at_lanes=lambda n, ell=ell, x=x: spmv.launch_lanes(
+            ell.indices, ell.data, x, n, DEFAULT_THREADS),
+        extra=extra, record=record))
+    for k in panel_ks:
+        X = randn(ell.nbc, ell.bc, k)
+        Xf = X.reshape(ell.nbc * ell.bc, k)
+        cases.append(Case(
+            "block_spmm", f"{shape} k={k}",
+            lambda threads=None, ell=ell, X=X: spmm.block_spmm_ell(
+                ell.indices, ell.data, X, threads=threads),
+            lambda ell=ell, X=X: block_spmm_ell_ref(ell.indices, ell.data,
+                                                    X),
+            nbytes=blocks * (ell.br * ell.bc * es + 4)
+            + X.numel() * es + ell.nbr * ell.br * k * es,
+            flops=2 * blocks * ell.br * ell.bc * k,
+            library=lambda csr=csr, Xf=Xf: torch.sparse.mm(csr, Xf),
+            lanes=nl, at_lanes=lambda n, ell=ell, X=X: spmm.launch_lanes(
+                ell.indices, ell.data, X, n, DEFAULT_THREADS),
+            extra=None if extra is None else dict(extra)))
+    return cases
+
+
+def galerkin_cases(stages, a_data, device, dtype=None,
+                   scalar: bool = False) -> list:
+    """``fused_pair_gemm`` on both Galerkin products of every ``(cache,
+    p_data)`` stage of a PtAP chain fed ``a_data``, the ``block_seg_sum``
+    row-split combine where rows split and ``block_pair_gemm`` on the
+    "pairs" path's operands, at payload ``dtype`` (default f64; bf16 runs
+    at the policy's f32 accumulator and ``block_pair_gemm`` keeps its
+    products there, as the pairs path does).  ``scalar``: the 1x1 stages
+    of the scalar chain (labels ``level<i>s``, the records'
+    ``<family>_1x1`` rows, no ``block_pair_gemm``, which has no 1x1
+    instantiation).  Each bound counts the distinct operand blocks, the
+    plan and one output block per tile row."""
+    import torch
+
+    from repro_torch.core.block_csr import device_array
+    from repro_torch.core.ptap import ptap_numeric_data
+    from repro_torch.core.spgemm import spgemm_numeric_data
+    from repro_torch.kernels.block_pair_gemm import ops as pair
+    from repro_torch.kernels.block_pair_gemm.ref import block_pair_gemm_ref
+    from repro_torch.kernels.block_seg_sum import ops as seg
+    from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
+    from repro_torch.kernels.fused_pair_gemm import ops as gemm
+    from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
+
+    dtype = dtype or torch.float64
+    f64 = dict(dtype=dtype, device=device)
+    es = torch.empty((), dtype=dtype).element_size()   # payload bytes
+    bf16 = dtype == torch.bfloat16
+    acc = torch.float32 if bf16 else None       # the policy's accumulator
+    acc_es = 4 if bf16 else es
+    lvl = "s" if scalar else ""
+    cases = []
+    for li, (cache, p_data) in enumerate(stages):
         r_data = p_data[device_array(cache, "r_perm", device)].transpose(
             1, 2).contiguous()
         ap = spgemm_numeric_data(cache.ap_plan, a_data, p_data,
@@ -1996,29 +2457,31 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
                               torch.zeros((), **f64))
             rhs = rhs_data[tb.long()]
             br, bk, bc = sp.br, sp.bk, sp.bc
-            # the "pairs" path's operands: one gathered block per pair;
-            # bf16 products stay at the f32 accumulator
-            plhs = lhs_data[device_array(sp, "pair_a", device)]
-            prhs = rhs_data[device_array(sp, "pair_b", device)]
-            pkw = dict(accum_dtype=acc, out_dtype=acc) if bf16 else {}
-            cases.append(Case(
-                "block_pair_gemm",
-                f"level{li} {tag} {sp.npairs} pairs ({br},{bk},{bc})",
-                lambda plhs=plhs, prhs=prhs, pkw=pkw: pair.block_pair_gemm(
-                    plhs, prhs, **pkw),
-                lambda plhs=plhs, prhs=prhs, pkw=pkw: block_pair_gemm_ref(
-                    plhs, prhs, **pkw),
-                nbytes=sp.npairs * ((br * bk + bk * bc) * es
-                                    + br * bc * acc_es),
-                flops=2 * sp.npairs * br * bk * bc,
-                library=lambda plhs=plhs, prhs=prhs: torch.bmm(plhs, prhs)))
+            if not scalar:
+                # the "pairs" path's operands: one gathered block per pair;
+                # bf16 products stay at the f32 accumulator
+                plhs = lhs_data[device_array(sp, "pair_a", device)]
+                prhs = rhs_data[device_array(sp, "pair_b", device)]
+                pkw = dict(accum_dtype=acc, out_dtype=acc) if bf16 else {}
+                cases.append(Case(
+                    "block_pair_gemm",
+                    f"level{li} {tag} {sp.npairs} pairs ({br},{bk},{bc})",
+                    lambda plhs=plhs, prhs=prhs, pkw=pkw:
+                    pair.block_pair_gemm(plhs, prhs, **pkw),
+                    lambda plhs=plhs, prhs=prhs, pkw=pkw:
+                    block_pair_gemm_ref(plhs, prhs, **pkw),
+                    nbytes=sp.npairs * ((br * bk + bk * bc) * es
+                                        + br * bc * acc_es),
+                    flops=2 * sp.npairs * br * bk * bc,
+                    library=lambda plhs=plhs, prhs=prhs: torch.bmm(plhs,
+                                                                   prhs)))
             nbytes = (_unique_count(ta, tm) * br * bk * es
                       + _unique_count(tb, tm) * bk * bc * es
                       + ta.numel() * 9 + sp.tile_rows * br * bc * es)
             # what the tile plan gathers when every pair reads its own
             # blocks: valid slots x (lhs + rhs block bytes)
             gather = int(tm.sum()) * (br * bk + bk * bc) * es
-            key = f"level{li} {tag} {sp.tile_rows}x{sp.pair_kmax}"
+            key = f"level{li}{lvl} {tag} {sp.tile_rows}x{sp.pair_kmax}"
             cases.append(Case(
                 "fused_pair_gemm",
                 f"{key} ({br},{bk},{bc})",
@@ -2031,15 +2494,16 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
                     "skij,skjl->sil", lhs, rhs),
                 extra=dict(gather_bytes=gather, before_ms=(
                     BEFORE_PAIR_GEMM_MS.get(key)
-                    if dtype == torch.float64 else None))))
+                    if dtype == torch.float64 else None)),
+                record="fused_pair_gemm_1x1" if scalar else None))
             if not sp.tile_identity:
                 part = gemm.fused_pair_gemm(*gargs, accum_dtype=acc)
                 toffs = device_array(sp, "tile_offsets", device, torch.int32)
                 tseg = device_array(sp, "tile_seg", device)
                 cases.append(Case(
                     "block_seg_sum",
-                    f"level{li} {tag} combine {sp.tile_rows} -> {sp.nnzb} "
-                    f"({br},{bc})",
+                    f"level{li}{lvl} {tag} combine {sp.tile_rows} -> "
+                    f"{sp.nnzb} ({br},{bc})",
                     lambda part=part, toffs=toffs: seg.block_seg_sum(
                         part, toffs, accum_dtype=acc),
                     lambda part=part, toffs=toffs: block_seg_sum_ref(
@@ -2049,11 +2513,9 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
                     flops=part.numel(),
                     library=lambda part=part, tseg=tseg, sp=sp, br=br,
                     bc=bc: torch.zeros((sp.nnzb, br, bc), **f64)
-                    .index_add_(0, tseg, part)))
+                    .index_add_(0, tseg, part),
+                    record="block_seg_sum_1x1" if scalar else None))
         a_data = ptap_numeric_data(cache, a_data, p_data, accum_dtype=acc)
-    # --- the stored restrictions (6x3 at level 0) ---------------------------
-    for tag, ell in extra_ells:
-        ell_cases(tag, _at(ell, dtype), padded=True)
     return cases
 
 
@@ -2167,11 +2629,12 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True,
 
     from repro_torch.kernels.autotune import device_ms
     bw, fp = peaks
-    per = {name: dict(cases=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
-                      ms_single=0.0, plain_ms=0.0, bound_ms=0.0,
-                      floor_ms=0.0, library_ms=0.0, library_all=True,
-                      bytes=0, flops=0)
-           for name in KERNELS}
+
+    def zero():
+        return dict(cases=0, max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
+                    ms_single=0.0, plain_ms=0.0, bound_ms=0.0, floor_ms=0.0,
+                    library_ms=0.0, library_all=True, bytes=0, flops=0)
+    per = {name: zero() for name in KERNELS}
     for c in cases:
         got, want = c.run(), c.plain()
         if isinstance(got, tuple):
@@ -2184,7 +2647,7 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True,
         if not rel <= tol:
             raise AssertionError(f"{label}{c.kernel} {c.label}: max rel err "
                                  f"{rel:.3e} > {tol}")
-        row = per[c.kernel]
+        row = per.setdefault(c.record, zero())
         row["cases"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_rel_err"] = max(row["max_rel_err"], rel)
@@ -2196,6 +2659,8 @@ def check_kernels(cases: list, peaks: tuple, timed: bool = True,
         line = dict(kernel=c.kernel, case=c.label, max_abs_err=err,
                     max_rel_err=rel, bound_ms=bound, floor_ms=c.floor_ms,
                     bytes=c.nbytes)
+        if c.record != c.kernel:
+            line["entry"] = c.record
         if c.lanes is not None:
             line["lanes"] = c.lanes
         line.update(c.extra)
@@ -3036,32 +3501,43 @@ def peaks_for(name: str) -> tuple:
 
 
 def kernel_record(per: dict, by_path: dict, per_step: dict,
-                  peaks: tuple, precision: dict) -> dict:
+                  peaks: tuple, precision: dict, scalar: tuple) -> dict:
     """The per-kernel JSON record: launches summed over the paths (and per
     path), the largest error against the plain version, and times summed
     over the cases; the f64 instantiation of each kernel under its name,
     the f32 and bf16 ones under ``<name>_f32`` / ``<name>_bf16`` with the
     precision path's launches and cases at that dtype (``precision``:
-    ``{prec: (launches, per, per_hot_step)}``)."""
+    ``{prec: (launches, per, per_hot_step)}``), and the scalar baseline's
+    1x1 and scalar-row entries under their ``SCALAR_KERNELS`` names with
+    the scalar path's launches of that entry and its cases (``scalar``:
+    ``(launches by entry, launches per scalar hot step, per)``).  A
+    family's ``scalar`` column (``by_path["scalar"]``) counts only its
+    blocked instantiations on the scalar path."""
     record = []
-    rows = [(kname, "f64", per[kname], by_path, per_step)
+    rows = [(kname, kname, "f64", per[kname], by_path, per_step)
             for kname in KERNELS]
     for prec, (launches, pper, pstep) in precision.items():
-        rows += [(kname, prec, pper[kname], {"precision": launches},
-                  {"hot_step": pstep}) for kname in KERNELS]
-    for kname, dt, row, paths, steps in rows:
+        rows += [(f"{kname}_{prec}", kname, prec, pper[kname],
+                  {"precision": launches}, {"hot_step": pstep})
+                 for kname in KERNELS]
+    s_launches, s_step, s_per = scalar
+    rows += [(rec, fam, "f64", s_per[rec], {"scalar": s_launches},
+              {"scalar_hot_step": s_step})
+             for rec, (fam, _) in SCALAR_KERNELS.items()]
+    for name, kname, dt, row, paths, steps in rows:
         meta = KERNELS[kname]
         if row["cases"] == 0:
-            raise AssertionError(f"{kname} {dt}: no case checked")
+            raise AssertionError(f"{name}: no case checked")
         flops = peaks[1] if dt == "f64" else F32_FLOPS
         by_bytes = row["bytes"] / peaks[0] >= row["flops"] / flops
+        key = name if name in SCALAR_KERNELS else kname
         record.append(dict(
-            name=kname if dt == "f64" else f"{kname}_{dt}", dtype=dt,
+            name=name, dtype=dt,
             route="cuda", source=meta["source"],
             replaces=meta["replaces"],
-            launches=sum(p[kname] for p in paths.values()),
-            launches_by_path={path: p[kname] for path, p in paths.items()},
-            launches_per_hot_step=sum(v[kname] for v in steps.values()),
+            launches=sum(p[key] for p in paths.values()),
+            launches_by_path={path: p[key] for path, p in paths.items()},
+            launches_per_hot_step=sum(v[key] for v in steps.values()),
             cases=row["cases"], max_abs_err=row["max_abs_err"],
             max_rel_err=row["max_rel_err"], ms=row["ms"],
             kernel_ms=row["ms"], ms_single=row["ms_single"],
@@ -3144,6 +3620,7 @@ def run_all() -> int:
                         ("block_pair_gemm", "block_seg_sum"))
     by_path["stored"], run["r_ells"] = stored_path(run)
     obs_phase(run, hot)
+    by_path["scalar"], s_launches, s_step, s_per = scalar_path(run, peaks)
 
     print("bitwise per column " + json.dumps(
         check_bitwise(run, "cuda", extra_ells=run["r_ells"])))
@@ -3195,7 +3672,7 @@ def run_all() -> int:
                  for prec in PRECISIONS}
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks,
-                                   precision)))
+                                   precision, (s_launches, s_step, s_per))))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,7 @@ from repro_torch.robust import inject
 class LevelState:
     """Numeric per-level state; structure lives in the setup's plans."""
 
-    a_ell: BlockELL                 # level operator (bs x bs blocks)
+    a_ell: BlockELL                 # level operator (bs x bs, or 1x1 blocks)
     p_ell: BlockELL                 # prolongator (bs_f x bs_c), fixed values
     dinv: torch.Tensor              # (nbr, bs, bs) inverted diagonal blocks
     lam_max: torch.Tensor           # Chebyshev upper bound for D^-1 A
@@ -127,7 +127,12 @@ def _coef(c1, c2, like: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_step(lv: LevelState, b, x, d, coef):
-    """One fused step ``d' = c1 d + c2 D^-1 (b - A x); x' = x + d'``."""
+    """One fused step ``d' = c1 d + c2 D^-1 (b - A x); x' = x + d'``.  A
+    level of the scalar baseline (``core.scalar_path``: ``a_ell`` of 1x1
+    blocks, ``dinv`` of node blocks) takes the scalar-row step."""
+    if lv.a_ell.br == 1 and lv.dinv.shape[-1] > 1:
+        return smoother_ops.smoother_step_scalar(lv.a_ell, lv.dinv, b, x, d,
+                                                 coef)
     return smoother_ops.smoother_step(lv.a_ell, lv.dinv, b, x, d, coef)
 
 

@@ -2,7 +2,8 @@
 
 Serves the COO reassembly (``core.block_coo.set_values_coo``, reading the
 value stream through the plan's composed permutation) and the SpGEMM
-row-split combine (``core.spgemm``, identity order).
+row-split combine (``core.spgemm``, identity order), at 1x1 blocks that
+of the scalar (AIJ) baseline's PtAP chain (``core.scalar_path``).
 """
 from __future__ import annotations
 
@@ -12,13 +13,15 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
 from repro_torch.obs import trace as obs_trace
 
-SHAPES = ((3, 3), (3, 6), (6, 6))
+SHAPES = ((3, 3), (3, 6), (6, 6), (1, 1))
 _ARGS = (backend.P,) * 4 + (backend.I,) * 3 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
 #: the same launches by payload dtype ("f64", "f32", "bf16")
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
+#: the same launches by block shape ``(br, bc)``
+launches_by_shape = dict.fromkeys(SHAPES, 0)
 
 
 @obs_trace.spanned("kernels/block_seg_sum")
@@ -54,4 +57,5 @@ def block_seg_sum(vals: torch.Tensor, offsets: torch.Tensor,
                    backend.ptr(out), nseg, br, bc)
     launches += 1
     launches_by_dtype[backend.PAYLOADS[vals.dtype]] += 1
+    launches_by_shape[(br, bc)] += 1
     return out

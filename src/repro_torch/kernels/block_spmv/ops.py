@@ -1,7 +1,9 @@
 """Wrapper of the blocked ELL SpMV kernel (``csrc/block_spmv.cu``).
 
 Every operator product of the solve runs through here: CG's ``A p``, the
-V-cycle residual and prolongation, and the ``lambda_max`` power iteration.
+V-cycle residual and prolongation, and the ``lambda_max`` power iteration;
+at 1x1 blocks every ``A x``, ``P x`` and ``R r`` of the scalar (AIJ)
+baseline (``core.scalar_path``).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from repro_torch.kernels import autotune, backend, ell_rows
 from repro_torch.kernels.block_spmv.ref import block_spmv_ell_ref
 from repro_torch.obs import trace as obs_trace
 
-SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6))
+SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6), (1, 1))
 _ARGS = (backend.P,) * 4 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)

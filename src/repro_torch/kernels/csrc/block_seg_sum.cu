@@ -19,6 +19,10 @@
 // atomics, deterministic, reruns bitwise equal, and bitwise equal to the
 // plain version's in-order sum.
 //
+// Block shapes: 3x3, 3x6 and 6x6, and 1x1 for the row-split combines of
+// the scalar (AIJ) baseline's PtAP chain (core/scalar_path.py), where a
+// thread sums one scalar segment.
+//
 // Payloads: f64 (the COO reassembly, at the Krylov dtype, and the f64
 // combines), f32 and bf16 (the row-split combines of a reduced-precision
 // recompute).  f64 and f32 sum at their own type; bf16 sums at an f32
@@ -75,6 +79,7 @@ int entry(const void* vals, const void* perm, const void* offsets,
   if (br == 3 && bc == 3) return launch<3, 3, T, Acc>(v, p, o, y, nseg, s);
   if (br == 3 && bc == 6) return launch<3, 6, T, Acc>(v, p, o, y, nseg, s);
   if (br == 6 && bc == 6) return launch<6, 6, T, Acc>(v, p, o, y, nseg, s);
+  if (br == 1 && bc == 1) return launch<1, 1, T, Acc>(v, p, o, y, nseg, s);
   return repro::bad_shape();
 }
 

@@ -22,9 +22,11 @@
 // slots are zero blocks pointing at column 0: they add exact zeros and
 // need no mask.  A lane reads each block row of its slot in 16-byte pairs
 // where the block width is even (payloads must then be 16-byte aligned).
-// Block shapes: 3x3 (A0), 3x6 (P0), 6x6 (coarse A, P) and 6x3, the stored
-// restriction R0 = P0^T (gamg.setup(restriction="stored")); 3-wide rows
-// take the element-wise loads.
+// Block shapes: 3x3 (A0), 3x6 (P0), 6x6 (coarse A, P), 6x3, the stored
+// restriction R0 = P0^T (gamg.setup(restriction="stored")), and 1x1, the
+// scalar (AIJ) baseline's every A x, P x and R r (core/scalar_path.py):
+// there a row's slots are single doubles and its lanes read consecutive
+// ones.  Odd-width rows take the element-wise loads.
 #include "ell_row.cuh"
 
 namespace {
@@ -87,6 +89,8 @@ int entry(const void* indices, const void* data, const void* x, void* y,
     return launch<6, 6, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
   if (br == 6 && bc == 3)
     return launch<6, 3, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
+  if (br == 1 && bc == 1)
+    return launch<1, 1, T, Acc>(i, d, xv, yv, nbr, kmax, l, t, s);
   return repro::bad_shape();
 }
 

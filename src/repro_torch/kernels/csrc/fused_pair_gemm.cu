@@ -47,6 +47,10 @@
 // f32, 4 or 2 at bf16 (cp.async copies 4 bytes at least, so a single bf16
 // element is copied by a plain load and store).
 //
+// Shapes: (3,3,6), (6,3,6), (6,6,6), and (1,1,1) for the scalar (AIJ)
+// baseline's PtAP chain (core/scalar_path.py): there a thread owns one
+// scalar tile row, a warp 32 of them, and every copy is one element.
+//
 // Bits: every output element is one fma chain in the order of the first,
 // thread-per-element kernel — valid slots ascending (masked slots
 // skipped), then j = 0..BK-1, from 0.0 — whatever `threads`, the geometry,
@@ -352,10 +356,16 @@ __global__ void __launch_bounds__(1024) pair_gemm_direct(
   }
   if (warp * G >= nr) return;           // the warp owns no row
   T* wb = wbuf + (warp * G + lane / BR) * B_N;
-  if (wide_b)
-    direct_rows<P, BR, BK, BC, T>(a, b, sa, sb, range, lh.x, ranged, wb, r,
-                                  i, live, kmax, wide_a, acc);
-  else
+  // an odd-sized B block (1x1) is never read in pairs
+  bool paired = false;
+  if constexpr (B_N % 2 == 0) {
+    if (wide_b) {
+      direct_rows<P, BR, BK, BC, T>(a, b, sa, sb, range, lh.x, ranged, wb, r,
+                                    i, live, kmax, wide_a, acc);
+      paired = true;
+    }
+  }
+  if (!paired)
     direct_rows<T, BR, BK, BC, T>(a, b, sa, sb, range, lh.x, ranged, wb, r,
                                   i, live, kmax, wide_a, acc);
   if (live) store_strip<BR, BC, T>(out, r0 + r, i, acc);
@@ -513,6 +523,8 @@ int entry(const void* a, const void* b, const void* tile_a,
     return launch<6, 3, 6, T>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   if (br == 6 && bk == 6 && bc == 6)
     return launch<6, 6, 6, T>(av, bv, ta, tb, m, o, rows, kmax, t, s);
+  if (br == 1 && bk == 1 && bc == 1)
+    return launch<1, 1, 1, T>(av, bv, ta, tb, m, o, rows, kmax, t, s);
   return repro::bad_shape();
 }
 

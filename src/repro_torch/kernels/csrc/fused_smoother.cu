@@ -42,6 +42,18 @@
 // V-cycle's: A x and D^-1 r each sum at f32 and round to bf16, every
 // elementwise step rounds to bf16) and _bf16_f32 (an f32 accumulator).
 // [c1, c2] come at the payload type and are widened to the accumulator.
+//
+// Scalar rows (repro_fused_smoother_scalar_*): the scalar (AIJ) baseline
+// (core/scalar_path.py) keeps A in 1x1 ELL rows but D^-1 in the node
+// blocks of the blocked setup, (nbr, bs, bs) with bs in {3, 6}: node I
+// owns the scalar rows I*bs .. I*bs+bs-1.  A sub-warp of `lanes` lanes
+// (the caller's ell_rows.lanes(1, 1, kmax), block_spmv's at 1x1) owns one
+// node and runs the 1x1 row body (ell_row_lanes + lanes_sum) on its bs
+// rows in turn, so each row's A x is bitwise block_spmv's at 1x1; the bs
+// residuals then meet dinv[I] in the blocked step's z chain and
+// recurrence.  Vector only (the reference reaches it only through vector
+// solves); `threads` sets threads / lanes nodes per block and nothing
+// else.
 #include "ell_row.cuh"
 
 namespace {
@@ -108,6 +120,57 @@ __global__ void __launch_bounds__(MAXT) smoother_kernel(
   }
 }
 
+// One node of the scalar-row step per sub-warp (see the header).
+template <int BS, typename T, typename Acc>
+__global__ void __launch_bounds__(1024) scalar_smoother_kernel(
+    const int* __restrict__ idx, const T* __restrict__ data,
+    const T* __restrict__ dinv, const T* __restrict__ b,
+    const T* __restrict__ x, const T* __restrict__ d,
+    const T* __restrict__ coef, T* __restrict__ x_out,
+    T* __restrict__ d_out, int nbr, int kmax, int lanes) {
+  using N = repro::Num<Acc>;
+  using R = typename N::R;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const long long r = t >> (__ffs(lanes) - 1);
+  const int lane = threadIdx.x & (lanes - 1);
+  const bool live = r < nbr;
+  // nodes past nbr run no slot but still join the butterflies
+  const long long rr = live ? r : 0;
+  R res[BS];
+#pragma unroll
+  for (int a = 0; a < BS; ++a) {
+    const long long row = rr * BS + a;
+    R acc[1][1];
+    repro::ell_row_lanes<1, 1, 1, T, Acc>(idx + row * kmax,
+                                          data + row * kmax, x, 1, 1,
+                                          live ? kmax : 0, lane, lanes, acc);
+    repro::lanes_sum<1, 1, Acc>(acc, lanes);
+    res[a] = acc[0][0];
+  }
+  if (!live) return;
+  const long long o = r * BS;
+#pragma unroll
+  for (int a = 0; a < BS; ++a)
+    res[a] = N::sub(repro::widen(b[o + a]), N::round(res[a]));
+  const T* di = dinv + r * BS * BS;
+  const R c1 = repro::widen(coef[0]);
+  const R c2 = repro::widen(coef[1]);
+#pragma unroll
+  for (int a = 0; a < BS; ++a) {
+    if ((a & (lanes - 1)) != lane) continue;
+    R z = R(0);
+#pragma unroll
+    for (int c = 0; c < BS; ++c)
+      z = N::fma(repro::widen(di[a * BS + c]), res[c], z);
+    z = N::round(z);
+    const long long e = o + a;
+    const R dn = N::add(N::mul(c1, repro::widen(d[e])), N::mul(c2, z));
+    d_out[e] = repro::narrow<T>(dn);
+    x_out[e] = repro::narrow<T>(N::add(repro::widen(x[e]), dn));
+  }
+}
+
 template <typename T>
 struct Args {
   const int* idx;
@@ -170,6 +233,42 @@ int entry(const void* indices, const void* data, const void* dinv,
   return repro::bad_shape();
 }
 
+template <int BS, typename T, typename Acc>
+int launch_scalar(const Args<T>& a) {
+  if (a.nbr == 0) return repro::last_error();
+  const unsigned blocks =
+      repro::blocks_for(static_cast<long long>(a.nbr) * a.lanes, a.threads);
+  repro::note_launch(blocks, a.threads);
+  scalar_smoother_kernel<BS, T, Acc><<<blocks, a.threads, 0, a.stream>>>(
+      a.idx, a.data, a.dinv, a.b, a.x, a.d, a.coef, a.x_out, a.d_out, a.nbr,
+      a.kmax, a.lanes);
+  return repro::last_error();
+}
+
+// nbr counts nodes: the ELL has nbr * bs scalar rows of kmax slots.
+template <typename T, typename Acc>
+int scalar_entry(const void* indices, const void* data, const void* dinv,
+                 const void* b, const void* x, const void* d,
+                 const void* coef, void* x_out, void* d_out, int nbr,
+                 int kmax, int bs, int lanes, int threads, void* stream) {
+  const Args<T> a{static_cast<const int*>(indices),
+                  static_cast<const T*>(data),
+                  static_cast<const T*>(dinv),
+                  static_cast<const T*>(b),
+                  static_cast<const T*>(x),
+                  static_cast<const T*>(d),
+                  static_cast<const T*>(coef),
+                  static_cast<T*>(x_out),
+                  static_cast<T*>(d_out),
+                  nbr, kmax, 1, lanes, threads,
+                  static_cast<cudaStream_t>(stream)};
+  if (!repro::threads_ok(threads) || !repro::lanes_ok(lanes))
+    return repro::bad_shape();
+  if (bs == 3) return launch_scalar<3, T, Acc>(a);
+  if (bs == 6) return launch_scalar<6, T, Acc>(a);
+  return repro::bad_shape();
+}
+
 }  // namespace
 
 #define REPRO_SMOOTHER_ENTRIES(SUFFIX, T, ACC)                               \
@@ -188,6 +287,15 @@ int entry(const void* indices, const void* data, const void* dinv,
       int lanes, int threads, void* stream) {                                \
     return entry<T, ACC>(indices, data, dinv, b, x, d, coef, x_out, d_out,   \
                          nbr, kmax, bs, k, lanes, threads, stream);          \
+  }                                                                          \
+  REPRO_API int repro_fused_smoother_scalar_##SUFFIX(                        \
+      const void* indices, const void* data, const void* dinv,               \
+      const void* b, const void* x, const void* d, const void* coef,         \
+      void* x_out, void* d_out, int nbr, int kmax, int bs, int lanes,        \
+      int threads, void* stream) {                                           \
+    return scalar_entry<T, ACC>(indices, data, dinv, b, x, d, coef, x_out,   \
+                                d_out, nbr, kmax, bs, lanes, threads,        \
+                                stream);                                     \
   }
 
 REPRO_SMOOTHER_ENTRIES(f64, double, double)

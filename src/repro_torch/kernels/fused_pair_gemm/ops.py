@@ -1,7 +1,9 @@
 """Wrapper of the fused tiled pair-GEMM kernel (``csrc/fused_pair_gemm.cu``).
 
 ``repro_torch.core.spgemm`` runs both Galerkin products of every PtAP and
-the setup's ``(D^-1 A) P~`` through here on the fused SpGEMM path.
+the setup's ``(D^-1 A) P~`` through here on the fused SpGEMM path, and
+at ``(1, 1, 1)`` the scalar (AIJ) baseline's PtAP chain
+(``core.scalar_path.build_scalar_ptap_chain``).
 """
 from __future__ import annotations
 
@@ -11,13 +13,15 @@ from repro_torch.kernels import autotune, backend
 from repro_torch.kernels.fused_pair_gemm.ref import fused_pair_gemm_ref
 from repro_torch.obs import trace as obs_trace
 
-SHAPES = ((3, 3, 6), (6, 3, 6), (6, 6, 6))
+SHAPES = ((3, 3, 6), (6, 3, 6), (6, 6, 6), (1, 1, 1))
 _ARGS = (backend.P,) * 6 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
 #: the same launches by payload dtype ("f64", "f32", "bf16")
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
+#: the same launches by block shapes ``(br, bk, bc)``
+launches_by_shape = dict.fromkeys(SHAPES, 0)
 
 
 @obs_trace.spanned("kernels/fused_pair_gemm")
@@ -65,4 +69,5 @@ def fused_pair_gemm(a_data: torch.Tensor, b_data: torch.Tensor,
                    p(out), rows, kmax, br, bk, bc, threads)
     launches += 1
     launches_by_dtype[backend.PAYLOADS[a_data.dtype]] += 1
+    launches_by_shape[(br, bk, bc)] += 1
     return out

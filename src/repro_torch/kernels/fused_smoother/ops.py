@@ -2,7 +2,9 @@
 
 ``repro_torch.core.vcycle.apply_smoother`` dispatches here on the fused
 smoother path (the default), for vectors and for the multi-RHS solve's
-``(n, k)`` panels (one entry point each in the CUDA source).
+``(n, k)`` panels (one entry point each in the CUDA source), and on the
+scalar (AIJ) baseline's levels (``core.scalar_path``: A in 1x1 ELL rows,
+``D^-1`` in node blocks) to the scalar-row entry point, vectors only.
 """
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ import torch
 
 from repro_torch.core.block_csr import BlockELL
 from repro_torch.kernels import autotune, backend, ell_rows
-from repro_torch.kernels.fused_smoother.ref import smoother_step_ref
+from repro_torch.kernels.fused_smoother.ref import smoother_step_ref, \
+    smoother_step_scalar_ref
 from repro_torch.obs import trace as obs_trace
 
 SHAPES = (3, 6)
@@ -21,6 +24,10 @@ _PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 6 + (backend.P,)
 launches = 0
 #: the same launches by payload dtype ("f64", "f32", "bf16")
 launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
+#: the same launches by ``(a_ell block rows, dinv block)``: ``(bs, bs)``
+#: for the blocked step, ``(1, bs)`` for the scalar-row step
+launches_by_shape = dict.fromkeys(
+    [(bs, bs) for bs in SHAPES] + [(1, bs) for bs in SHAPES], 0)
 
 
 @obs_trace.spanned("kernels/fused_smoother")
@@ -78,6 +85,7 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                        coef, lanes, threads, accum_dtype)
     launches += 1
     launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
+    launches_by_shape[(bs, bs)] += 1
     return out
 
 
@@ -105,6 +113,92 @@ def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
         backend.launch(fn, _PANEL_ARGS, *ptrs, nbr, kmax, bs, vec[2], lanes,
                        threads)
     return x_new, d_new
+
+
+@obs_trace.spanned("kernels/fused_smoother")
+def smoother_step_scalar_ell(indices: torch.Tensor, data: torch.Tensor,
+                             dinv: torch.Tensor, b_blocks: torch.Tensor,
+                             x_blocks: torch.Tensor, d_blocks: torch.Tensor,
+                             coef: torch.Tensor, *,
+                             threads: int | None = None, accum_dtype=None):
+    """``(x', d')`` for one step on scalar rows with node blocks: A in 1x1
+    padded ELL rows (``(nbr*bs, kmax)`` indices, ``(nbr*bs, kmax, 1, 1)``
+    data), ``dinv (nbr, bs, bs)`` with ``bs`` in ``SHAPES``, ``(nbr, bs)``
+    node vectors (node ``I`` owns scalar rows ``I*bs .. I*bs+bs-1``).
+    Each row's ``A x`` takes ``ell_rows.lanes(1, 1, kmax)`` lanes, as
+    ``block_spmv`` at 1x1, so it is bitwise ``block_spmv``'s.  ``threads``
+    per CUDA block (default 256; not tuned) only sets how many nodes share
+    a block.  Payloads and ``accum_dtype`` as ``smoother_step_ell``.  CPU
+    tensors take the plain version (which also takes ``(nbr, bs, k)``
+    panels); CUDA tensors the kernel, vectors only."""
+    global launches
+    name = "fused_smoother"
+    cuda = backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
+                           b=b_blocks, x=x_blocks, d=d_blocks, coef=coef)
+    nrows, kmax = data.shape[:2]
+    nbr, bs = dinv.shape[:2]
+    threads = autotune.DEFAULT_THREADS if threads is None else threads
+    backend.check_threads(name, threads)
+    lanes = ell_rows.lanes(1, 1, kmax)
+    if not cuda:
+        return smoother_step_scalar_ref(indices, data, dinv, b_blocks,
+                                        x_blocks, d_blocks, coef,
+                                        accum_dtype=accum_dtype)
+    if bs not in SHAPES or tuple(data.shape[2:]) != (1, 1):
+        raise ValueError(f"{name}: scalar rows of {tuple(data.shape[2:])} "
+                         f"blocks with {tuple(dinv.shape[1:])} node blocks "
+                         f"have no kernel instantiation (1x1, bs in "
+                         f"{SHAPES})")
+    if (tuple(dinv.shape) != (nbr, bs, bs) or nrows != nbr * bs
+            or tuple(indices.shape) != (nrows, kmax)
+            or any(tuple(v.shape) != (nbr, bs) for v in (b_blocks, x_blocks,
+                                                         d_blocks))
+            or tuple(coef.shape) != (2,)):
+        raise ValueError(f"{name}: scalar-row operands disagree with A "
+                         f"{tuple(data.shape)} and dinv {tuple(dinv.shape)} "
+                         f"(vectors only on the card)")
+    backend.check_kernel_args(
+        name, dict(data=data, dinv=dinv, b=b_blocks, x=x_blocks, d=d_blocks,
+                   coef=coef), dict(indices=indices))
+    out = launch_scalar_lanes(indices, data, dinv, b_blocks, x_blocks,
+                              d_blocks, coef, lanes, threads, accum_dtype)
+    launches += 1
+    launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
+    launches_by_shape[(1, bs)] += 1
+    return out
+
+
+def launch_scalar_lanes(indices: torch.Tensor, data: torch.Tensor,
+                        dinv: torch.Tensor, b_blocks: torch.Tensor,
+                        x_blocks: torch.Tensor, d_blocks: torch.Tensor,
+                        coef: torch.Tensor, lanes: int, threads: int,
+                        accum_dtype=None):
+    """The scalar-row kernel at an explicit ``lanes`` (as
+    ``launch_lanes``): checked CUDA tensors, no launch counted."""
+    nbr, bs = dinv.shape[:2]
+    x_new = torch.empty_like(b_blocks)
+    d_new = torch.empty_like(b_blocks)
+    p = backend.ptr
+    fn = backend.entry("fused_smoother_scalar", data.dtype, accum_dtype,
+                       bf16_f32=True)
+    backend.launch(fn, _ARGS, p(indices), p(data), p(dinv), p(b_blocks),
+                   p(x_blocks), p(d_blocks), p(coef), p(x_new), p(d_new),
+                   nbr, data.shape[1], bs, lanes, threads)
+    return x_new, d_new
+
+
+def smoother_step_scalar(a_ell: BlockELL, dinv: torch.Tensor,
+                         b: torch.Tensor, x: torch.Tensor, d: torch.Tensor,
+                         coef: torch.Tensor, *, threads: int | None = None,
+                         accum_dtype=None):
+    """The scalar-row step on flat ``(n,)`` vectors (``(n, k)`` panels on
+    the CPU), A in 1x1 ELL rows and ``dinv (n // bs, bs, bs)``; returns
+    ``(x', d')``."""
+    shape = tuple(dinv.shape[:2]) + tuple(b.shape[1:])
+    x_new, d_new = smoother_step_scalar_ell(
+        a_ell.indices, a_ell.data, dinv, b.reshape(shape), x.reshape(shape),
+        d.reshape(shape), coef, threads=threads, accum_dtype=accum_dtype)
+    return x_new.reshape(b.shape), d_new.reshape(b.shape)
 
 
 def smoother_step(a_ell: BlockELL, dinv: torch.Tensor, b: torch.Tensor,

@@ -59,7 +59,7 @@ def _launch_once(mod, call):
     return out
 
 
-@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6)])
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 6), (1, 1)])
 def test_seg_sum_kernel(dev, br, bc):
     g = torch.Generator(device=dev).manual_seed(br * bc)
     vals = torch.randn(300, br, bc, generator=g, dtype=torch.float64,
@@ -73,7 +73,7 @@ def test_seg_sum_kernel(dev, br, bc):
     assert torch.equal(got, block_seg_sum_ref(vals, offsets, perm))
 
 
-@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 3), (6, 6)])
+@pytest.mark.parametrize("br,bc", [(3, 3), (3, 6), (6, 3), (6, 6), (1, 1)])
 def test_spmv_kernel(dev, br, bc):
     g = torch.Generator(device=dev).manual_seed(10 + br * bc)
     idx = torch.randint(0, 40, (70, 9), generator=g, device=dev,
@@ -101,7 +101,8 @@ def test_smoother_kernel(dev, bs):
     _close(got, smoother_step_ref(*args))
 
 
-@pytest.mark.parametrize("br,bk,bc", [(3, 3, 6), (6, 3, 6), (6, 6, 6)])
+@pytest.mark.parametrize("br,bk,bc", [(3, 3, 6), (6, 3, 6), (6, 6, 6),
+                                      (1, 1, 1)])
 def test_pair_gemm_kernel(dev, br, bk, bc):
     g = torch.Generator(device=dev).manual_seed(30 + br + bk + bc)
     f64 = dict(dtype=torch.float64, device=dev)
@@ -193,7 +194,12 @@ PAIR_RAGGED = [(11111, 6, (6, 6, 6), "narrow"), (11111, 6, (3, 3, 6), "odd"),
                (537, 41, (6, 3, 6), "narrow"), (6000, 100, (6, 6, 6), "narrow"),
                (6000, 100, (3, 3, 6), "random"),
                (600, 1000, (6, 6, 6), "narrow"),
-               (600, 1000, (3, 3, 6), "random")]
+               (600, 1000, (3, 3, 6), "random"),
+               # the scalar baseline's (1, 1, 1) products
+               (11111, 6, (1, 1, 1), "odd"), (3001, 32, (1, 1, 1), "narrow"),
+               (3001, 33, (1, 1, 1), "random"),
+               (537, 409, (1, 1, 1), "narrow"),
+               (600, 1000, (1, 1, 1), "random")]
 
 
 @pytest.mark.parametrize("rows,kmax,shape,lhs", PAIR_RAGGED)
@@ -1144,3 +1150,203 @@ def test_frozen_segment_copies_nothing_host_to_device(dev):
     assert k == 3 and not bool(blocked) and int(carry.step) == 4
     assert (nbytes, count) == (0, 0)
     assert recs.status[:3].tolist() == [0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# The scalar (AIJ) baseline's entries: block_spmv, fused_pair_gemm and
+# block_seg_sum at 1x1, and the scalar-row fused_smoother
+# ---------------------------------------------------------------------------
+
+#: (nbr, kmax) of 1x1 ELL operators: kmax 1, 31 and 33 (around a warp of
+#: lanes), 81 (A0s) and 2,940 (A2s); nbr not a multiple of any CTA's rows
+SCALAR_RAGGED = [(37, 1), (1001, 31), (259, 33), (131, 81), (9, 2940)]
+
+
+def _scalar_operands(dev, seed, nodes, bs, kmax, dt=torch.float64):
+    """A square 1x1 ELL operator of ``nodes * bs`` rows, node blocks
+    ``dinv (nodes, bs, bs)`` and ``(nodes, bs)`` vectors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64,
+                           device=dev).to(dt)
+    n = nodes * bs
+    idx = torch.randint(0, n, (n, kmax), generator=g, device=dev,
+                        dtype=torch.int32)
+    return (idx, randn(n, kmax, 1, 1), randn(nodes, bs, bs),
+            randn(nodes, bs), randn(nodes, bs), randn(nodes, bs),
+            torch.tensor([0.25, 0.8], dtype=torch.float64,
+                         device=dev).to(dt))
+
+
+@pytest.mark.parametrize("nbr,kmax", SCALAR_RAGGED)
+def test_scalar_spmv_at_ragged_shapes(dev, nbr, kmax):
+    """``block_spmv`` at 1x1: every lanes value against the plain version,
+    every ``threads`` candidate bitwise the 256-thread launch, and the
+    wrapper's launch the map's."""
+    from repro_torch.kernels import ell_rows
+    g = torch.Generator(device=dev).manual_seed(200 + nbr + kmax)
+    f64 = dict(dtype=torch.float64, device=dev)
+    idx = torch.randint(0, 97, (nbr, kmax), generator=g, device=dev,
+                        dtype=torch.int32)
+    data = torch.randn(nbr, kmax, 1, 1, generator=g, **f64)
+    x = torch.randn(97, 1, generator=g, **f64)
+    want = block_spmv_ell_ref(idx, data, x)
+    threads = autotune.CANDIDATES["block_spmv"]["threads"] + (1024,)
+    for lanes in LANES:
+        y = spmv_ops.launch_lanes(idx, data, x, lanes, 256)
+        _close(y, want)
+        for t in threads:
+            assert torch.equal(spmv_ops.launch_lanes(idx, data, x, lanes, t),
+                               y), (lanes, t)
+    before = spmv_ops.launches_by_shape[(1, 1)]
+    got = _launch_once(spmv_ops, lambda: spmv_ops.block_spmv_ell(idx, data,
+                                                                 x))
+    assert spmv_ops.launches_by_shape[(1, 1)] == before + 1
+    assert torch.equal(got, spmv_ops.launch_lanes(
+        idx, data, x, ell_rows.lanes(1, 1, kmax), 256))
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+@pytest.mark.parametrize("nodes,kmax", [(13, 1), (337, 31), (87, 33),
+                                        (41, 81), (3, 2940)])
+def test_scalar_smoother_at_ragged_shapes(dev, bs, nodes, kmax):
+    """The scalar-row step: every lanes value against the plain version,
+    every ``threads`` candidate bitwise the 256-thread launch; one counted
+    launch through the wrapper at the map's lanes."""
+    from repro_torch.kernels import ell_rows
+    from repro_torch.kernels.fused_smoother.ref import \
+        smoother_step_scalar_ref
+    op = _scalar_operands(dev, 210 + bs + nodes + kmax, nodes, bs, kmax)
+    want = smoother_step_scalar_ref(*op)
+    threads = autotune.CANDIDATES["fused_smoother"]["threads"] + (1024,)
+    for lanes in LANES:
+        got = smooth_ops.launch_scalar_lanes(*op, lanes, 256)
+        _close(got, want)
+        for t in threads:
+            again = smooth_ops.launch_scalar_lanes(*op, lanes, t)
+            assert all(torch.equal(a, b) for a, b in zip(again, got)), \
+                (lanes, t)
+    before = smooth_ops.launches_by_shape[(1, bs)]
+    got = _launch_once(smooth_ops,
+                       lambda: smooth_ops.smoother_step_scalar_ell(*op))
+    assert smooth_ops.launches_by_shape[(1, bs)] == before + 1
+    at_map = smooth_ops.launch_scalar_lanes(*op, ell_rows.lanes(1, 1, kmax),
+                                            256)
+    assert all(torch.equal(a, b) for a, b in zip(got, at_map))
+
+
+@pytest.mark.parametrize("bs", [3, 6])
+@pytest.mark.parametrize("kmax", [1, 31, 33, 2940])
+def test_scalar_smoother_identity_step_is_the_spmv_residual(dev, bs, kmax):
+    """With ``dinv = I`` and ``coef = [0, 1]`` the scalar-row step's
+    ``d'`` is bitwise ``b - block_spmv(x)`` at 1x1."""
+    idx, data, _, b, x, d, _ = _scalar_operands(dev, 230 + bs + kmax, 29,
+                                                bs, kmax)
+    f64 = dict(dtype=torch.float64, device=dev)
+    eye = torch.eye(bs, **f64).expand(29, bs, bs).contiguous()
+    _, dn = _launch_once(smooth_ops, lambda: smooth_ops.
+                         smoother_step_scalar_ell(
+                             idx, data, eye, b, x, d,
+                             torch.tensor([0.0, 1.0], **f64)))
+    ax = spmv_ops.block_spmv_ell(idx, data, x.reshape(-1, 1))
+    assert torch.equal(dn.reshape(-1), b.reshape(-1) - ax.reshape(-1))
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 12, 64, -4])
+def test_scalar_smoother_c_entry_refuses_bad_lanes(dev, lanes):
+    op = _scalar_operands(dev, 240, 4, 3, 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        smooth_ops.launch_scalar_lanes(*op, lanes, 256)
+
+
+def test_scalar_smoother_refuses_panels_and_other_nodes(dev):
+    """The card's scalar-row entry takes vectors and node blocks of 3 or
+    6; the C entry refuses other node sizes."""
+    idx, data, dinv, b, x, d, coef = _scalar_operands(dev, 250, 5, 3, 4)
+    B = torch.stack([b, b], dim=2)
+    with pytest.raises(ValueError, match="vectors only"):
+        smooth_ops.smoother_step_scalar_ell(idx, data, dinv, B, B, B, coef)
+    op4 = _scalar_operands(dev, 251, 5, 4, 4)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        smooth_ops.smoother_step_scalar_ell(*op4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        smooth_ops.launch_scalar_lanes(*op4, 1, 256)
+
+
+@pytest.mark.parametrize("dt", list(LOW), ids=LOW_IDS)
+def test_low_precision_scalar_entries_match_plain(dev, dt):
+    """The four scalar-baseline entries at f32 and bf16 against their plain
+    versions at the reference's tolerances (bf16 products and sums at the
+    f32 accumulator, as the bf16 policy runs them)."""
+    from repro_torch.kernels.fused_smoother.ref import \
+        smoother_step_scalar_ref
+    tol, acc = LOW[dt]
+    randn, randint = _low(dev, dt, 260)
+    idx, data, x = randint(97, 301, 33), randn(301, 33, 1, 1), randn(97, 1)
+    _near(spmv_ops.block_spmv_ell(idx, data, x),
+          block_spmv_ell_ref(idx, data, x), tol)
+    for bs in (3, 6):
+        op = _scalar_operands(dev, 261 + bs, 50, bs, 81, dt)
+        for accum in (None, acc):
+            _near(smooth_ops.smoother_step_scalar_ell(*op, accum_dtype=accum),
+                  smoother_step_scalar_ref(*op, accum_dtype=accum), tol)
+    a, b = randn(400, 1, 1), randn(300, 1, 1)
+    ta, tb = randint(400, 200, 9), randint(300, 200, 9)
+    mask = torch.ones((200, 9), dtype=torch.bool, device=dev)
+    _near(gemm_ops.fused_pair_gemm(a, b, ta, tb, mask, accum_dtype=acc),
+          fused_pair_gemm_ref(a, b, ta, tb, mask, accum_dtype=acc), tol)
+    vals = randn(500, 1, 1)
+    offs = torch.tensor([0, 7, 7, 300, 500], dtype=torch.int32, device=dev)
+    seg_acc = torch.float32 if dt == torch.bfloat16 else None
+    _near(seg_ops.block_seg_sum(vals, offs, accum_dtype=seg_acc),
+          block_seg_sum_ref(vals, offs, accum_dtype=seg_acc), tol)
+
+
+def test_scalar_solve_on_card_matches_cpu(dev):
+    """The scalar baseline at m=5 (greedy, host assembly, coarse_size 30):
+    ``recompute_scalar`` and the scalar solve on the card against the
+    port on the CPU (equal iterations, the blocked solve's too; solutions
+    within 1e-12), launching ``block_spmv`` at 1x1 and the scalar-row
+    smoother; the scalar PtAP chain within 1e-11, launching
+    ``fused_pair_gemm`` at (1,1,1) and ``block_seg_sum`` at 1x1; a second
+    ``recompute_scalar`` copies nothing from the host."""
+    from repro_torch.core import gamg
+    from repro_torch.core.scalar_path import build_scalar_ptap_chain, \
+        recompute_scalar
+    from repro_torch.obs.transfer import count_h2d
+    out = {}
+    for where in ("cpu", dev):
+        prob = assemble_elasticity(5, path="host", device=where)
+        sd = gamg.setup(prob.A, prob.B, coarse_size=30, coarsener="greedy")
+        hier = recompute_scalar(sd, prob.A.data)
+        res = gamg.hier_solve(sd, hier, prob.b)
+        blocked = gamg.hier_solve(sd, gamg.recompute(sd, prob.A.data),
+                                  prob.b)
+        assert int(res.iters) == int(blocked.iters)
+        out[str(where)] = (res, build_scalar_ptap_chain(sd)(prob.A.data),
+                           sd, prob)
+    (rc, chain_c, _, _), (rg, chain_g, sd, prob) = out["cpu"], \
+        out[str(dev)]
+    assert int(rc.iters) == int(rg.iters)
+    err = float((rg.x.cpu() - rc.x).abs().max() / rc.x.abs().max())
+    assert err <= 1e-12, err
+    for g, c in zip(chain_g, chain_c):
+        err = float((g.cpu() - c).abs().max() / c.abs().max())
+        assert err <= 1e-11, err
+    before = (spmv_ops.launches_by_shape[(1, 1)],
+              smooth_ops.launches_by_shape[(1, 3)],
+              gemm_ops.launches_by_shape[(1, 1, 1)],
+              seg_ops.launches_by_shape[(1, 1)])
+    hier = recompute_scalar(sd, prob.A.data * 1.1)
+    gamg.hier_solve(sd, hier, prob.b)
+    build_scalar_ptap_chain(sd)(prob.A.data)
+    torch.cuda.synchronize()
+    after = (spmv_ops.launches_by_shape[(1, 1)],
+             smooth_ops.launches_by_shape[(1, 3)],
+             gemm_ops.launches_by_shape[(1, 1, 1)],
+             seg_ops.launches_by_shape[(1, 1)])
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    a_new = prob.A.data * 1.2
+    _, nbytes, copies = count_h2d(lambda: recompute_scalar(sd, a_new))
+    assert (nbytes, copies) == (0, 0)

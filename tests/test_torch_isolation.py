@@ -92,6 +92,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: march_cli.main(3, 1),
         lambda: march_cli.cli(["3", "1"]),
     ]
+    # the scalar baseline's entry points run where their operands are,
+    # which the port's constructors put on the card by default
+    from repro_torch.core import gamg
+    from repro_torch.core.scalar_csr import expand_bcsr
+    from repro_torch.core.scalar_path import build_scalar_ptap_chain, \
+        recompute_scalar
+    calls += [
+        lambda: expand_bcsr(assemble_elasticity(3).A),
+        lambda: expand_bcsr(bcsr_from_numpy([0, 1], [0], np.eye(3)[None],
+                                            1)),
+        lambda: recompute_scalar(gamg.setup(assemble_elasticity(3).A, None),
+                                 None),
+        lambda: build_scalar_ptap_chain(gamg.setup(
+            assemble_elasticity(3).A, None)),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -128,19 +143,45 @@ def _cpu_calls():
                                                     t((7, 3, 6)))),
         (pbj_ops, lambda: pbj_ops.pbjacobi_update(t((4, 6, 6)), t((4, 6)),
                                                   t((4, 6)), 0.6)),
+        (smooth_ops, lambda: smooth_ops.smoother_step_scalar_ell(
+            torch.zeros((12, 2), dtype=torch.int32), t((12, 2, 1, 1)),
+            t((4, 3, 3)), t((4, 3)), t((4, 3)), t((4, 3)), t((2,)))),
     ]
 
 
-@pytest.mark.parametrize("i", range(8), ids=["block_seg_sum", "block_spmv",
+@pytest.mark.parametrize("i", range(9), ids=["block_seg_sum", "block_spmv",
                                              "fused_smoother",
                                              "fused_pair_gemm", "block_spmm",
                                              "fused_smoother_panel",
-                                             "block_pair_gemm", "pbjacobi"])
+                                             "block_pair_gemm", "pbjacobi",
+                                             "fused_smoother_scalar"])
 def test_cpu_calls_take_the_plain_version_and_count_nothing(i):
     mod, call = _cpu_calls()[i]
     before = mod.launches
     call()
     assert mod.launches == before
+
+
+def test_scalar_entry_points_run_where_their_operands_are():
+    """On CPU operands the scalar baseline runs on the CPU (the plain
+    versions: no kernel launch counted), its outputs on the CPU."""
+    from repro_torch.core import gamg
+    from repro_torch.core.scalar_csr import expand_bcsr
+    from repro_torch.core.scalar_path import build_scalar_ptap_chain, \
+        recompute_scalar
+    from repro_torch.fem.assemble import assemble_elasticity
+    mods = (seg_ops, spmv_ops, smooth_ops, gemm_ops)
+    before = [m.launches for m in mods]
+    prob = assemble_elasticity(4, device="cpu")
+    sd = gamg.setup(prob.A, prob.B, coarse_size=40)
+    assert sd.levels
+    assert expand_bcsr(prob.A).data.device.type == "cpu"
+    hier = recompute_scalar(sd, prob.A.data)
+    assert all(lv.a_ell.data.device.type == "cpu" for lv in hier.levels)
+    outs = build_scalar_ptap_chain(sd)(prob.A.data)
+    assert all(o.device.type == "cpu" for o in outs)
+    assert gamg.hier_solve(sd, hier, prob.b).x.device.type == "cpu"
+    assert [m.launches for m in mods] == before
 
 
 def test_other_devices_and_mixed_devices_raise():
