@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives eleven
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives twelve
 paths of the port, each with the launch counts set to 0 just before it
 and read just after, the observability layer and the torch
 quickstart.  The autotuner's cache is a fresh temporary file
@@ -113,7 +113,28 @@ taken on:
    ``fused_smoother``) must launch on the path; then every 1x1 and
    scalar-row case against its plain version (``scalar kernel case``)
    and the scalar smoother's identity step bitwise ``b -
-   block_spmv(x)`` on every level.
+   block_spmv(x)`` on every level;
+12. the dist path (last) — ``python -m repro_torch.dist.selftest 32`` as
+   child processes on the card (``repro_torch.dist``: row slabs, halo
+   exchanges, the distributed PtAP and CG): NCCL at world size 1
+   (recompute + solve, 13 iterations as the single-device card solve,
+   the solution's difference from it, the hot step's wall beside the
+   single-device one) and gloo at world size 4, the four ranks sharing
+   the one card with every halo payload staged through host memory (a
+   quarter of the rung per rank): level 0's halo ``ppermute``, the
+   placement ``[sharded, sharded, sharded, replicated]``, 13 iterations
+   and the solution within 1e-10 of the single-device solve, overlap on
+   against off bitwise, the agglomerated placement against the sharded
+   one (equal iterations), a ``halo:nan`` fault flagged ``nonfinite`` on
+   every rank then a clean re-staging bitwise, a k=4 panel's per-column
+   iterations equal to the single-device ``block_pcg``'s, and the
+   messages and bytes of one V-cycle against ``dist_cycle_comm``.  The
+   slab applies are held against their plain versions at those shapes
+   (``dist kernel case``); the children's launches, counted around the
+   dist calls only and summed over the ranks, are the ``dist`` column of
+   the record, where ``block_spmv``, ``block_spmm``, ``block_pair_gemm``
+   and ``block_seg_sum`` must appear.  Their walls are printed, not
+   read: four processes time-slicing one card say nothing of scaling.
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -201,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -3484,6 +3506,114 @@ def march_cpu_vs_cuda(devices=("cpu", "cuda")) -> dict:
 
 # ---------------------------------------------------------------------------
 
+#: the dist path: the selftest's runs at the main path's m (world size,
+#: backend and sections), each child's time limit in seconds, and its
+#: solution's tolerance against the single-device card solve
+DIST_RUNS = {
+    "nccl world 1": ["--world", "1", "--backend", "nccl"],
+    "gloo world 4": ["--world", "4", "--backend", "gloo", "--k", "4",
+                     "--mrhs", "--agg", "--overlap", "--fault"],
+}
+DIST_TIMEOUT_S = 420
+DIST_TOL = 1e-10
+#: the families the dist path must launch (the tail's fused kernels run
+#: only in the agglomerated section)
+DIST_KERNELS = ("block_spmv", "block_spmm", "block_pair_gemm",
+                "block_seg_sum", "fused_smoother", "fused_pair_gemm")
+
+
+def _run_child(cmd: list, timeout: float) -> subprocess.CompletedProcess:
+    """Run ``cmd`` in a session of its own; on a timeout the whole session
+    (the selftest and the ranks it spawned) is killed."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=str(SRC)))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _check_dist(label: str, res: dict) -> dict:
+    """Hold one selftest run's result to the dist path's expectations;
+    returns the line's summary."""
+    world = res["world"]
+    want = dict(levels=EXPECT_LEVEL_ROWS, iters=EXPECT_ITERS,
+                iters_single=EXPECT_ITERS, status=["healthy"] * world,
+                repeat_bitwise=True, span=[1] + [0] * (world - 1))
+    bad = {k: res.get(k) for k, v in want.items() if res.get(k) != v}
+    if res["rel_single"] > DIST_TOL or not res["cycle"]["agree"]:
+        bad.update(rel_single=res["rel_single"], cycle=res["cycle"])
+    out = dict(m=res["m"], world=world, backend=res["backend"],
+               iters=res["iters"], iters_single=res["iters_single"],
+               rel_single=res["rel_single"], wall_ms=res["wall_ms"],
+               single_ms=res["single_ms"], setup_s=res["setup_s"],
+               staging_s=res["staging_s"], rank_args_s=res["rank_args_s"],
+               halo=res["halo"],
+               widths=res["widths"], s2_halo=res["s2_halo"],
+               placement=res["placement"], cycle=res["cycle"],
+               warm=res["warm"], staged_bytes=res["staged_bytes"],
+               launches=res["launches"])
+    if world > 1:
+        sharded = ["sharded"] * (len(EXPECT_LEVEL_ROWS) - 1)
+        if res["halo"] != "ppermute":
+            bad["halo"] = res["halo"]
+        if res["placement"] != sharded + ["replicated"]:
+            bad["placement"] = res["placement"]
+        agg = res["agg"]
+        if agg["iters"] != agg["iters_sharded"] or agg["placement"] != \
+                ["sharded"] + ["replicated"] * len(sharded):
+            bad["agg"] = agg
+        if not res["overlap"]["bitwise"]:
+            bad["overlap"] = res["overlap"]
+        fault = res["fault"]
+        if fault["status"] != ["nonfinite"] * world or not fault["finite"] \
+                or not fault["restage_bitwise"]:
+            bad["fault"] = fault
+        if res["mrhs"]["iters"] != res["mrhs"]["iters_single"]:
+            bad["mrhs"] = res["mrhs"]
+        out.update(cut=f"{world} ranks on one card: each rank holds a "
+                       f"quarter of the one-device rung",
+                   agg=agg, overlap=res["overlap"], fault=fault,
+                   mrhs=res["mrhs"])
+    if bad:
+        raise AssertionError(f"dist path {label}: {bad}")
+    return out
+
+
+def dist_path(m: int = MAIN_M) -> dict:
+    """The dist path: the selftest's runs (``DIST_RUNS``) as child
+    processes on the card; returns their kernel launches by family,
+    summed over the runs and the ranks."""
+    launches = dict.fromkeys(KERNELS, 0)
+    for label, extra in DIST_RUNS.items():
+        cmd = [sys.executable, "-m", "repro_torch.dist.selftest", str(m),
+               "--device", "cuda", *extra]
+        t0 = time.perf_counter()
+        out = _run_child(cmd, DIST_TIMEOUT_S)
+        lines = out.stdout.splitlines()
+        if out.returncode != 0 or not lines or lines[-1] != "OK":
+            raise AssertionError(
+                f"dist path {label}: exit {out.returncode}\n"
+                f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+        res = json.loads(next(ln for ln in lines
+                              if ln.startswith("dist result "))
+                         [len("dist result "):])
+        line = _check_dist(label, res)
+        line["child_s"] = time.perf_counter() - t0
+        print(f"dist path {label} " + json.dumps(line))
+        for row in res.get("kernel_cases", []):
+            print(f"dist kernel case {label} " + json.dumps(row))
+        for k, v in res["launches"].items():
+            launches[k] += v
+    check_path_launches("dist", launches, DIST_KERNELS)
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3641,6 +3771,7 @@ def run_all() -> int:
         dict(margin=autotune.EVENT_MARGIN, count=len(slower), of=len(rows),
              cases=[f"{r['kernel']} {r['case']}" for r in slower])))
     pbjacobi_phase(cases, peaks)
+    del cases           # the m=32 case operands; nothing below reads them
     print("tune resolve host us per call "
           + json.dumps(resolve_cost_us(run)))
     tuned_vs_static_steps(run, "cuda", EXPECT_ITERS)
@@ -3670,6 +3801,14 @@ def run_all() -> int:
 
     precision = {prec: precision_path(prec, run, peaks)
                  for prec in PRECISIONS}
+    # the dist path's rank processes share the card with this one: hand
+    # back what the caching allocator holds
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("dist path parent memory " + json.dumps(dict(
+        allocated=torch.cuda.memory_allocated(),
+        reserved=torch.cuda.memory_reserved())))
+    by_path["dist"] = dist_path()
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks,
                                    precision, (s_launches, s_step, s_per))))

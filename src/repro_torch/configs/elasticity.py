@@ -29,6 +29,10 @@ class ElasticityConfig:
     # enables the update_coefficients hot loop) or "host" (numpy golden
     # path)
     assembly: str = "device"
+    # distributed placement: agglomerate levels at or below this many
+    # equations per rank (PETSc -pc_gamg_process_eq_limit; None = the dist
+    # default, 0 = keep every level slab-sharded)
+    coarse_eq_limit: int | None = None
 
     def build(self, device="cuda"):
         """Assemble the problem and the solver (cold setup) on ``device``;
@@ -43,7 +47,8 @@ class ElasticityConfig:
                             smoother=self.smoother, degree=self.degree,
                             coarse_size=self.coarse_size,
                             coarsener=self.coarsener, rtol=self.rtol,
-                            maxiter=self.maxiter)
+                            maxiter=self.maxiter,
+                            coarse_eq_limit=self.coarse_eq_limit)
         if prob.assembler is not None:
             solver.bind_assembler(prob.assembler)
         return prob, solver

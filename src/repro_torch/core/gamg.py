@@ -131,6 +131,11 @@ class GAMGSetup:
     stats: dict
     precision: PrecisionPolicy = dataclasses.field(
         default_factory=PrecisionPolicy.double)
+    # distributed placement hint (PETSc ``-pc_gamg_process_eq_limit``):
+    # levels whose equations per rank are at or below it leave the
+    # slab-sharded path (``repro_torch.dist.solver.build_dist_gamg``);
+    # ``None`` defers to the dist layer's default
+    coarse_eq_limit: int | None = None
 
     @property
     def n_levels(self) -> int:
@@ -154,7 +159,8 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
           max_levels: int = 10, coarse_size: int = 100,
           smoother: str = "chebyshev", degree: int = 2,
           coarsener: str = "mis", precision=None,
-          restriction: str = "transpose_free") -> GAMGSetup:
+          restriction: str = "transpose_free",
+          coarse_eq_limit: int | None = None) -> GAMGSetup:
     """Cold GAMG setup on the block format (no scalar expansion).
 
     ``coarsener="mis"`` (default, as in the reference) aggregates by the
@@ -171,6 +177,10 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
     level 0).  The hierarchy lives on ``A.data``'s device; ``B`` must be
     on the same device.
     ``stats["mis_rounds"]`` holds the Luby rounds of each MIS level.
+    ``coarse_eq_limit`` is the distributed placement hint (equations per
+    rank at or below which a level is agglomerated); the single-device
+    path ignores it and ``repro_torch.dist.solver.build_dist_gamg``
+    consumes it.
     """
     precision = backend.resolve_precision(precision)
     if A.br != A.bc:
@@ -228,7 +238,7 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
     return GAMGSetup(levels=levels, coarse_struct=Acur, bs_fine=A.br,
                      nns_dim=nns, smoother=smoother, degree=degree,
                      theta=theta, coarsener=coarsener, stats=stats,
-                     precision=precision)
+                     precision=precision, coarse_eq_limit=coarse_eq_limit)
 
 
 def _repair_small_aggregates(aggr: Aggregation, graph, min_size: int

@@ -51,7 +51,8 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         apply_m: Callable[[torch.Tensor], torch.Tensor],
         b: torch.Tensor, x0: torch.Tensor | None = None, rtol: float = 1e-8,
         maxiter: int = 200, precond_dtype=None,
-        stall_window: int = 40, tally=None) -> CGResult:
+        stall_window: int = 40, tally=None, *, dot=torch.dot,
+        norm=torch.linalg.vector_norm) -> CGResult:
     """Standard PCG with a fixed SPD preconditioner (one AMG V-cycle).
 
     ``x0`` warm-starts the iteration (``None``: zero start).  The loop
@@ -65,6 +66,10 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
     with ``tally=``), each operator apply adds 1 to ``operator_applies``,
     and the result's ``counters`` holds the totals.  ``None`` (default)
     leaves the recurrence and its ops exactly the uncounted ones.
+
+    ``dot`` and ``norm`` are the recurrence's reductions; the distributed
+    solve (``repro_torch.dist.solver._rank_pcg``) passes rank-reduced
+    ones over row slabs, as the reference's ``_rank_pcg`` uses ``psum``.
     """
     counted = tally is not None
     if counted:
@@ -80,11 +85,10 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
     else:
         z = apply_m(r)
     p = z
-    rz = torch.dot(r, z)
-    bnorm = torch.clamp_min(torch.linalg.vector_norm(b),
-                            torch.finfo(b.dtype).tiny)
+    rz = dot(r, z)
+    bnorm = torch.clamp_min(norm(b), torch.finfo(b.dtype).tiny)
     thresh = rtol * bnorm
-    rnorm = torch.linalg.vector_norm(r)
+    rnorm = norm(r)
     nonf = ~torch.isfinite(rnorm) | ~torch.isfinite(rz)
     brk = ~nonf & (rz <= 0) & (rnorm > thresh)
     best_x = x
@@ -98,7 +102,7 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
         if not bool(go):                 # the one host sync per iteration
             break
         Ap = inject.maybe("spmv", apply_a(p), step=k)
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = rz / pAp
         x_new = x + alpha * p
         r_new = r - alpha * Ap
@@ -109,10 +113,10 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
             z_new = inject.maybe("precond", z_new, step=k)
         else:
             z_new = inject.maybe("precond", apply_m(r_new), step=k)
-        rz_new = torch.dot(r_new, z_new)
+        rz_new = dot(r_new, z_new)
         beta = rz_new / rz
         p_new = z_new + beta * p
-        rnorm_new = torch.linalg.vector_norm(r_new)
+        rnorm_new = norm(r_new)
         nonf_new = (~torch.isfinite(pAp) | ~torch.isfinite(rnorm_new)
                     | ~torch.isfinite(rz_new))
         brk_new = ~nonf_new & ((pAp <= 0)

@@ -228,20 +228,36 @@ def spgemm_numeric_data(plan: SpGEMMPlan, a_data: torch.Tensor,
     lhs = a_data[device_array(plan, "pair_a", dev)]     # (npairs, br, bk)
     rhs = b_data[device_array(plan, "pair_b", dev)]     # (npairs, bk, bc)
     if path == "pairs":
-        # the products stay at the accumulator until they are combined:
-        # bf16 operands are widened in the kernel, others cast up first
-        if lhs.dtype == torch.bfloat16 and acc == torch.float32:
-            prod = pair_ops.block_pair_gemm(lhs, rhs, accum_dtype=acc,
-                                            out_dtype=acc)
-        else:
-            prod = pair_ops.block_pair_gemm(lhs.to(acc), rhs.to(acc))
+        prod = pair_products(lhs, rhs, accum_dtype)
     else:
         c = backend.contract_dtype(acc)
         prod = torch.einsum("pij,pjk->pik", lhs.to(c),
                             rhs.to(c)).to(acc).contiguous()
+    return combine_pairs(prod, device_array(plan, "pair_offsets", dev,
+                                            torch.int32), a_data.dtype)
+
+
+def pair_products(lhs: torch.Tensor, rhs: torch.Tensor,
+                  accum_dtype=None) -> torch.Tensor:
+    """The pairs path's ``(npairs, br, bc)`` products of gathered operands
+    on the ``block_pair_gemm`` kernel, kept at the accumulator until they
+    are combined: bf16 operands are widened in the kernel, others cast up
+    first (``repro_torch.dist.pamg``'s stage applies share it)."""
+    acc = backend.accumulator(lhs.dtype, accum_dtype)
+    if lhs.dtype == torch.bfloat16 and acc == torch.float32:
+        return pair_ops.block_pair_gemm(lhs, rhs, accum_dtype=acc,
+                                        out_dtype=acc)
+    return pair_ops.block_pair_gemm(lhs.to(acc), rhs.to(acc))
+
+
+def combine_pairs(prod: torch.Tensor, offsets: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """Sorted segment sums of pair products on the ``block_seg_sum``
+    kernel (segment ``s`` is positions ``offsets[s]:offsets[s+1]``), at
+    the products' contraction dtype, rounded once to ``out_dtype``."""
     return seg_ops.block_seg_sum(
-        prod, device_array(plan, "pair_offsets", dev, torch.int32),
-        accum_dtype=backend.contract_dtype(acc)).to(a_data.dtype)
+        prod, offsets,
+        accum_dtype=backend.contract_dtype(prod.dtype)).to(out_dtype)
 
 
 def _fused_numeric(plan: SpGEMMPlan, a_data: torch.Tensor,

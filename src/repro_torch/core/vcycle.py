@@ -190,6 +190,18 @@ def apply_restriction(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
     return apply_ell_t(lv.p_ell, lv.p_t, r)
 
 
+def coarse_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The coarse direct solve with the lower Cholesky factor ``chol`` on
+    a vector ``(n,)`` or a panel ``(n, k)``.  ``cholesky_solve`` has no
+    bf16 kernel on either device: a bf16 factor solves at f32 (the
+    policy's factor dtype) and rounds to ``rhs``'s dtype.  It returns
+    column-major panels; the kernels take row-major ones."""
+    fd = torch.float32 if chol.dtype == torch.bfloat16 else chol.dtype
+    return torch.cholesky_solve(rhs.reshape(rhs.shape[0], -1).to(fd),
+                                chol.to(fd)).to(rhs.dtype).contiguous() \
+        .reshape(rhs.shape)
+
+
 def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
            degree: int = 2, tally: "obs_trace.CycleTally | None" = None):
     """One V(degree, degree) cycle with zero initial guess (the
@@ -221,15 +233,8 @@ def vcycle(hier: Hierarchy, b: torch.Tensor, smoother: str = "chebyshev",
             tally = tally._replace(
                 level_visits=obs_trace.bump(tally.level_visits, li),
                 smoother_applies=obs_trace.bump(tally.smoother_applies, li))
-    # cholesky_solve has no bf16 kernel on either device: a bf16 level
-    # solves at f32 (the policy's factor dtype) and rounds to its dtype.
-    # It returns column-major panels; the kernels take row-major panels.
     with span("vcycle/coarse"):
-        chol = hier.coarse_chol
-        fd = torch.float32 if chol.dtype == torch.bfloat16 else chol.dtype
-        xc = inject.maybe("coarse", torch.cholesky_solve(
-            rhs.reshape(rhs.shape[0], -1).to(fd), chol.to(fd)).to(
-                rhs.dtype).contiguous().reshape(rhs.shape))
+        xc = inject.maybe("coarse", coarse_solve(hier.coarse_chol, rhs))
     if counted:
         tally = tally._replace(coarse_solves=tally.coarse_solves + 1)
     nlev = len(hier.levels)

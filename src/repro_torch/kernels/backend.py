@@ -42,6 +42,9 @@ made for the JAX reference never reach it):
 * ``resolve_obs`` — the observability mode (``REPRO_TORCH_OBS``):
   ``"off"`` (default), ``"spans"`` or ``"counters"``; see
   ``repro_torch.obs.trace``.
+* ``resolve_overlap`` — the distributed halo schedule
+  (``REPRO_TORCH_OVERLAP``): ``"on"`` (default) or ``"off"``; see
+  ``repro_torch.dist.solver``.
 
 ``"reference"`` runs plain versions, so it is CPU-only: asked for on a CUDA
 device it raises.  On the card the port launches its kernels.
@@ -404,6 +407,37 @@ def resolve_obs(mode: str | None = None) -> str:
     raise ValueError(
         f"invalid observability mode {mode!r}: expected 'off', 'spans' or "
         f"'counters' (from REPRO_TORCH_OBS or the obs= knob)")
+
+
+def resolve_overlap(mode: str | None = None) -> str:
+    """The distributed halo schedule; honours ``REPRO_TORCH_OVERLAP`` (the
+    reference's ``REPRO_OVERLAP`` is never read).
+
+    "on"   (default) the split apply: start the halo exchange, apply the
+           interior rows (no communication) while it is in flight, finish
+           the window, apply the boundary rows.  Each row is computed by
+           the same contraction as the blocking apply, so solutions are
+           bitwise equal; only the schedule differs.
+    "off"  the blocking apply: assemble the whole window, then one apply
+           over all rows.
+
+    Accepts the strings ``repro.kernels.backend.resolve_overlap`` accepts,
+    with the same meaning; re-read per call (a dist solver binds it at its
+    first call, ``repro_torch.robust.inject.traced``).  Invalid values
+    raise ``ValueError``.
+    """
+    if mode is None:
+        mode = os.environ.get("REPRO_TORCH_OVERLAP")
+    if mode is None:
+        return "on"
+    key = str(mode).strip().lower()
+    if key in ("", "0", "off", "false", "blocking"):
+        return "off"
+    if key in ("on", "1", "true", "overlap"):
+        return "on"
+    raise ValueError(
+        f"invalid overlap mode {mode!r}: expected 'on' or 'off' (from "
+        f"REPRO_TORCH_OVERLAP or the mode= knob)")
 
 
 def resolve_faults(spec=None):

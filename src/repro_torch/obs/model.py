@@ -1,5 +1,5 @@
-"""Analytic HBM-traffic model of the solve phase (torch twin of the
-single-device half of ``repro.obs.model``; numpy and host ints only).
+"""Analytic HBM-traffic and communication model of the solve phase
+(torch twin of ``repro.obs.model``; numpy and host ints only).
 
 Byte counts separate value bytes (they scale with the hierarchy's dtype
 width, the ``PrecisionPolicy`` lever) from index bytes (always int32),
@@ -9,8 +9,13 @@ per-cycle total into a solve's ``CycleTally``.  The model reads the
 port's ``GAMGSetup`` / ``LevelSetup`` (``a_ell_plan``, ``A0.br``,
 ``p_ell``, ``r_ell`` under ``restriction="stored"`` else ``pt.rows``,
 ``coarse_struct``) and evaluates exactly; it carries no device constant.
+``dist_cycle_comm`` is the per-rank message model of one distributed
+V-cycle (``repro_torch.dist``; its one constant, ``ALPHA_BYTES``, converts
+bytes to latency units).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -130,3 +135,125 @@ def hierarchy_storage_bytes(setupd, itemsize: int = 8) -> dict:
     coarse = nc * nc * itemsize
     return {"operator": op, "transfer": tr, "coarse": coarse,
             "total": op + tr + coarse}
+
+
+#: Rank-local bytes whose streaming time equals one alpha of network
+#: latency — the single model constant converting interior-apply work into
+#: alpha units for the overlap accounting (order of magnitude: ~1 us of
+#: latency over ~64 GB/s of effective local bandwidth; a model constant,
+#: not a measured rate of any device).
+ALPHA_BYTES = 64 * 1024
+
+
+def dist_cycle_comm(dg, itemsize: int = 8,
+                    alpha_bytes: int = ALPHA_BYTES) -> list:
+    """Per-level, per-rank comm model of one distributed V-cycle.
+
+    The latency-vs-bandwidth accounting behind coarse-level agglomeration
+    (``repro_torch.dist.solver``; the reference's model, verbatim): every
+    halo-window exchange is one *event* whose ppermutes run concurrently
+    (one alpha of latency) and move ``exchanged_slabs`` messages; an all-gather is one event of
+    ``ceil(log2(ndev))`` alphas (recursive doubling) moving ``ndev - 1``
+    slab-messages.  Per sharded level and cycle: ``2*degree + 1`` operator
+    applies (degree smoothing each side + the residual) plus one R and one
+    P transfer; the sharded coarsest adds the solve-side rhs all-gather.
+    A replicated level is one all-gather event at the switch (the boundary
+    restriction) and *zero* everywhere else — prolongation back across the
+    boundary is communication-free by construction.
+
+    Overlap accounting (the ``REPRO_TORCH_OVERLAP=on`` split apply): each
+    window event's latency is charged as ``max(alpha_exchange,
+    t_interior)`` — the exchange hides behind the interior rows'
+    communication-free work.
+    ``t_interior`` is the interior partition's modeled apply bytes (from
+    the build-time split counts, the *minimum* over ranks — the rank with
+    the least interior work hides the least) converted to alpha units via
+    ``alpha_bytes``.  ``latency`` stays the blocking charge (back-compat);
+    ``hidden_latency = sum_events min(alpha_event, t_interior)`` is what
+    the overlap removes and ``eff_latency = latency - hidden_latency`` is
+    what remains on the critical path.
+
+    A 2-D ``ProcessMesh`` (``dg.mesh``) divides each rank's halo traffic
+    and interior work by ``pc`` — the column ranks of one row group split
+    the slab's boundary-facing streams.
+
+    Returns one dict per level (+ the coarsest):
+    ``{level, placement, msgs, latency, hidden_latency, eff_latency,
+    halo_bytes, gather_bytes}`` — message count and latency are per rank
+    per cycle, bytes split the neighbor-halo traffic from the all-gather
+    traffic so benchmarks can report both levers separately.
+    """
+    ndev = dg.ndev
+    pc = dg.mesh.pc if getattr(dg, "mesh", None) is not None else 1
+    ag_lat = max(1, math.ceil(math.log2(max(ndev, 2))))
+    degree = dg.degree
+    rows = []
+    ns = len(dg.levels)
+
+    def event_lat(halo):
+        """Alphas of one window exchange: ppermutes overlap (1), an
+        allgather-fallback window is a full collective (ag_lat)."""
+        if not halo.exchanged_slabs:
+            return 0
+        return ag_lat if halo.strategy == "allgather" else 1
+
+    def interior_alphas(op):
+        """Alpha-units of the interior partition's apply work per rank:
+        the communication-free compute available to hide one exchange."""
+        if op is None or op.int_counts is None or not op.int_counts.size:
+            return 0.0
+        icnt = int(op.int_counts.min())
+        b = (icnt * op.kmax * (op.br * op.bc * itemsize + 4
+                               + op.bc * itemsize)
+             + icnt * op.br * itemsize)
+        return (b / pc) / alpha_bytes
+
+    for li, lv in enumerate(dg.levels):
+        n_apply = 2 * degree + 1
+        halo = lv.a_op.halo
+        vec_bytes = halo.cpad * lv.bs * itemsize        # one exchanged slab
+        msgs = n_apply * halo.exchanged_slabs
+        lat = n_apply * event_lat(halo)
+        hidden = n_apply * min(event_lat(halo), interior_alphas(lv.a_op))
+        halo_bytes = msgs * vec_bytes
+        gather_bytes = 0
+        boundary = li == ns - 1 and dg.repl
+        if boundary:
+            # restriction crosses the switch: one all-gather of the fine
+            # residual slabs; prolongation back is free (replicated halo).
+            # The gather feeds a rank-redundant global apply — no interior
+            # partition exists to hide it behind.
+            msgs += ndev - 1
+            lat += ag_lat
+            gather_bytes += (ndev - 1) * lv.rpad * lv.bs * itemsize
+        else:
+            for t in (lv.r_op, lv.p_op):
+                t_halo = t.halo
+                # the windowed operand's slabs: (cpad, bc-block) vectors
+                t_bytes = t_halo.cpad * t.bc * itemsize
+                msgs += t_halo.exchanged_slabs
+                lat += event_lat(t_halo)
+                hidden += min(event_lat(t_halo), interior_alphas(t))
+                halo_bytes += t_halo.exchanged_slabs * t_bytes
+        rows.append(dict(level=li, placement="sharded", msgs=msgs,
+                         latency=lat, hidden_latency=hidden,
+                         eff_latency=lat - hidden,
+                         halo_bytes=halo_bytes // pc,
+                         gather_bytes=gather_bytes))
+    for off, rl in enumerate(dg.repl):
+        rows.append(dict(level=ns + off, placement="replicated", msgs=0,
+                         latency=0, hidden_latency=0.0, eff_latency=0,
+                         halo_bytes=0, gather_bytes=0))
+    if dg.repl:
+        rows.append(dict(level=dg.n_levels, placement="replicated",
+                         msgs=0, latency=0, hidden_latency=0.0,
+                         eff_latency=0, halo_bytes=0, gather_bytes=0))
+    else:
+        c = dg.coarse
+        rows.append(dict(level=dg.n_levels, placement="sharded",
+                         msgs=ndev - 1, latency=ag_lat,
+                         hidden_latency=0.0, eff_latency=ag_lat,
+                         halo_bytes=0,
+                         gather_bytes=(ndev - 1) * c.rpad * c.bs
+                         * itemsize))
+    return rows

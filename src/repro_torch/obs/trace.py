@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -162,6 +163,53 @@ def describe_tally(tally: CycleTally) -> str:
             f"coarse={int(tally.coarse_solves)} "
             f"level_visits={lv} smoother={sm} "
             f"modeled_MB={float(tally.modeled_bytes) / 1e6:.2f}")
+
+
+# ---------------------------------------------------------------------------
+# Host-side spans for the distributed path
+# ---------------------------------------------------------------------------
+
+def process_rank() -> int:
+    """This process's rank in the default ``torch.distributed`` group; 0
+    when there is no process group."""
+    import torch.distributed as tdist
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_rank()
+    return 0
+
+
+@contextlib.contextmanager
+def rank0_span(name: str, registry=None):
+    """Host-side timing span recorded only on process rank 0 (or with no
+    process group) and only when spans are on.
+
+    It wraps a dist entry point's call site; every other rank runs the
+    same code with the recording skipped, so no rank does host work the
+    others do not.  Yields a ``stop(out)`` callable: the clock stops after
+    the CUDA work of ``out`` has finished, and the wall seconds land in
+    the registry's ``{name}/seconds`` histogram (the default registry
+    unless ``registry`` is given).
+    """
+    emit = process_rank() == 0 and spans_enabled()
+    state = {"out": None}
+
+    def stop(out):
+        state["out"] = out
+        return out
+
+    t0 = time.perf_counter()
+    try:
+        yield stop
+    finally:
+        if emit:
+            from repro_torch.obs.metrics import block_ready, \
+                default_registry
+            if state["out"] is not None:
+                block_ready(state["out"])
+            dt = time.perf_counter() - t0
+            reg = registry if registry is not None else default_registry()
+            reg.histogram(f"{name}/seconds",
+                          help="rank-0 host span").observe(dt)
 
 
 def wrap_threaded_precond(apply_m: Callable, precond_dtype,

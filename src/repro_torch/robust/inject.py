@@ -15,8 +15,10 @@ Sites (each hot loop calls ``maybe(site, x, ...)`` at these points):
 ``"hierarchy"``level operator payloads inside ``gamg.recompute``
                (level-gated; the coarsest payload is level
                ``n_levels - 1``)
-``"halo"``     parsed and validated; no site of the port fires it until
-               the distributed layer is ported
+``"halo"``     the assembled halo window of a distributed apply
+               (``repro_torch.dist.pamg.finish_halo_exchange``: every
+               ppermute or all-gather window; local and replicated
+               operands move no bytes and are exempt)
 =============  ============================================================
 
 No schedule installed: ``maybe(site, x) is x`` — no launch, no copy, no

@@ -1350,3 +1350,132 @@ def test_scalar_solve_on_card_matches_cpu(dev):
     a_new = prob.A.data * 1.2
     _, nbytes, copies = count_h2d(lambda: recompute_scalar(sd, a_new))
     assert (nbytes, copies) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The distributed slab applies (repro_torch.dist) on the card
+# ---------------------------------------------------------------------------
+
+class _StackComm:
+    """One rank's view of every rank's slab, held in one process: the
+    exchanges and gathers of ``repro_torch.dist.pamg`` without a process
+    group (the card tests drive one rank's applies)."""
+
+    def __init__(self, slabs, rank):
+        self.slabs, self.rank, self.world = slabs, rank, len(slabs)
+
+    def exchange(self, slab, perm):
+        from types import SimpleNamespace
+        src = [s for s, d in perm if d == self.rank]
+        part = self.slabs[src[0]] if src else torch.zeros_like(slab)
+        return SimpleNamespace(wait=lambda: part)
+
+    def all_gather_tiled(self, x):
+        return torch.cat(list(self.slabs), dim=0)
+
+
+def _dist_setup(limit=0, ndev=4):
+    from repro_torch.core import gamg
+    from repro_torch.dist.solver import build_dist_gamg
+    prob = assemble_elasticity(7, path="host", device="cpu")
+    sd = gamg.setup(prob.A, prob.B, coarse_size=12, coarsener="greedy",
+                    precision="f64")
+    return prob, build_dist_gamg(sd, ndev, coarse_eq_limit=limit)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("k", [0, 4])
+def test_dist_window_apply_and_split_on_card(dev, level, k):
+    """A slab SpMV whose indices address a halo window (``nbc != nbr``:
+    level 0 on ``ppermute``, level 1 on the all-gather at 4 ranks) on
+    ``block_spmv`` / ``block_spmm`` against its plain version, and the
+    overlapped split apply bitwise the blocking one on every rank."""
+    from repro_torch.dist import solver as ds
+    _, dg = _dist_setup()
+    lv = dg.levels[level]
+    op = lv.a_op
+    g = torch.Generator(device=dev).manual_seed(41 + level)
+    tail = (k,) if k else ()
+    slabs = torch.randn((dg.ndev, op.rpad, op.bc) + tail, generator=g,
+                        dtype=torch.float64, device=dev)
+    data = torch.randn((op.rpad, op.kmax, op.br, op.bc), generator=g,
+                       dtype=torch.float64, device=dev)
+    mod = spmm_ops if k else spmv_ops
+    for r in range(dg.ndev):
+        a = dg.rank_args(r, dev)["levels"][level]
+        comm = _StackComm(slabs, r)
+        win = ds.halo_window(slabs[r], op.halo, comm)
+        assert win.shape[0] == op.halo.window_len != op.rpad
+        got = _launch_once(mod, lambda: ds.dist_ell_apply(a["a_idx"], data,
+                                                          win))
+        plain = (block_spmm_ell_ref if k else block_spmv_ell_ref)(
+            a["a_idx"], data, win)
+        _close(got, plain)
+        split = ds._rank_spmv(op, a, "a_", data, slabs[r], comm, True)
+        block = ds._rank_spmv(op, a, "a_", data, slabs[r], comm, False)
+        assert torch.equal(split, block)
+        assert torch.equal(block, got)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_dist_stage_apply_on_card(dev, level):
+    """Both Galerkin stages on ``block_pair_gemm`` + ``block_seg_sum``
+    against their plain versions, the padded slot exactly 0, and stage 2
+    overlapped bitwise blocking."""
+    from repro_torch.dist import pamg
+    _, dg = _dist_setup()
+    lv = dg.levels[level]
+    s1, s2 = lv.stage1, lv.stage2
+    g = torch.Generator(device=dev).manual_seed(71 + level)
+    for r in range(dg.ndev):
+        a = dg.rank_args(r, dev)["levels"][level]
+        bf = a["s1_rhs"].shape[1]
+        lhs = torch.randn((s1.ppad, bf, bf), generator=g,
+                          dtype=torch.float64, device=dev)
+        before = (pair_ops.launches, seg_ops.launches)
+        ap = pamg.dist_stage_apply(lhs, a["s1_rhs"], a["s1_off"])
+        assert (pair_ops.launches, seg_ops.launches) == \
+            (before[0] + 1, before[1] + 1)
+        _close(ap, block_seg_sum_ref(block_pair_gemm_ref(lhs, a["s1_rhs"]),
+                                     a["s1_off"]))
+        assert ap.shape[0] == s1.out_pad and not ap[-1].any()
+        slabs = torch.randn((dg.ndev,) + tuple(ap.shape), generator=g,
+                            dtype=torch.float64, device=dev)
+        slabs[:, -1] = 0                 # each AP slab's zero pad slot
+        comm = _StackComm(slabs, r)
+        win = pamg.halo_window(slabs[r], s2.halo, comm)
+        blocking = pamg.dist_stage_apply(a["s2_lhs"], win[a["s2_rhs"]],
+                                         a["s2_off"])
+        _close(blocking, block_seg_sum_ref(
+            block_pair_gemm_ref(a["s2_lhs"], win[a["s2_rhs"]]),
+            a["s2_off"]))
+        assert not blocking[-1].any()
+        over = pamg.dist_stage_apply_overlap(
+            a["s2_lhs"], slabs[r], s2.halo, a["s2_rhs"], a["s2_rhs_loc"],
+            a["s2_msk"], a["s2_off"], comm)
+        assert torch.equal(over, blocking)
+
+
+def test_nccl_world1_solve_on_card(dev, tmp_path):
+    """``python -m repro_torch.dist.selftest 7 --world 1 --backend nccl``:
+    the distributed recompute + solve on the card takes the single-device
+    card solve's iterations, within 1e-10, launching the slab kernels."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "w1.npz"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.dist.selftest", "7",
+         "--world", "1", "--backend", "nccl", "--device", "cuda",
+         "--coarse-size", "12", "--out", str(out)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = json.loads(str(np.load(out)["result"]))
+    assert res["iters"] == res["iters_single"] == 9
+    assert res["rel_single"] <= 1e-10
+    for fam in ("block_spmv", "block_pair_gemm", "block_seg_sum"):
+        assert res["launches"][fam] > 0, res["launches"]

@@ -116,6 +116,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert out.returncode != 0 and "device='cpu'" in out.stderr
 
 
+def test_dist_entry_points_default_to_cuda_and_nccl(tmp_path):
+    """The distributed layer's front doors default to the card and the
+    NCCL backend: without CUDA they raise unless asked for the CPU and
+    gloo; the rank operands default to the card too."""
+    from repro_torch.core import gamg
+    from repro_torch.dist import selftest
+    from repro_torch.dist.comm import RankComm
+    from repro_torch.dist.solver import build_dist_gamg
+    from repro_torch.fem.assemble import assemble_elasticity
+    with pytest.raises(RuntimeError, match="process group"):
+        RankComm()
+    with pytest.raises(ValueError, match="gloo"):
+        selftest.main(["4", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        selftest.parse_args(["4", "--fault"])      # one rank has no halo
+    prob = assemble_elasticity(4, path="host", device="cpu")
+    dg = build_dist_gamg(gamg.setup(prob.A, prob.B, coarse_size=12,
+                                    coarsener="greedy"), 2)
+    assert dg.rank_args(1, device="cpu")["levels"][0]["a_idx"].device \
+        .type == "cpu"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        selftest.main(["4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dg.rank_args(0)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.dist.selftest",
+                          "4"], capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+
+
 def _cpu_calls():
     rng = np.random.default_rng(0)
 
