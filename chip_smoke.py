@@ -128,13 +128,38 @@ taken on:
    one (equal iterations), a ``halo:nan`` fault flagged ``nonfinite`` on
    every rank then a clean re-staging bitwise, a k=4 panel's per-column
    iterations equal to the single-device ``block_pcg``'s, and the
-   messages and bytes of one V-cycle against ``dist_cycle_comm``.  The
-   slab applies are held against their plain versions at those shapes
-   (``dist kernel case``); the children's launches, counted around the
-   dist calls only and summed over the ranks, are the ``dist`` column of
-   the record, where ``block_spmv``, ``block_spmm``, ``block_pair_gemm``
-   and ``block_seg_sum`` must appear.  Their walls are printed, not
-   read: four processes time-slicing one card say nothing of scaling.
+   messages and bytes of one V-cycle against ``dist_cycle_comm``.  Both
+   children also run the coefficient program (``--coeff``:
+   ``make_dist_coeff_solver``, each rank assembling its fine payload slab
+   from two coefficient slabs with one ``block_seg_sum`` launch) on the
+   inclusion fields and the warm march over the wire (``--march``: 3
+   softening steps, each rank's x slab fed back as the next x0 slab).
+   ``dist coeff <label>`` holds the coefficient solve to the
+   single-device card coefficient solve (equal iterations, within
+   1e-10), the rank slabs against the global assembly (bitwise, then the
+   x slabs bitwise the value-stream program's; else the largest
+   difference, within 1e-14, and equal iterations), one rank-assembly
+   launch per rank a call, the k=4 panel through it (world 4: per-column
+   iterations equal to the single-device panel's and vector solves'; the
+   ``halo:nan`` fault flagged ``nonfinite`` on every rank), and an f32
+   caller's repeat update (staged at f64, no rank operand
+   restaged, its host-to-device bytes the two coefficient slabs, ``2 *
+   epad * 8``); it prints rank 0's ``epad``, those bytes, and the hot
+   step's wall beside the single-device coefficient solve's.  ``dist
+   march <label>`` holds each step's iterations to the single-device
+   ``gamg.make_coeff_solve``'s, the solutions within 1e-10, the last warm
+   step to at most a cold one's, the rank operands staged once, and 0
+   host-to-device bytes a step (the fields are made on the card), with
+   the walls of both.  The slab applies and the rank assembly's
+   ``block_seg_sum`` (its ms, byte bound and ``index_add_``'s ms) are
+   held against their plain versions at those shapes (``dist kernel
+   case``); the children's launches, counted around the dist calls only
+   and summed over the ranks, are the ``dist`` column of the record,
+   where ``block_spmv``, ``block_spmm``, ``block_pair_gemm`` and
+   ``block_seg_sum`` must appear, and the coefficient program's own calls
+   must launch ``block_seg_sum``, ``block_spmv`` and ``block_pair_gemm``.
+   Their walls are printed, not read: four processes time-slicing one
+   card say nothing of scaling.
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -3510,12 +3535,16 @@ def march_cpu_vs_cuda(devices=("cpu", "cuda")) -> dict:
 #: backend and sections), each child's time limit in seconds, and its
 #: solution's tolerance against the single-device card solve
 DIST_RUNS = {
-    "nccl world 1": ["--world", "1", "--backend", "nccl"],
+    "nccl world 1": ["--world", "1", "--backend", "nccl", "--coeff",
+                     "--march"],
     "gloo world 4": ["--world", "4", "--backend", "gloo", "--k", "4",
-                     "--mrhs", "--agg", "--overlap", "--fault"],
+                     "--mrhs", "--agg", "--overlap", "--fault", "--coeff",
+                     "--march"],
 }
 DIST_TIMEOUT_S = 420
 DIST_TOL = 1e-10
+#: the families the coefficient program must launch in its own calls
+DIST_COEFF_KERNELS = ("block_seg_sum", "block_spmv", "block_pair_gemm")
 #: the families the dist path must launch (the tail's fused kernels run
 #: only in the agglomerated section)
 DIST_KERNELS = ("block_spmv", "block_spmm", "block_pair_gemm",
@@ -3585,6 +3614,68 @@ def _check_dist(label: str, res: dict) -> dict:
     return out
 
 
+def _check_dist_coeff(label: str, res: dict) -> tuple:
+    """Hold a run's COEFF and MARCH sections to the dist path's
+    expectations; returns the ``dist coeff`` and ``dist march`` lines."""
+    world, c, mr = res["world"], res["coeff"], res["march"]
+    bad = {}
+    if c["iters"] != c["iters_single"] or c["rel_single"] > DIST_TOL \
+            or c["status"] != ["healthy"] * world:
+        bad["single"] = {k: c[k] for k in ("iters", "iters_single",
+                                           "rel_single", "status")}
+    # bitwise slabs give bitwise x slabs; otherwise the selftest held the
+    # slabs to SLAB_TOL and equal iterations
+    if c["slab_bitwise"] and not c["x_bitwise"] \
+            or c["iters_value"] != c["iters"]:
+        bad["value_stream"] = {k: c[k] for k in (
+            "slab_bitwise", "slab_rel", "x_bitwise", "iters_value")}
+    if c["assemble_launches"] != world:
+        bad["assemble_launches"] = c["assemble_launches"]
+    f32 = c["f32_update"]
+    if f32["h2d_bytes"] != c["coeff_bytes"] or f32["restaged"] \
+            or f32["dtype"] != "float64":
+        bad["f32_update"] = f32
+    if "mrhs" in c and not (c["mrhs"]["iters"] == c["mrhs"]["iters_single"]
+                            == c["mrhs"]["iters_vector"]):
+        bad["mrhs"] = c["mrhs"]
+    if "fault" in c and (c["fault"]["status"] != ["nonfinite"] * world
+                         or not c["fault"]["finite"]):
+        bad["fault"] = c["fault"]
+    steps = mr["steps"]
+    if mr["iters"] != mr["iters_single"] \
+            or any(r["rel_single"] > DIST_TOL for r in steps) \
+            or mr["h2d_bytes"] != [0] * len(steps) \
+            or mr["staged"] != [1] * world \
+            or mr["iters"][-1] > mr["iters_cold_last"]:
+        bad["march"] = mr
+    if not any(r["name"].startswith("rank assembly")
+               for r in res.get("kernel_cases", [])):
+        bad["kernel_cases"] = "no rank assembly case"
+    if bad:
+        raise AssertionError(f"dist coefficient program {label}: {bad}")
+    check_path_launches(f"dist coeff {label}", c["launches"],
+                        DIST_COEFF_KERNELS)
+    check_path_launches(f"dist march {label}", mr["launches"],
+                        DIST_COEFF_KERNELS)
+    coeff = dict(
+        world=world, iters=c["iters"], iters_single=c["iters_single"],
+        rel_single=c["rel_single"], slab_bitwise=c["slab_bitwise"],
+        slab_rel=c["slab_rel"], x_bitwise=c["x_bitwise"],
+        epad=c["epad"], coeff_bytes_a_step=c["coeff_bytes"],
+        h2d_bytes_a_step=f32["h2d_bytes"],
+        assemble_launches=c["assemble_launches"],
+        wall_ms=c["wall_ms"], single_ms=c["single_ms"],
+        mrhs=c.get("mrhs"), fault=c.get("fault"), launches=c["launches"])
+    march = dict(
+        world=world, iters=mr["iters"], iters_single=mr["iters_single"],
+        iters_cold_last=mr["iters_cold_last"],
+        rel_single=[r["rel_single"] for r in steps],
+        h2d_bytes=mr["h2d_bytes"], epad=mr["epad"], staged=mr["staged"],
+        wall_ms=[r["wall_ms"] for r in steps],
+        single_ms=[r["single_ms"] for r in steps])
+    return coeff, march
+
+
 def dist_path(m: int = MAIN_M) -> dict:
     """The dist path: the selftest's runs (``DIST_RUNS``) as child
     processes on the card; returns their kernel launches by family,
@@ -3606,6 +3697,9 @@ def dist_path(m: int = MAIN_M) -> dict:
         line = _check_dist(label, res)
         line["child_s"] = time.perf_counter() - t0
         print(f"dist path {label} " + json.dumps(line))
+        coeff, march = _check_dist_coeff(label, res)
+        print(f"dist coeff {label} " + json.dumps(coeff))
+        print(f"dist march {label} " + json.dumps(march))
         for row in res.get("kernel_cases", []):
             print(f"dist kernel case {label} " + json.dumps(row))
         for k, v in res["launches"].items():

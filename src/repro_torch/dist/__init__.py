@@ -20,10 +20,26 @@ decomposition on ``torch.distributed`` (torch twin of ``repro.dist``).
                 panel solve and the warm start), with per-level placement
                 (fine levels slab-sharded, coarse levels agglomerated into
                 a replicated tail below ``coarse_eq_limit`` equations per
-                rank) and the ``REPRO_TORCH_OVERLAP`` halo schedule.
+                rank) and the ``REPRO_TORCH_OVERLAP`` halo schedule;
+                ``build_dist_assembly`` / ``make_dist_coeff_solver``: the
+                coefficient front door (two per-element coefficient slabs
+                in, the rank's fine payload slab assembled on its device
+                with one ``block_seg_sum`` launch, then the same hot path;
+                ``warm_start=True`` for a time march).
 ``measure``     messages and bytes of one V-cycle, counted by
                 ``RankComm`` and held against
                 ``repro_torch.obs.model.dist_cycle_comm``.
 ``selftest``    ``python -m repro_torch.dist.selftest <m> --world N``:
                 spawned ranks held against the single-device solve.
 """
+from repro_torch.dist.solver import (  # noqa: E402
+    DistAssembly,
+    DistGAMG,
+    build_dist_assembly,
+    build_dist_gamg,
+    make_dist_coeff_solver,
+    make_dist_solver,
+)
+
+__all__ = ["DistAssembly", "DistGAMG", "build_dist_assembly",
+           "build_dist_gamg", "make_dist_coeff_solver", "make_dist_solver"]

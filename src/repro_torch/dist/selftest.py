@@ -1,8 +1,9 @@
 """Distributed == single-device selftest (torch twin of
-``repro.dist.selftest``, without its COEFF and MARCH sections).
+``repro.dist.selftest``).
 
     python -m repro_torch.dist.selftest <m> --world N --backend gloo|nccl \\
-        --device cpu|cuda [--mrhs] [--agg] [--overlap] [--fault] [--out F]
+        --device cpu|cuda [--mrhs] [--agg] [--overlap] [--fault] \\
+        [--coeff] [--march] [--out F]
 
 starts ``N`` rank processes (``torch.multiprocessing`` spawn; rendezvous
 through a ``file://`` store in a temporary directory, so concurrent runs
@@ -46,9 +47,37 @@ non-zero):
     returned iterate; a clean re-staging afterwards is
     bitwise the unfaulted solve (needs ``--world`` >= 2: a single rank
     has no halo);
+  * ``--coeff``: the coefficient program (``make_dist_coeff_solver``:
+    two coefficient slabs a rank, the rank assembly on one
+    ``block_seg_sum`` launch, the recompute, the solve) on
+    ``inclusion_fields`` takes the single-device coefficient solve's
+    iterations (``gamg.make_coeff_recompute``, what
+    ``GAMGSolver.update_coefficients`` runs, then ``hier_solve``), its
+    solution within ``SOLUTION_TOL``, healthy on every rank; each rank's
+    assembled slab against ``scatter_fine_payloads`` of the globally
+    assembled operator (bitwise, or its largest difference within
+    ``SLAB_TOL``), and its x slab bitwise the value-stream program's on
+    that operator when the slabs are bitwise (else equal iterations);
+    with ``--mrhs`` the panel through it takes the single-device panel's
+    and vector solves' per-column iterations; a repeat update from an
+    f32 caller stages at the policy dtype and restages no rank operand,
+    its host-to-device bytes (``obs.transfer.count_h2d``) the two
+    coefficient slabs on the card; with ``--fault`` the ``halo:nan``
+    schedule below is flagged ``nonfinite`` on every rank of the
+    coefficient program too;
+  * ``--march``: ``SofteningScenario.build(prob, rate=0.3)`` for
+    ``MARCH_STEPS`` steps through ``make_dist_coeff_solver(...,
+    warm_start=True)``, each rank's x slab fed straight back as the next
+    x0 slab: per-step iterations equal to ``gamg.make_coeff_solve``'s on
+    the same fields, solutions within ``SOLUTION_TOL``, the last warm
+    step no more iterations than a cold re-solve, the rank operands
+    staged once, and each step's host-to-device bytes (0 on the card:
+    the fields are made there);
   * on the card, rank 0 also holds the slab applies (level 0's window
-    SpMV and a panel, both Galerkin stages) on the kernels against their
-    plain versions at this run's shapes (``kernel cases``).
+    SpMV and a panel, both Galerkin stages) and, with ``--coeff``, the
+    rank assembly's ``block_seg_sum`` on the kernels against their plain
+    versions at this run's shapes (``kernel cases``; the rank assembly's
+    with its ms, byte bound and ``index_add_``'s ms).
 
 Rank 0 prints a ``dist result {...}`` JSON line (iterations, walls,
 messages, kernel launches by family summed over the ranks and counted
@@ -75,6 +104,15 @@ RTOL, MAXITER = 1e-8, 200
 SOLUTION_TOL = 1e-10
 #: a kernel against its plain version, relative to the largest term (f64)
 KERNEL_TOL = 1e-12
+#: a rank-assembled slab against the global assembly's, relative to its
+#: largest entry, when the two differ at all (the card's batched
+#: quadrature may round a rank's element batch differently)
+SLAB_TOL = 1e-14
+#: the warm march: steps and the softening rate
+MARCH_STEPS, MARCH_RATE = 3, 0.3
+#: the card's memory rate (H100 SXM datasheet), for the byte bound of the
+#: rank assembly's kernel case
+HBM_BYTES_S = 3.35e12
 FAMILIES = ("block_spmv", "block_spmm", "block_pair_gemm", "block_seg_sum",
             "fused_smoother", "fused_pair_gemm", "pbjacobi")
 
@@ -97,6 +135,10 @@ class Launches:
         for f, m in _ops().items():
             self.total[f] += m.launches - before[f]
         return out
+
+    def add(self, other: "Launches") -> None:
+        for f in FAMILIES:
+            self.total[f] += other.total[f]
 
 
 def _sync(dev) -> None:
@@ -134,6 +176,59 @@ def _on_all(comm, value, dev) -> list:
     """``value`` (a number or a 0-d tensor) of every rank, as a list."""
     t = torch.as_tensor(value).reshape(1).to(dev, torch.float64)
     return comm.all_gather(t).reshape(-1).tolist()
+
+
+def _panel(prob, k: int, dev) -> torch.Tensor:
+    """The ``(n, k)`` panel of the panel checks: ``b``, ``b`` mixed with
+    noise, then noise."""
+    rng = np.random.default_rng(0)
+    b_np = prob.b.cpu().numpy()
+    cols = [b_np, 0.5 * b_np + rng.standard_normal(prob.n)]
+    cols += [rng.standard_normal(prob.n) for _ in range(k - 2)]
+    return torch.as_tensor(np.stack(cols[:k], axis=1)).to(dev)
+
+
+def _assembly_case(da, aargs: dict, E: torch.Tensor, nu: torch.Tensor
+                   ) -> dict:
+    """Rank 0's rank assembly scatter-sum on ``block_seg_sum`` against its
+    plain version, on this run's element blocks: its device ms, the plain
+    version's, ``index_add_``'s over the same contributions, and the byte
+    bound (each contribution's block and ``perm`` entry read once, the
+    offsets read, the slab written, over ``HBM_BYTES_S``)."""
+    from repro_torch.fem.device_stiffness import element_value_stream
+    from repro_torch.kernels.autotune import device_ms
+    from repro_torch.kernels.block_seg_sum import ops as seg_ops
+    from repro_torch.kernels.block_seg_sum.ref import block_seg_sum_ref
+    vals = element_value_stream(aargs["quad_b"], aargs["quad_w"], E, nu,
+                                da.nn)
+    bs = da.bs
+    perm, offs = aargs["perm"], aargs["offsets"]
+    got = seg_ops.block_seg_sum(vals, offs, perm)
+    want = block_seg_sum_ref(vals, offs, perm)
+    kept = vals[perm.long()]
+    slot = torch.repeat_interleave(
+        torch.arange(da.a_pad, device=vals.device),
+        (offs[1:] - offs[:-1]).long())
+    library = torch.zeros_like(got).index_add_(0, slot, kept)
+    k = int(perm.numel())
+    nbytes = (k * (bs * bs * vals.element_size() + 4) + offs.numel() * 4
+              + got.numel() * got.element_size())
+    row = dict(name=f"rank assembly block_seg_sum {k}x{bs}x{bs} -> "
+                    f"{da.a_pad}",
+               shape=list(got.shape), epad=da.epad,
+               max_abs_err=float((got - want).abs().max()),
+               max_rel_err=_rel(got, want),
+               library_rel_err=_rel(library, want),
+               ms=device_ms(lambda: seg_ops.block_seg_sum(vals, offs, perm)),
+               plain_ms=device_ms(lambda: block_seg_sum_ref(vals, offs,
+                                                            perm)),
+               library_ms=device_ms(lambda: torch.zeros_like(got)
+                                    .index_add_(0, slot, kept)),
+               bound_ms=1e3 * nbytes / HBM_BYTES_S, bound_by="bytes",
+               bytes=nbytes)
+    if row["max_rel_err"] > KERNEL_TOL:
+        raise AssertionError(f"dist kernel case {row}")
+    return row
 
 
 def _kernel_cases(dg, args: dict, k: int, dev) -> list:
@@ -326,11 +421,7 @@ def _sections(comm, opts, dev) -> dict:
         raise AssertionError(f"measured cycle != model: {res['cycle']}")
 
     if opts.mrhs:
-        rng = np.random.default_rng(0)
-        b_np = prob.b.cpu().numpy()
-        cols = [b_np, 0.5 * b_np + rng.standard_normal(prob.n)]
-        cols += [rng.standard_normal(prob.n) for _ in range(opts.k - 2)]
-        B = torch.as_tensor(np.stack(cols[:opts.k], axis=1)).to(dev)
+        B = _panel(prob, opts.k, dev)
         xm, itm, _, okm, stm = counted.run(run, args, a0,
                                            dg.scatter_vector(B, rank))
         res["mrhs"] = dict(k=opts.k, iters=itm.tolist())
@@ -398,14 +489,7 @@ def _sections(comm, opts, dev) -> dict:
         say(f"overlap solve parity: {json.dumps(res['overlap'])}")
 
     if opts.fault:
-        # the NaN lands on the first entry of level 0's slab ``width`` in
-        # its window: the rank's own row 0 under a ppermute halo, which
-        # every rank with a left neighbour reads on its boundary rows (an
-        # index is taken modulo each window's size; 0 would be a
-        # neighbour's far row, which no rank reads)
-        halo0 = dg.levels[0].a_op.halo
-        spec = (f"halo:nan:index="
-                f"{halo0.width * halo0.cpad * int(np.prod(b.shape[1:]))}")
+        spec = _halo_fault_spec(dg, b)
         with inject.active(inject.parse_schedule(spec)):
             run_f = make_dist_solver(dg, setupd, comm, rtol=RTOL,
                                      maxiter=MAXITER)
@@ -429,16 +513,265 @@ def _sections(comm, opts, dev) -> dict:
             raise AssertionError(f"halo fault: {res['fault']}")
         say(f"halo fault detected: {json.dumps(res['fault'])}")
 
+    assembly = None
+    if opts.coeff or opts.march:
+        from repro_torch.fem.device_stiffness import DeviceAssembler
+        # the selftest assembles on the host path: the coefficient
+        # sections assemble on the device through the same COO plan
+        prob.assembler = DeviceAssembler.build(prob.mesh, prob.coo_plan, dev)
+    if opts.coeff:
+        own = Launches()
+        res["coeff"], more, assembly = _coeff_section(
+            comm, opts, dev, prob, setupd, dg, args, b, run, own)
+        counted.add(own)
+        arrays.update(more)
+        say(f"coefficient hot-loop parity: {json.dumps(res['coeff'])}")
+    if opts.march:
+        own = Launches()
+        res["march"], more = _march_section(comm, dev, prob, setupd, dg,
+                                            args, b, own)
+        counted.add(own)
+        arrays.update(more)
+        say(f"dist warm march parity: {json.dumps(res['march'])}")
+
     if dev.type == "cuda" and lead:
         res["kernel_cases"] = _kernel_cases(dg, args, opts.k, dev)
+        if assembly is not None:
+            res["kernel_cases"].append(_assembly_case(*assembly))
         for row in res["kernel_cases"]:
             say("dist kernel case " + json.dumps(row))
     res["staged_bytes"] = comm.staged_bytes
+    res["launches"] = _summed(comm, counted, dev)
+    return res, arrays
+
+
+def _summed(comm, counted: Launches, dev) -> dict:
+    """Launches by family, summed over the ranks."""
     totals = torch.tensor([counted.total[f] for f in FAMILIES],
                           dtype=torch.float64, device=dev)
     summed = comm.all_gather(totals).sum(dim=0)
-    res["launches"] = {f: int(v) for f, v in zip(FAMILIES, summed.tolist())}
-    return res, arrays
+    return {f: int(v) for f, v in zip(FAMILIES, summed.tolist())}
+
+
+def _halo_fault_spec(dg, b: torch.Tensor) -> str:
+    """A ``halo:nan`` schedule whose NaN lands on the first entry of level
+    0's slab ``width`` in its window: the rank's own row 0 under a
+    ppermute halo, which every rank with a left neighbour reads on its
+    boundary rows (an index is taken modulo each window's size; 0 would
+    be a neighbour's far row, which no rank reads)."""
+    halo0 = dg.levels[0].a_op.halo
+    return (f"halo:nan:index="
+            f"{halo0.width * halo0.cpad * int(np.prod(b.shape[1:]))}")
+
+
+def _all_true(comm, flag, dev) -> bool:
+    return all(v == 1 for v in _on_all(comm, bool(flag), dev))
+
+
+def _coeff_section(comm, opts, dev, prob, setupd, dg, args: dict,
+                   b: torch.Tensor, run_v, own: Launches):
+    """COEFF: the coefficient program on ``inclusion_fields`` (module
+    docstring).  Returns the result, the arrays to save and rank 0's
+    rank-assembly operands for its kernel case."""
+    from repro_torch.core import gamg
+    from repro_torch.dist.solver import _rank_assemble, \
+        build_dist_assembly, make_dist_coeff_solver
+    from repro_torch.fem.assemble import inclusion_fields
+    from repro_torch.multirhs.block_krylov import make_block_solve
+    from repro_torch.obs.transfer import count_h2d
+    from repro_torch.robust.health import HEALTHY, STATUS_NAMES
+    rank, world, lead = comm.rank, comm.world, comm.rank == 0
+    asm = prob._device_assembler()
+    da = build_dist_assembly(dg, asm)
+    aargs = da.rank_args(rank, dev)
+    run_c = make_dist_coeff_solver(dg, da, comm, rtol=RTOL, maxiter=MAXITER)
+    E_h, nu_h = inclusion_fields(prob.mesh)
+    E_r, nu_r = da.scatter_fields(E_h, nu_h, rank, device=dev)
+    xc, itc, relc, okc, stc = own.run(run_c, args, aargs, E_r, nu_r, b)
+    seg_coeff = own.total["block_seg_sum"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    own.run(run_c, args, aargs, E_r, nu_r, b)
+    _sync(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    statuses = _on_all(comm, stc, dev)
+    xg = _gather(comm, dg, xc)
+
+    # the value-stream program on the globally assembled operator
+    a_glob = dg.scatter_fine_payloads(
+        prob.coefficient_operator(E_h, nu_h).data, rank)
+    slab = _rank_assemble(da, aargs, E_r, nu_r)
+    seg_before = own.total["block_seg_sum"]
+    xv, itv = own.run(run_v, args, a_glob, b)[:2]
+    seg_value = own.total["block_seg_sum"] - seg_before
+    slab_rel = max(_on_all(comm, _rel(slab, a_glob), dev))
+    out = dict(iters=itc, relres=float(relc),
+               status=[STATUS_NAMES[int(s)] for s in statuses],
+               iters_value=itv,
+               slab_bitwise=_all_true(comm, torch.equal(slab, a_glob), dev),
+               slab_rel=slab_rel,
+               x_bitwise=_all_true(comm, torch.equal(xc, xv), dev),
+               assemble_launches=int(sum(_on_all(
+                   comm, seg_coeff - seg_value, dev))),
+               epad=da.epad, coeff_bytes=2 * da.epad * E_r.element_size(),
+               wall_ms=wall_ms)
+    arrays = dict(x_coeff=xg)
+    if any(s != HEALTHY for s in statuses) or not bool(okc):
+        raise AssertionError(f"coefficient solve not healthy: {out}")
+    if not (out["x_bitwise"] if out["slab_bitwise"] else
+            slab_rel <= SLAB_TOL and itv == itc):
+        raise AssertionError(f"coefficient program against the value "
+                             f"stream: {out}")
+
+    if lead:
+        # GAMGSolver.bind_assembler -> update_coefficients -> solve, on
+        # this run's setup: make_coeff_recompute, then hier_solve
+        E_d, nu_d = asm.as_fields(E_h, nu_h)
+        hier_c = gamg.make_coeff_recompute(setupd, asm)(E_d, nu_d)
+        ref_c = gamg.hier_solve(setupd, hier_c, prob.b, rtol=RTOL,
+                                maxiter=MAXITER)
+        coeff_solve = gamg.make_coeff_solve(setupd, asm, rtol=RTOL,
+                                            maxiter=MAXITER)
+        zeros = torch.zeros_like(prob.b)
+        coeff_solve(E_d, nu_d, prob.b, zeros)
+        _sync(dev)
+        t0 = time.perf_counter()
+        coeff_solve(E_d, nu_d, prob.b, zeros)
+        _sync(dev)
+        out.update(iters_single=ref_c.iters, rel_single=_rel(xg, ref_c.x),
+                   single_ms=1e3 * (time.perf_counter() - t0))
+        if itc != ref_c.iters or out["rel_single"] > SOLUTION_TOL:
+            raise AssertionError(f"coefficient program against the "
+                                 f"single-device solve: {out}")
+
+    if opts.mrhs:
+        B = _panel(prob, opts.k, dev)
+        xm, itm, _, okm, stm = own.run(run_c, args, aargs, E_r, nu_r,
+                                       dg.scatter_vector(B, rank))
+        out["mrhs"] = dict(k=opts.k, iters=itm.tolist())
+        arrays["x_coeff_panel"] = _gather(comm, dg, xm)
+        if lead:
+            ref_m = make_block_solve(setupd, rtol=RTOL, maxiter=MAXITER)(
+                hier_c, B)
+            vec = [gamg.hier_solve(setupd, hier_c, B[:, j].contiguous(),
+                                   rtol=RTOL, maxiter=MAXITER).iters
+                   for j in range(opts.k)]
+            out["mrhs"].update(iters_single=ref_m.iters.tolist(),
+                               iters_vector=vec,
+                               rel_single=_rel(arrays["x_coeff_panel"],
+                                               ref_m.x))
+            if not (out["mrhs"]["iters"] == out["mrhs"]["iters_single"]
+                    == vec) or not bool(okm.all()) \
+                    or bool((stm != HEALTHY).any()):
+                raise AssertionError(f"coefficient panel: {out['mrhs']}")
+
+    if opts.fault:
+        from repro_torch.robust import inject
+        with inject.active(inject.parse_schedule(_halo_fault_spec(dg, b))):
+            run_f = make_dist_coeff_solver(dg, da, comm, rtol=RTOL,
+                                           maxiter=MAXITER)
+            xf, _, _, okf, stf = own.run(run_f, args, aargs, E_r, nu_r, b)
+        out["fault"] = dict(
+            status=[STATUS_NAMES[int(v)] for v in _on_all(comm, stf, dev)],
+            converged=bool(okf),
+            finite=_all_true(comm, torch.isfinite(xf).all(), dev))
+        if out["fault"]["status"] != ["nonfinite"] * world \
+                or bool(okf) or not out["fault"]["finite"]:
+            raise AssertionError(f"coefficient program halo fault: {out}")
+
+    # a repeat update from an f32 caller: staged at the policy dtype,
+    # no rank operand restaged; its host-to-device bytes are the two
+    # coefficient slabs
+    staged = da.n_staged
+    E32 = np.asarray(E_h, np.float32) * np.float32(1.5)
+    (E_f, nu_f), h2d, _ = count_h2d(
+        lambda: da.scatter_fields(E32, nu_h, rank, device=dev))
+    _, it32, _, ok32, _ = own.run(run_c, args, aargs, E_f, nu_f, b)
+    out["f32_update"] = dict(
+        dtype=str(E_f.dtype).replace("torch.", ""), iters=it32,
+        restaged=int(sum(_on_all(comm, da.n_staged - staged, dev))),
+        h2d_bytes=h2d)
+    if E_f.dtype != da.stage_dtype or out["f32_update"]["restaged"] \
+            or not bool(ok32) or (dev.type == "cuda"
+                                  and h2d != out["coeff_bytes"]):
+        raise AssertionError(f"f32 coefficient update: {out}")
+    out["launches"] = _summed(comm, own, dev)
+    return out, arrays, (da, aargs, E_r, nu_r)
+
+
+def _march_section(comm, dev, prob, setupd, dg, args: dict,
+                   b: torch.Tensor, own: Launches):
+    """MARCH: the warm coefficient march over the wire (module
+    docstring)."""
+    from repro_torch.core import gamg
+    from repro_torch.dist.solver import build_dist_assembly, \
+        make_dist_coeff_solver
+    from repro_torch.obs.transfer import count_h2d
+    from repro_torch.robust.health import HEALTHY, STATUS_NAMES
+    from repro_torch.sim.scenarios import SofteningScenario
+    rank, lead = comm.rank, comm.rank == 0
+    asm = prob._device_assembler()
+    da = build_dist_assembly(dg, asm)
+    aargs = da.rank_args(rank, dev)
+    run_w = make_dist_coeff_solver(dg, da, comm, rtol=RTOL,
+                                   maxiter=MAXITER, warm_start=True)
+    coeff_solve = gamg.make_coeff_solve(setupd, asm, rtol=RTOL,
+                                        maxiter=MAXITER)
+    scen = SofteningScenario.build(prob, rate=MARCH_RATE)
+    state = scen.init_state()
+    # the fields follow the single-device trajectory (rank 0's solution,
+    # sent to every rank), as the reference's march section's do
+    x_ref = torch.zeros_like(prob.b)
+    x_slab = dg.scatter_vector(x_ref, rank)
+    steps, arrays = [], {}
+    for s in range(MARCH_STEPS):
+        E_s, nu_s, state = scen.step_fields(
+            state, x_ref, torch.tensor(s, dtype=torch.int32, device=dev))
+        (E_r, nu_r), h2d, _ = count_h2d(
+            lambda: da.scatter_fields(E_s, nu_s, rank, device=dev))
+        _sync(dev)
+        t0 = time.perf_counter()
+        x_slab, it, _, ok, st = own.run(run_w, args, aargs, E_r, nu_r, b,
+                                        x_slab)
+        _sync(dev)
+        row = dict(step=s, iters=it, h2d_bytes=h2d,
+                   wall_ms=1e3 * (time.perf_counter() - t0),
+                   status=[STATUS_NAMES[int(v)]
+                           for v in _on_all(comm, st, dev)])
+        xg = arrays[f"x_march{s}"] = _gather(comm, dg, x_slab)
+        if lead:
+            _sync(dev)
+            t0 = time.perf_counter()
+            ref_s = coeff_solve(E_s, nu_s, prob.b, x_ref)
+            _sync(dev)
+            row.update(iters_single=ref_s.iters,
+                       rel_single=_rel(xg, ref_s.x),
+                       single_ms=1e3 * (time.perf_counter() - t0))
+            x_next = ref_s.x
+        else:
+            x_next = torch.zeros_like(prob.b)
+        x_ref = comm.all_gather(x_next)[0]
+        steps.append(row)
+        if any(v != STATUS_NAMES[HEALTHY] for v in row["status"]) \
+                or not bool(ok) or (lead and (
+                    it != row["iters_single"]
+                    or row["rel_single"] > SOLUTION_TOL)):
+            raise AssertionError(f"march step {s}: {row}")
+    out = dict(steps=steps, iters=[r["iters"] for r in steps],
+               h2d_bytes=[r["h2d_bytes"] for r in steps],
+               epad=da.epad,
+               staged=[int(v) for v in _on_all(comm, da.n_staged, dev)],
+               launches=_summed(comm, own, dev))
+    if lead:
+        cold = coeff_solve(E_s, nu_s, prob.b, torch.zeros_like(prob.b))
+        out.update(iters_single=[r["iters_single"] for r in steps],
+                   iters_cold_last=cold.iters)
+        if steps[-1]["iters"] > cold.iters:
+            raise AssertionError(f"warm march: the last warm step took "
+                                 f"more iterations than a cold one: {out}")
+    if out["staged"] != [1] * comm.world:
+        raise AssertionError(f"the march restaged its rank operands: {out}")
+    return out, arrays
 
 
 def _overlap_on() -> bool:
@@ -489,6 +822,10 @@ def parse_args(argv=None):
     p.add_argument("--agg", action="store_true")
     p.add_argument("--overlap", action="store_true")
     p.add_argument("--fault", action="store_true")
+    p.add_argument("--coeff", action="store_true",
+                   help="the coefficient program on inclusion_fields")
+    p.add_argument("--march", action="store_true",
+                   help="the warm coefficient march over the wire")
     p.add_argument("--out", default=None, help="save results (.npz)")
     p.add_argument("--timeout", type=float, default=600.0,
                    help="seconds a collective may wait")

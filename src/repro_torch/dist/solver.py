@@ -43,8 +43,14 @@ the two are bitwise equal, and the stage-2 reduction overlaps the same way
 at pair granularity.  Slab levels smooth with the unfused recurrences
 (``D^-1`` by einsum), as the reference's ``_rank_smooth`` does.
 
-Not in this module yet: the coefficient front door
-(``make_dist_coeff_solver`` and its rank-local assembly staging).
+The coefficient front door (``build_dist_assembly`` /
+``make_dist_coeff_solver``): each rank receives two per-element
+coefficient slabs (``DistAssembly.scatter_fields``), never a value
+stream, computes its elements' stiffness blocks (``fem.device_stiffness
+.element_value_stream``) and sums its contiguous slice of the global
+sorted scatter-sum with one ``block_seg_sum`` launch, then runs the
+recompute and the CG above.  With ``warm_start=True`` a time march feeds
+each rank's x slab straight back in as the next step's x0 slab.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from repro_torch.core.krylov import pcg
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.ptap import ptap_numeric_data
 from repro_torch.core.smooth import invert_diag_blocks
+from repro_torch.core.spgemm import _segment_offsets
 from repro_torch.core.spmv import apply_ell, apply_ell_t
 from repro_torch.core.vcycle import LevelState, apply_restriction, \
     apply_smoother, chebyshev_recurrence, coarse_solve, pbjacobi_recurrence
@@ -86,7 +93,9 @@ from repro_torch.dist.pamg import (
 )
 from repro_torch.dist.partition import ProcessMesh, RowPartition, as_mesh, \
     partition_rows
+from repro_torch.fem.device_stiffness import element_value_stream
 from repro_torch.kernels import backend
+from repro_torch.kernels.block_seg_sum import ops as seg_ops
 from repro_torch.multirhs.block_krylov import block_pcg
 from repro_torch.obs import trace as obs_trace
 from repro_torch.robust import inject
@@ -315,6 +324,175 @@ class DistGAMG:
         cat = torch.cat([x[r, :int(part.counts[r])]
                          for r in range(self.ndev)], dim=0)
         return cat.reshape((-1,) + tuple(x.shape[3:]))
+
+
+@dataclasses.dataclass
+class DistAssembly:
+    """Per-rank device-assembly staging: the distributed rendering of the
+    cached ``BlockCOOPlan``.
+
+    ``plan.out_idx_sorted`` is monotone, so the contributions feeding rank
+    ``r``'s fine payload slab (global output blocks
+    ``a_nnz_starts[r]:a_nnz_starts[r+1]``) are one contiguous range of the
+    globally sorted contribution stream: each rank sums a slice of the
+    scatter-sum the single-device ``set_values_coo`` runs, in the same
+    order, which is what makes the assembled slabs bitwise those of the
+    global assembly.
+
+    A contribution is (element, node pair); elements touching a slab
+    boundary appear on both ranks, so each rank stages the ids of the
+    elements it needs (``elem_ids``, padded) and recomputes their
+    stiffness blocks itself.  The arrays are bitwise
+    ``repro.dist.solver.DistAssembly``'s; ``rank_args`` adds the kernel's
+    view of them (``perm`` into the rank's element blocks, the ``a_pad +
+    1`` segment ``offsets``).
+    """
+
+    elem_ids: np.ndarray      # (ndev, epad) global element ids (pad -> 0)
+    contrib_elem: np.ndarray  # (ndev, cpad) rank-local element index
+    contrib_pa: np.ndarray    # (ndev, cpad) row node within the element
+    contrib_pb: np.ndarray    # (ndev, cpad) column node within the element
+    contrib_seg: np.ndarray   # (ndev, cpad) local slot in the payload slab
+    contrib_mask: np.ndarray  # (ndev, cpad) valid contributions
+    quad_b: np.ndarray        # shared quadrature arrays (host copies)
+    quad_w: np.ndarray
+    nn: int                   # nodes per element
+    bs: int
+    a_pad: int                # fine payload slab length (dg.levels[0])
+    n_elements: int
+    stage_dtype: torch.dtype  # dg.payload_stage_dtype (the policy's)
+    #: rank operands staged so far, by (rank, device); the hot loop must
+    #: stage each once (the reference's one compiled program)
+    n_staged: int = dataclasses.field(default=0, compare=False)
+    _staged: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
+
+    @property
+    def ndev(self) -> int:
+        return self.elem_ids.shape[0]
+
+    @property
+    def epad(self) -> int:
+        return self.elem_ids.shape[1]
+
+    def _count(self, r: int) -> int:
+        return int(self.contrib_mask[r].sum())
+
+    def rank_args(self, r: int, device="cuda") -> dict:
+        """Rank ``r``'s operands of the rank assembly on ``device``, staged
+        once and cached: ``perm`` (int32, ``elem*nn*nn + pa*nn + pb`` of
+        each valid contribution: its block in the rank's element-block
+        stream), ``offsets`` (int32 ``(a_pad + 1,)``; slots past the
+        rank's count are empty segments), the quadrature arrays at the
+        stage dtype and ``elem_ids`` (int64, the gather of
+        ``scatter_fields``)."""
+        dev = backend.resolve_device(device)
+        key = (r, str(dev))
+        if key not in self._staged:
+            k, nn = self._count(r), self.nn
+            perm = (self.contrib_elem[r, :k].astype(np.int64) * nn * nn
+                    + self.contrib_pa[r, :k] * nn + self.contrib_pb[r, :k])
+            self._staged[key] = dict(
+                perm=torch.as_tensor(perm.astype(np.int32)).to(dev),
+                offsets=torch.as_tensor(_segment_offsets(
+                    self.contrib_seg[r, :k], self.a_pad)).to(dev),
+                quad_b=torch.as_tensor(self.quad_b).to(dev,
+                                                       self.stage_dtype),
+                quad_w=torch.as_tensor(self.quad_w).to(dev,
+                                                       self.stage_dtype),
+                elem_ids=torch.as_tensor(self.elem_ids[r]).to(dev))
+            self.n_staged += 1
+        return self._staged[key]
+
+    def scatter_fields(self, E, nu, rank: Optional[int] = None,
+                       device=None):
+        """Global per-element fields (or scalars) -> ``(ndev, epad)`` slabs
+        (rank ``rank``'s ``(epad,)`` slab when given), at ``stage_dtype``
+        whatever the caller's dtype, as the reference stages them.
+
+        Host arrays and CPU tensors are cast and gathered on the host and
+        land on ``device`` (default: where they are): the two slabs are
+        the only bytes a coefficient update moves.  For one rank, a tensor
+        already on ``device`` (a card) is gathered there through the
+        rank's staged ``elem_ids``, so a field made on the card copies
+        nothing.
+        """
+        return (self._scatter(E, rank, device),
+                self._scatter(nu, rank, device))
+
+    def _scatter(self, v, rank: Optional[int], device) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            dev = v.device if device is None else \
+                backend.resolve_device(device)
+            if v.device == dev and dev.type != "cpu" and rank is not None:
+                v = v.to(self.stage_dtype).expand(self.n_elements)
+                return v[self.rank_args(rank, dev)["elem_ids"]]
+            v = v.detach().cpu().numpy()
+        else:
+            dev = torch.device("cpu") if device is None else \
+                backend.resolve_device(device)
+        ids = self.elem_ids if rank is None else self.elem_ids[rank]
+        dt = torch.empty((), dtype=self.stage_dtype).numpy().dtype
+        flat = np.broadcast_to(np.asarray(v, dt), (self.n_elements,))
+        return torch.as_tensor(np.ascontiguousarray(flat[ids])).to(dev)
+
+
+def build_dist_assembly(dg: DistGAMG, assembler) -> DistAssembly:
+    """Cold staging of device FEM assembly over the fine payload slabs.
+
+    ``assembler`` is the problem's ``fem.device_stiffness
+    .DeviceAssembler``; its ``BlockCOOPlan`` must be the one the fine
+    operator of ``dg``'s setup was assembled with (raises otherwise).  Its
+    quadrature arrays are copied to the host once, here.
+    """
+    plan = assembler.plan
+    lv0 = dg.levels[0]
+    nn = assembler.nn
+    if int(lv0.a_nnz_starts[-1]) != plan.nnzb:
+        raise ValueError(
+            f"assembler plan does not match the staged fine operator: "
+            f"plan has {plan.nnzb} output blocks, the fine level has "
+            f"{int(lv0.a_nnz_starts[-1])}")
+    sorted_input = plan.keep[plan.order]          # declared-coordinate ids
+    elem = sorted_input // (nn * nn)
+    pair = sorted_input % (nn * nn)
+    seg = plan.out_idx_sorted                     # monotone output blocks
+    starts = lv0.a_nnz_starts
+    los = np.searchsorted(seg, starts[:-1], side="left")
+    his = np.searchsorted(seg, starts[1:], side="left")
+    per_uniq, per_loc = [], []
+    for r in range(dg.ndev):
+        uniq, local = np.unique(elem[los[r]:his[r]], return_inverse=True)
+        per_uniq.append(uniq)
+        per_loc.append(local)
+    epad = max(1, max(len(u) for u in per_uniq))
+    cpad = max(1, int((his - los).max()))
+    ndev = dg.ndev
+    elem_ids = np.zeros((ndev, epad), dtype=np.int64)
+    c_elem = np.zeros((ndev, cpad), dtype=np.int32)
+    c_pa = np.zeros((ndev, cpad), dtype=np.int32)
+    c_pb = np.zeros((ndev, cpad), dtype=np.int32)
+    # padded contributions name the (always unused) last slab slot, as the
+    # reference's do; the kernel's offsets never reach them
+    c_seg = np.full((ndev, cpad), lv0.a_pad - 1, dtype=np.int32)
+    c_mask = np.zeros((ndev, cpad), dtype=bool)
+    for r in range(ndev):
+        lo, hi = los[r], his[r]
+        k = hi - lo
+        elem_ids[r, :len(per_uniq[r])] = per_uniq[r]
+        c_elem[r, :k] = per_loc[r]
+        c_pa[r, :k] = pair[lo:hi] // nn
+        c_pb[r, :k] = pair[lo:hi] % nn
+        c_seg[r, :k] = seg[lo:hi] - starts[r]
+        c_mask[r, :k] = True
+    return DistAssembly(elem_ids=elem_ids, contrib_elem=c_elem,
+                        contrib_pa=c_pa, contrib_pb=c_pb, contrib_seg=c_seg,
+                        contrib_mask=c_mask,
+                        quad_b=assembler.quad_b.detach().cpu().numpy(),
+                        quad_w=assembler.quad_w.detach().cpu().numpy(),
+                        nn=nn, bs=plan.br, a_pad=lv0.a_pad,
+                        n_elements=assembler.n_elements,
+                        stage_dtype=dg.payload_stage_dtype)
 
 
 def _placement_split(setupd: GAMGSetup, ndev: int, limit: int) -> int:
@@ -599,6 +777,25 @@ def _rank_coarse_solve(dg: DistGAMG, chol: torch.Tensor, rhs: torch.Tensor,
     return mine
 
 
+def _rank_assemble(da: DistAssembly, aargs: dict, E: torch.Tensor,
+                   nu: torch.Tensor) -> torch.Tensor:
+    """Rank-local device assembly: coefficient slabs -> the ``(a_pad, bs,
+    bs)`` fine payload slab.
+
+    The batched quadrature over the rank's padded element set (padded
+    elements compute element 0's block and no contribution reads it), then
+    the rank's contiguous slice of the global sorted scatter-sum as one
+    ``block_seg_sum`` launch that reads the element blocks through
+    ``perm``: every segment sums its contributions in the global plan's
+    order, so the slab is bitwise ``scatter_fine_payloads`` of the
+    globally assembled payload when the element blocks are.  ``aargs``
+    from ``da.rank_args(rank, device)``.
+    """
+    vals = element_value_stream(aargs["quad_b"].to(E.dtype),
+                                aargs["quad_w"].to(E.dtype), E, nu, da.nn)
+    return seg_ops.block_seg_sum(vals, aargs["offsets"], aargs["perm"])
+
+
 def _rank_smooth(dg: DistGAMG, spmv, st: dict, b: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """The single-device V-cycle's unfused recurrences
@@ -792,25 +989,72 @@ def make_dist_solver(dg: DistGAMG, setupd: GAMGSetup, comm, *,
     """
     del setupd  # the structure is staged in dg; kept for call-site symmetry
 
-    def rank_body(args, a0, b, x0, overlap):
-        with obs_trace.span("dist/recompute"):
-            states, chol = _rank_recompute(dg, args, a0, comm, overlap)
-        run_pcg = _rank_block_pcg if b.ndim == 3 else _rank_pcg
-        with obs_trace.span("dist/pcg"):
-            return run_pcg(dg, args, states, chol, b, comm, rtol, maxiter,
-                           overlap, x0=x0)
-
     if warm_start:
         def rank_fn(args, a0, b, x0, *, overlap):
-            return rank_body(args, a0, b, x0, overlap)
+            return _rank_solve(dg, args, a0, b, x0, comm, rtol, maxiter,
+                               overlap)
     else:
         def rank_fn(args, a0, b, *, overlap):
-            return rank_body(args, a0, b, None, overlap)
+            return _rank_solve(dg, args, a0, b, None, comm, rtol, maxiter,
+                               overlap)
 
-    def knobs():
-        return dict(overlap=backend.resolve_overlap() == "on")
+    return _with_rank0_span(inject.traced(rank_fn, _knobs), "dist/solve")
 
-    return _with_rank0_span(inject.traced(rank_fn, knobs), "dist/solve")
+
+def make_dist_coeff_solver(dg: DistGAMG, da: DistAssembly, comm, *,
+                           rtol: float = 1e-8, maxiter: int = 200,
+                           warm_start: bool = False):
+    """One rank's coefficient hot path: ``(args, aargs, E, nu, b) -> (x,
+    iters, relres, ok, status)``.
+
+    The quasi-static front door: instead of a pre-assembled value stream
+    (``make_dist_solver``'s ``a0``), each rank receives its coefficient
+    slabs (``da.scatter_fields(E, nu, comm.rank, device)``) and runs the
+    rank assembly (``_rank_assemble``: one ``block_seg_sum`` launch), the
+    recompute and the CG solve — the distributed twin of
+    ``gamg.make_coeff_solve``.  ``aargs`` from ``da.rank_args(comm.rank,
+    device)``; everything else as ``make_dist_solver`` (a ``(rpad, bs,
+    k)`` panel ``b`` runs the masked panel CG).
+
+    ``warm_start=True`` appends an ``x0`` slab, ``(args, aargs, E, nu, b,
+    x0)``, so a time march feeds each rank's previous x slab straight back
+    in: no gather or scatter between steps.  The overlap knob and the
+    fault schedule bind at the first call with each argument signature,
+    and spans at build time time the call in ``dist/coeff_solve``, as on
+    ``make_dist_solver``.
+    """
+
+    def rank_body(args, aargs, E, nu, b, x0, overlap):
+        with obs_trace.span("dist/assemble"):
+            a_slab = _rank_assemble(da, aargs, E, nu)
+        return _rank_solve(dg, args, a_slab, b, x0, comm, rtol, maxiter,
+                           overlap)
+
+    if warm_start:
+        def rank_fn(args, aargs, E, nu, b, x0, *, overlap):
+            return rank_body(args, aargs, E, nu, b, x0, overlap)
+    else:
+        def rank_fn(args, aargs, E, nu, b, *, overlap):
+            return rank_body(args, aargs, E, nu, b, None, overlap)
+
+    return _with_rank0_span(inject.traced(rank_fn, _knobs),
+                            "dist/coeff_solve")
+
+
+def _knobs() -> dict:
+    return dict(overlap=backend.resolve_overlap() == "on")
+
+
+def _rank_solve(dg: DistGAMG, args: dict, a_slab: torch.Tensor,
+                b: torch.Tensor, x0, comm, rtol: float, maxiter: int,
+                overlap: bool):
+    """The recompute, then the vector or panel CG, under their spans."""
+    with obs_trace.span("dist/recompute"):
+        states, chol = _rank_recompute(dg, args, a_slab, comm, overlap)
+    run_pcg = _rank_block_pcg if b.ndim == 3 else _rank_pcg
+    with obs_trace.span("dist/pcg"):
+        return run_pcg(dg, args, states, chol, b, comm, rtol, maxiter,
+                       overlap, x0=x0)
 
 
 def _with_rank0_span(fn, name: str):

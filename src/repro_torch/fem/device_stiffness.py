@@ -14,8 +14,10 @@ moves only the two fields to the card.
   quadrature arrays (``hex_elasticity.element_quadrature``, the host
   path's B matrices) on the device, the element count and the cached
   ``BlockCOOPlan``.  Built once per mesh and boundary conditions.
-* ``element_stiffness_blocks`` / ``value_stream`` / ``coo_data`` are
-  functions of the coefficient fields on the device.  The constitutive
+* ``element_stiffness_blocks`` / ``element_value_stream`` /
+  ``value_stream`` / ``coo_data`` are functions of the coefficient fields
+  on the device (the first two also serve the distributed rank assembly,
+  ``repro_torch.dist.solver._rank_assemble``).  The constitutive
   matrix is linear in the Lame parameters (``D = lam*D_LAM + mu*D_MU``),
   so heterogeneity costs one broadcast.  The quadrature is a small dense
   contraction (24x24 per element) that the reference also leaves to its
@@ -73,6 +75,17 @@ def element_stiffness_blocks(Bq: torch.Tensor, wq: torch.Tensor,
     return 0.5 * (Ke + Ke.transpose(1, 2))                # mirror host path
 
 
+def element_value_stream(Bq: torch.Tensor, wq: torch.Tensor,
+                         E: torch.Tensor, nu: torch.Tensor, nn: int
+                         ) -> torch.Tensor:
+    """``(ne*nn*nn, 3, 3)`` blocked value stream of the elements' stiffness
+    blocks, element-major, then row node, then column node (the order the
+    COO plans declare their coordinates in)."""
+    Ke = element_stiffness_blocks(Bq, wq, E, nu)
+    return Ke.reshape(-1, nn, BS, nn, BS).permute(0, 1, 3, 2, 4) \
+        .reshape(-1, BS, BS)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceAssembler:
     """Cold symbolic side of device assembly (host-built; ``eq=False``
@@ -126,10 +139,8 @@ class DeviceAssembler:
         """(n_input, 3, 3) blocked COO value stream in declaration order
         (element-major, then row node, then column node) — the stream
         ``self.plan`` was preallocated for."""
-        nn = self.nn
-        Ke = self.element_blocks(E, nu)
-        blocks = Ke.reshape(-1, nn, BS, nn, BS).permute(0, 1, 3, 2, 4)
-        return blocks.reshape(-1, BS, BS)
+        return element_value_stream(self.quad_b, self.quad_w, E, nu,
+                                    self.nn)
 
     def coo_data(self, E: torch.Tensor, nu: torch.Tensor) -> torch.Tensor:
         """Assembled (nnzb, 3, 3) operator payload: the value stream

@@ -1456,6 +1456,32 @@ def test_dist_stage_apply_on_card(dev, level):
         assert torch.equal(over, blocking)
 
 
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_dist_rank_assembly_on_card(dev, ndev):
+    """The rank assembly (``_rank_assemble``: the rank's element blocks,
+    then one ``block_seg_sum`` launch reading them through ``perm``) at
+    world 1's and world 4's rank 0 slabs, against the plain version on the
+    same blocks and the CPU's slab; slots past the rank's count stay 0."""
+    from repro_torch.dist import solver as ds
+    from repro_torch.fem.assemble import inclusion_fields
+    from repro_torch.fem.device_stiffness import DeviceAssembler, \
+        element_value_stream
+    prob, dg = _dist_setup(ndev=ndev)
+    da = ds.build_dist_assembly(
+        dg, DeviceAssembler.build(prob.mesh, prob.coo_plan, dev))
+    aargs = da.rank_args(0, dev)
+    E, nu = da.scatter_fields(*inclusion_fields(prob.mesh), 0, device=dev)
+    slab = _launch_once(seg_ops, lambda: ds._rank_assemble(da, aargs, E,
+                                                           nu))
+    vals = element_value_stream(aargs["quad_b"], aargs["quad_w"], E, nu,
+                                da.nn)
+    _close(slab, block_seg_sum_ref(vals, aargs["offsets"], aargs["perm"]))
+    nslots = int(dg.levels[0].a_nnz_starts[1])
+    assert slab.shape == (da.a_pad, 3, 3) and not slab[nslots:].any()
+    _close(slab, ds._rank_assemble(da, da.rank_args(0, "cpu"), E.cpu(),
+                                   nu.cpu()).to(dev))
+
+
 def test_nccl_world1_solve_on_card(dev, tmp_path):
     """``python -m repro_torch.dist.selftest 7 --world 1 --backend nccl``:
     the distributed recompute + solve on the card takes the single-device
