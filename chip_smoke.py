@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives twelve
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives thirteen
 paths of the port, each with the launch counts set to 0 just before it
 and read just after, the observability layer and the torch
 quickstart.  The autotuner's cache is a fresh temporary file
@@ -159,7 +159,25 @@ taken on:
    ``block_seg_sum`` must appear, and the coefficient program's own calls
    must launch ``block_seg_sum``, ``block_spmv`` and ``block_pair_gemm``.
    Their walls are printed, not read: four processes time-slicing one
-   card say nothing of scaling.
+   card say nothing of scaling;
+13. the front doors (after the dist path) — the AMG entry points' torch
+   twins as child processes on the card, each with its launches counted
+   (``--front-door NAME M`` runs ``python -m repro_torch.NAME M``'s
+   ``cli`` with the counts set to 0 just before it): ``serve_amg``,
+   ``observe_amg`` and ``heterogeneous`` at m=12 in the reference
+   examples' setting (device assembly, MIS, ``coarse_size=40``: levels
+   ``[4752, 1212, 918, 66]``; every request converged, the tally equal
+   to the analytic count, each coefficient update's host-to-device
+   bytes the two fields, ``2 * 11^3 * 8``) and at m=7 beside the same
+   twin run on the CPU in this process (levels, buckets and iterations
+   equal); ``python -m repro_torch.dist.measure 5 2 1`` and ``5 2 2``
+   (gloo ranks: one V-cycle's messages ``{14, 1, 15}``, the recompute's
+   ``{6, 1, 7}`` with its power loop's body once, the model's 15
+   messages and halo and gather bytes, the reference's numbers); and
+   ``python -m repro_torch.amg_distributed`` at its default (8 gloo
+   ranks at m=6 on the one card, MIS, ``coarse_size=30``) and at world
+   1 (NCCL), each taking the single-device card solve's iterations.  The
+   children's launches, summed, are the ``doors`` column of the record.
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -3531,6 +3549,42 @@ def march_cpu_vs_cuda(devices=("cpu", "cuda")) -> dict:
 
 # ---------------------------------------------------------------------------
 
+class Children:
+    """Every command of ``cmds`` started at once, each in a session of its
+    own (``PYTHONPATH`` the checkout's ``src``); leaving the block kills
+    every session still running."""
+
+    def __init__(self, cmds: dict):
+        self.cmds = cmds
+        self.t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.procs = {k: subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True, cwd=ROOT, env=env)
+            for k, cmd in cmds.items()}
+
+    def wait(self, timeout: float) -> tuple:
+        """Each child's ``CompletedProcess`` and the seconds from the start
+        to its end, by label."""
+        done, secs = {}, {}
+        for k, proc in self.procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - self.t0))
+            out, err = proc.communicate(timeout=left)
+            done[k] = subprocess.CompletedProcess(self.cmds[k],
+                                                  proc.returncode, out, err)
+            secs[k] = time.perf_counter() - self.t0
+        return done, secs
+
+    def __enter__(self) -> "Children":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.communicate()
+
+
 #: the dist path: the selftest's runs at the main path's m (world size,
 #: backend and sections), each child's time limit in seconds, and its
 #: solution's tolerance against the single-device card solve
@@ -3551,20 +3605,27 @@ DIST_KERNELS = ("block_spmv", "block_spmm", "block_pair_gemm",
                 "block_seg_sum", "fused_smoother", "fused_pair_gemm")
 
 
-def _run_child(cmd: list, timeout: float) -> subprocess.CompletedProcess:
-    """Run ``cmd`` in a session of its own; on a timeout the whole session
-    (the selftest and the ranks it spawned) is killed."""
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True,
-                            env=dict(os.environ, PYTHONPATH=str(SRC)))
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, 9)
-        proc.communicate()
-        raise
-    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+#: the front doors phase: the AMG twins' card runs at the MIS setting's
+#: largest held m and their CPU-vs-card check at m=7; the message counts
+#: of ``python -m repro.dist.measure 5 2 pc`` (pc = 1, 2) with level 0's
+#: modeled halo bytes at each pc and level 1's gather bytes; the
+#: distributed twin's runs (``python -m repro_torch.amg_distributed``
+#: argv); and the families each child must launch
+DOOR_FLAG = "--front-door"      # a twin's card child, its launches counted
+DOORS = ("serve_amg", "observe_amg", "heterogeneous")
+DOORS_M, DOORS_CHECK_M = MIS_M, 7
+DOORS_TIMEOUT_S = 420
+EXPECT_MEASURE = dict(cycle={"ppermute": 14, "all_gather": 1, "msgs": 15},
+                      recompute={"ppermute": 6, "all_gather": 1, "msgs": 7},
+                      model_msgs=15, halo_bytes={1: 15072, 2: 7536},
+                      gather_bytes=336)
+DISTRIBUTED_RUNS = {"gloo world 8 (default)": [], "nccl world 1": ["1"]}
+STAGE_KERNELS = ("block_spmv", "block_pair_gemm", "block_seg_sum")
+DOOR_KERNELS = {"serve_amg": MAIN_KERNELS + ("block_spmm",),
+                "observe_amg": MAIN_KERNELS + ("block_spmm",),
+                "heterogeneous": MAIN_KERNELS,
+                "dist.measure": STAGE_KERNELS,
+                "amg_distributed": STAGE_KERNELS}
 
 
 def _check_dist(label: str, res: dict) -> dict:
@@ -3684,8 +3745,9 @@ def dist_path(m: int = MAIN_M) -> dict:
     for label, extra in DIST_RUNS.items():
         cmd = [sys.executable, "-m", "repro_torch.dist.selftest", str(m),
                "--device", "cuda", *extra]
-        t0 = time.perf_counter()
-        out = _run_child(cmd, DIST_TIMEOUT_S)
+        with Children({label: cmd}) as kid:
+            done, secs = kid.wait(DIST_TIMEOUT_S)
+        out = done[label]
         lines = out.stdout.splitlines()
         if out.returncode != 0 or not lines or lines[-1] != "OK":
             raise AssertionError(
@@ -3695,7 +3757,7 @@ def dist_path(m: int = MAIN_M) -> dict:
                               if ln.startswith("dist result "))
                          [len("dist result "):])
         line = _check_dist(label, res)
-        line["child_s"] = time.perf_counter() - t0
+        line["child_s"] = secs[label]
         print(f"dist path {label} " + json.dumps(line))
         coeff, march = _check_dist_coeff(label, res)
         print(f"dist coeff {label} " + json.dumps(coeff))
@@ -3705,6 +3767,191 @@ def dist_path(m: int = MAIN_M) -> dict:
         for k, v in res["launches"].items():
             launches[k] += v
     check_path_launches("dist", launches, DIST_KERNELS)
+    return launches
+
+
+def _failed(label: str, out) -> AssertionError:
+    return AssertionError(f"front door {label}: exit {out.returncode}\n"
+                          f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+
+
+def front_door_child(name: str, m: int) -> int:
+    """``chip_smoke.py --front-door NAME M``: the twin's command line
+    (``python -m repro_torch.NAME M``, its ``cli``) with the launch counts
+    set to 0 just before it; prints its JSON line, then the launches."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{name}")
+    reset_counts()
+    rc = mod.cli([str(m)])
+    print("door launches " + json.dumps(read_counts()))
+    return rc
+
+
+def _door_run(label: str, out) -> tuple:
+    """A ``--front-door`` child's JSON line and launches."""
+    lines = out.stdout.splitlines()
+    if out.returncode or len(lines) < 2 \
+            or not lines[-1].startswith("door launches "):
+        raise _failed(label, out)
+    return json.loads(lines[-2]), json.loads(lines[-1][len("door "
+                                                            "launches "):])
+
+
+def _door_key(name: str, res: dict) -> dict:
+    """What a twin's CPU and card runs must share: levels, buckets and
+    iterations (as JSON reads them back)."""
+    key = dict(levels=res["level_rows"])
+    if name == "serve_amg":
+        key.update(bursts=[(b["k_bucket"], b["iters"])
+                           for b in res["bursts"]],
+                   post=res["post_update_iters"], stats=res["stats"])
+    elif name == "observe_amg":
+        key.update(iters=res["iters"], tally=res["tally"],
+                   bursts=res["bursts"], request=res["request"]["iters"])
+    else:
+        key.update(iters=res["iters"])
+    return json.loads(json.dumps(key))
+
+
+def _check_door(name: str, res: dict) -> dict:
+    """A twin's card run at ``DOORS_M``; returns its line's summary."""
+    bad = {}
+    if res["level_rows"] != EXPECT_MIS_ROWS or \
+            not res["device"].startswith("cuda"):
+        bad["levels"] = (res["device"], res["level_rows"])
+    if name == "serve_amg":
+        if not all(b["converged"] for b in res["bursts"]):
+            bad["bursts"] = res["bursts"]
+        out = dict(bursts=[dict(requests=b["requests"],
+                                buckets=b["buckets"], iters=b["iters"],
+                                ms=b["ms"]) for b in res["bursts"]],
+                   update_ms=res["update_ms"],
+                   post_update_iters=res["post_update_iters"],
+                   solves_per_k=res["stats"]["solves_per_k"])
+    elif name == "observe_amg":
+        out = dict(iters=res["iters"], tally=res["tally_line"],
+                   request=res["request"], recompute=res["recompute"],
+                   instruments=len(res["prometheus"]),
+                   jsonl_lines=res["jsonl_lines"],
+                   latency_p50_s=res["snapshot"]["latency_p50_s"])
+    else:
+        fields = 2 * res["n_elements"] * 8
+        if res["field_bytes"] != fields or any(
+                s["h2d_bytes"] != fields for s in res["steps"]):
+            bad["h2d"] = res["steps"]
+        out = dict(iters=res["iters"], n_elements=res["n_elements"],
+                   h2d_bytes=[s["h2d_bytes"] for s in res["steps"]],
+                   h2d_copies=[s["h2d_copies"] for s in res["steps"]],
+                   update_ms=[s["update_ms"] for s in res["steps"]],
+                   solve_ms=[s["solve_ms"] for s in res["steps"]])
+    if bad:
+        raise AssertionError(f"front door {name} m={DOORS_M}: {bad}")
+    return dict(m=res["m"], levels=res["level_rows"], **out)
+
+
+def _check_measure(pc: int, res: dict) -> dict:
+    want = EXPECT_MEASURE
+    meas = res["measured"]
+    got = {k: {f: meas[k][f] for f in want[k]} for k in ("cycle",
+                                                         "recompute")}
+    rows = res["model_rows"]
+    if got["cycle"] != want["cycle"] or got["recompute"] != \
+            want["recompute"] or res["model_msgs"] != want["model_msgs"] \
+            or rows[0]["halo_bytes"] != want["halo_bytes"][pc] \
+            or rows[-1]["gather_bytes"] != want["gather_bytes"] \
+            or not res["agree"] or res["backend"] != "gloo":
+        raise AssertionError(f"dist.measure 5 2 {pc}: {res}")
+    return dict(pc=pc, cycle=meas["cycle"], recompute=meas["recompute"],
+                recompute_calls=meas["recompute_calls"],
+                model_msgs=res["model_msgs"],
+                model_bytes=res["model_bytes"],
+                halo_bytes=[r["halo_bytes"] for r in rows],
+                gather_bytes=[r["gather_bytes"] for r in rows],
+                agree=res["agree"], levels=res["levels"])
+
+
+def front_doors_phase() -> dict:
+    """The AMG front doors on the card, each a child process with its
+    launches counted: ``serve_amg``, ``observe_amg`` and
+    ``heterogeneous`` at ``DOORS_M`` (the MIS setting's levels; the
+    heterogeneous updates' host-to-device bytes the two fields) and at
+    ``DOORS_CHECK_M`` beside the same twin on the CPU in this process
+    (levels, buckets and iterations equal); ``python -m
+    repro_torch.dist.measure 5 2 1`` and ``5 2 2`` (the reference's
+    counts, ``EXPECT_MEASURE``); ``python -m repro_torch.amg_distributed``
+    at its default (8 gloo ranks at m=6 on the one card) and at world 1
+    (NCCL).  Returns the launches by family summed over the children."""
+    import importlib
+    launches = dict.fromkeys(KERNELS, 0)
+    me = [sys.executable, str(ROOT / "chip_smoke.py"), DOOR_FLAG]
+    cmds = {(name, m): me + [name, str(m)] for name in DOORS
+            for m in (DOORS_M, DOORS_CHECK_M)}
+    # the children run while this process runs the CPU twins
+    with Children(cmds) as kids:
+        cpu = {}
+        for name in DOORS:
+            with contextlib.redirect_stdout(open(os.devnull, "w")):
+                cpu[name] = importlib.import_module(
+                    f"repro_torch.{name}").main(DOORS_CHECK_M,
+                                                device="cpu")
+        done, secs = kids.wait(DOORS_TIMEOUT_S)
+    for name in DOORS:
+        res, got = _door_run(f"{name} {DOORS_M}", done[(name, DOORS_M)])
+        line = _check_door(name, res)
+        check_path_launches(f"front door {name}", got, DOOR_KERNELS[name])
+        card7, got7 = _door_run(f"{name} {DOORS_CHECK_M}",
+                                done[(name, DOORS_CHECK_M)])
+        if _door_key(name, card7) != _door_key(name, cpu[name]):
+            raise AssertionError(
+                f"front door {name} m={DOORS_CHECK_M}: card "
+                f"{_door_key(name, card7)}, cpu {_door_key(name, cpu[name])}")
+        line.update(launches=got, child_s=secs[(name, DOORS_M)],
+                    cpu_vs_cuda=dict(m=DOORS_CHECK_M, equal=True,
+                                     **_door_key(name, card7)),
+                    check_child_s=secs[(name, DOORS_CHECK_M)])
+        print(f"front door {name} " + json.dumps(line))
+        for d in (got, got7):
+            for f, v in d.items():
+                launches[f] += v
+
+    dist_cmds = {("dist.measure", pc): [sys.executable, "-m",
+                                        "repro_torch.dist.measure", "5",
+                                        "2", str(pc)] for pc in (1, 2)}
+    dist_cmds.update({("amg_distributed", label): [
+        sys.executable, "-m", "repro_torch.amg_distributed", *argv]
+        for label, argv in DISTRIBUTED_RUNS.items()})
+    with Children(dist_cmds) as kids:
+        done, secs = kids.wait(DOORS_TIMEOUT_S)
+    for (name, arg), out in done.items():
+        lines = out.stdout.splitlines()
+        if name == "dist.measure":
+            if out.returncode or not lines:
+                raise _failed(f"dist.measure 5 2 {arg}", out)
+            res = json.loads(lines[-1])
+            line = _check_measure(arg, res)
+            label = f"dist.measure 5 2 {arg}"
+        else:
+            if out.returncode or not lines or lines[-1] != "OK":
+                raise _failed(f"amg_distributed {arg}", out)
+            res = json.loads(next(ln for ln in lines if ln.startswith(
+                "dist result "))[len("dist result "):])
+            world = res["world"]
+            if res["iters"] != res["iters_single"] or res["status"] != \
+                    ["healthy"] * world or not res["cycle"]["agree"] \
+                    or not res["repeat_bitwise"]:
+                raise AssertionError(f"amg_distributed {arg}: {res}")
+            line = {k: res[k] for k in ("m", "world", "backend", "levels",
+                                        "iters", "iters_single",
+                                        "rel_single", "placement", "halo",
+                                        "wall_ms", "single_ms")}
+            line["cycle"] = res["cycle"]
+            label = f"amg_distributed {arg}"
+        check_path_launches(f"front door {label}", res["launches"],
+                            DOOR_KERNELS[name])
+        line.update(launches=res["launches"], child_s=secs[(name, arg)])
+        print(f"front door {label} " + json.dumps(line))
+        for f, v in res["launches"].items():
+            launches[f] += v
     return launches
 
 
@@ -3796,6 +4043,9 @@ def main() -> int:
             return profile_witness(json.loads(
                 args[args.index(PROFILE_FLAG) + 1]))
         with tune_mode("off"):
+            if DOOR_FLAG in args:
+                i = args.index(DOOR_FLAG)
+                return front_door_child(args[i + 1], int(args[i + 2]))
             return h2d_witness() if H2D_FLAG in args else run_all()
     finally:
         if tune_dir is not None:
@@ -3903,6 +4153,7 @@ def run_all() -> int:
         allocated=torch.cuda.memory_allocated(),
         reserved=torch.cuda.memory_reserved())))
     by_path["dist"] = dist_path()
+    by_path["doors"] = front_doors_phase()
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks,
                                    precision, (s_launches, s_step, s_per))))

@@ -98,6 +98,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels.backend import sync
+
 RTOL, MAXITER = 1e-8, 200
 #: the distributed solution against the single-device one, relative to
 #: its largest entry (both f64, converged to RTOL in equal iterations)
@@ -139,11 +141,6 @@ class Launches:
     def add(self, other: "Launches") -> None:
         for f in FAMILIES:
             self.total[f] += other.total[f]
-
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def _rel(got, want) -> float:
@@ -324,11 +321,11 @@ def _sections(comm, opts, dev) -> dict:
         hier = gamg.recompute(setupd, prob.A.data)
         ref = gamg.hier_solve(setupd, hier, prob.b, rtol=RTOL,
                               maxiter=MAXITER)
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         gamg.hier_solve(setupd, gamg.recompute(setupd, prob.A.data),
                         prob.b, rtol=RTOL, maxiter=MAXITER)
-        _sync(dev)
+        sync(dev)
         res["single_ms"] = 1e3 * (time.perf_counter() - t0)
         res["iters_single"] = ref.iters
         arrays["x_single"] = ref.x
@@ -348,10 +345,10 @@ def _sections(comm, opts, dev) -> dict:
     b = dg.scatter_vector(prob.b, rank)
     run = make_dist_solver(dg, setupd, comm, rtol=RTOL, maxiter=MAXITER)
     x, iters, relres, ok, status = counted.run(run, args, a0, b)
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     x2 = counted.run(run, args, a0, b)[0]
-    _sync(dev)
+    sync(dev)
     res["wall_ms"] = 1e3 * (time.perf_counter() - t0)
     statuses = on_all(status)
     xg = _gather(comm, dg, x)
@@ -589,10 +586,10 @@ def _coeff_section(comm, opts, dev, prob, setupd, dg, args: dict,
     E_r, nu_r = da.scatter_fields(E_h, nu_h, rank, device=dev)
     xc, itc, relc, okc, stc = own.run(run_c, args, aargs, E_r, nu_r, b)
     seg_coeff = own.total["block_seg_sum"]
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     own.run(run_c, args, aargs, E_r, nu_r, b)
-    _sync(dev)
+    sync(dev)
     wall_ms = 1e3 * (time.perf_counter() - t0)
     statuses = _on_all(comm, stc, dev)
     xg = _gather(comm, dg, xc)
@@ -634,10 +631,10 @@ def _coeff_section(comm, opts, dev, prob, setupd, dg, args: dict,
                                             maxiter=MAXITER)
         zeros = torch.zeros_like(prob.b)
         coeff_solve(E_d, nu_d, prob.b, zeros)
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         coeff_solve(E_d, nu_d, prob.b, zeros)
-        _sync(dev)
+        sync(dev)
         out.update(iters_single=ref_c.iters, rel_single=_rel(xg, ref_c.x),
                    single_ms=1e3 * (time.perf_counter() - t0))
         if itc != ref_c.iters or out["rel_single"] > SOLUTION_TOL:
@@ -729,21 +726,21 @@ def _march_section(comm, dev, prob, setupd, dg, args: dict,
             state, x_ref, torch.tensor(s, dtype=torch.int32, device=dev))
         (E_r, nu_r), h2d, _ = count_h2d(
             lambda: da.scatter_fields(E_s, nu_s, rank, device=dev))
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         x_slab, it, _, ok, st = own.run(run_w, args, aargs, E_r, nu_r, b,
                                         x_slab)
-        _sync(dev)
+        sync(dev)
         row = dict(step=s, iters=it, h2d_bytes=h2d,
                    wall_ms=1e3 * (time.perf_counter() - t0),
                    status=[STATUS_NAMES[int(v)]
                            for v in _on_all(comm, st, dev)])
         xg = arrays[f"x_march{s}"] = _gather(comm, dg, x_slab)
         if lead:
-            _sync(dev)
+            sync(dev)
             t0 = time.perf_counter()
             ref_s = coeff_solve(E_s, nu_s, prob.b, x_ref)
-            _sync(dev)
+            sync(dev)
             row.update(iters_single=ref_s.iters,
                        rel_single=_rel(xg, ref_s.x),
                        single_ms=1e3 * (time.perf_counter() - t0))

@@ -678,7 +678,7 @@ def _rank_lambda_max(lv: DistLevel, a: dict, dinva_data: torch.Tensor,
 
 
 def _rank_recompute(dg: DistGAMG, args: dict, a_slab: torch.Tensor, comm,
-                    overlap: bool):
+                    overlap: bool, lambda_iters: int = 10):
     """Distributed hot hierarchy rebuild: chained PtAP + smoother data.
 
     The payload chain runs at the policy's hierarchy dtype (the incoming
@@ -688,6 +688,8 @@ def _rank_recompute(dg: DistGAMG, args: dict, a_slab: torch.Tensor, comm,
     all-gather of the last stage-2 payload slabs, the gather-boundary plan
     reassembles the first replicated operator's global payload, and the
     tail is the single-device chain run on every rank.
+    ``lambda_iters`` is each level's power-iteration count (the message
+    count uses 1: the reference's traced loop holds its body once).
     """
     policy = dg.precision
     h = policy.hierarchy_dtype
@@ -705,7 +707,7 @@ def _rank_recompute(dg: DistGAMG, args: dict, a_slab: torch.Tensor, comm,
         dinva = torch.einsum("rab,rkbc->rkac", dinv.to(acc_p),
                              a_ell_data.to(acc_p)).to(h).contiguous()
         lam = _rank_lambda_max(lv, a, dinva, a["row_mask"], comm, overlap,
-                               accum=acc)
+                               iters=lambda_iters, accum=acc)
         st = dict(a_data=a_ell_data, dinv=dinv, lam=lam)
         if li == 0 and policy.mixed:
             st["a_data_kr"] = a_slab.to(policy.krylov_dtype)[a["a_gather"]]

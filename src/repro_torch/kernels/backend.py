@@ -90,6 +90,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): call it
+    before reading a wall clock."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA library
 # ---------------------------------------------------------------------------

@@ -20,16 +20,9 @@ import argparse
 import json
 import time
 
-import torch
-
 from repro_torch.core import gamg
 from repro_torch.fem.assemble import assemble_elasticity
-from repro_torch.kernels.backend import resolve_device
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from repro_torch.kernels.backend import resolve_device, sync
 
 
 def main(m: int = 9, device="cuda", steps: int = 3) -> dict:
@@ -42,7 +35,7 @@ def main(m: int = 9, device="cuda", steps: int = 3) -> dict:
     t0 = time.perf_counter()
     solver = gamg.GAMGSolver(prob.A, prob.B, coarse_size=40, rtol=1e-8,
                              maxiter=100)
-    _sync(dev)
+    sync(dev)
     stats = solver.setup_data.stats
     print(f"cold setup: {time.perf_counter() - t0:.2f}s, "
           f"{solver.setup_data.n_levels} levels, "
@@ -56,11 +49,11 @@ def main(m: int = 9, device="cuda", steps: int = 3) -> dict:
         a_new = prob.reassemble(scale)     # one MatSetValuesCOO scatter
         t0 = time.perf_counter()
         solver.update_operator(a_new.data)  # hot PtAP chain
-        _sync(dev)
+        sync(dev)
         t_ptap = time.perf_counter() - t0
         t0 = time.perf_counter()
         res = solver.solve(prob.b)
-        _sync(dev)
+        sync(dev)
         t_solve = time.perf_counter() - t0
         iters.append(int(res.iters))
         print(f"step {step}: hot PtAP {t_ptap * 1e3:7.1f} ms | "

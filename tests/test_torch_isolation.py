@@ -107,13 +107,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: build_scalar_ptap_chain(gamg.setup(
             assemble_elasticity(3).A, None)),
     ]
+    # the AMG front doors: serve, observe, heterogeneous, distributed and
+    # the message-count CLI
+    from repro_torch import amg_distributed, heterogeneous, observe_amg, \
+        serve_amg
+    from repro_torch.dist import measure
+    argv = {"march": ["3", "1"], "serve_amg": ["3"], "observe_amg": ["3"],
+            "heterogeneous": ["3"], "amg_distributed": ["2", "3"],
+            "dist.measure": ["3", "2", "1"]}
+    calls += [
+        lambda: serve_amg.main(3), lambda: serve_amg.cli(["3"]),
+        lambda: observe_amg.main(3), lambda: observe_amg.cli(["3"]),
+        lambda: heterogeneous.main(3), lambda: heterogeneous.cli(["3"]),
+        lambda: amg_distributed.main(2, 3),
+        lambda: amg_distributed.cli(["2", "3"]),
+        lambda: measure.main(3, 2, 1), lambda: measure.cli(["3", "2", "1"]),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.march", "3",
-                          "1"], capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-m", f"repro_torch.{mod}",
+                               *args], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for mod, args in argv.items()]
+    for proc in procs:
+        _, err = proc.communicate(timeout=120)
+        assert proc.returncode != 0 and "device='cpu'" in err, proc.args
 
 
 def test_dist_entry_points_default_to_cuda_and_nccl(tmp_path):
