@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives thirteen
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives fourteen
 paths of the port, each with the launch counts set to 0 just before it
 and read just after, the observability layer and the torch
 quickstart.  The autotuner's cache is a fresh temporary file
@@ -114,9 +114,10 @@ taken on:
    scalar-row case against its plain version (``scalar kernel case``)
    and the scalar smoother's identity step bitwise ``b -
    block_spmv(x)`` on every level;
-12. the dist path (last) — ``python -m repro_torch.dist.selftest 32`` as
-   child processes on the card (``repro_torch.dist``: row slabs, halo
-   exchanges, the distributed PtAP and CG): NCCL at world size 1
+12. the dist path (after the precision path) — ``python -m
+   repro_torch.dist.selftest 32`` as child processes on the card
+   (``repro_torch.dist``: row slabs, halo exchanges, the distributed PtAP
+   and CG): NCCL at world size 1
    (recompute + solve, 13 iterations as the single-device card solve,
    the solution's difference from it, the hot step's wall beside the
    single-device one) and gloo at world size 4, the four ranks sharing
@@ -177,7 +178,26 @@ taken on:
    ``python -m repro_torch.amg_distributed`` at its default (8 gloo
    ranks at m=6 on the one card, MIS, ``coarse_size=30``) and at world
    1 (NCCL), each taking the single-device card solve's iterations.  The
-   children's launches, summed, are the ``doors`` column of the record.
+   children's launches, summed, are the ``doors`` column of the record;
+14. the LM phase (last) — the LM models and the serving path
+   (``repro_torch.models``, ``repro_torch.train.steps``), which launch no
+   AMG kernel (the counts are set to 0 before it and must read 0 after:
+   the record's ``lm`` column), all at f32 against ``LM_TOL`` (the
+   reference's, elementwise): qwen2-0.5b at its full config (params drawn
+   on the CPU, copied) with its 4 x 32-token prefill card against CPU and
+   decode against prefill on the card, and falcon-mamba-7b at full width
+   and ``LM_MAMBA_LAYERS`` layers (drawn on the card) with 70 tokens
+   decoded against their prefill (past the selective scan's chunk of
+   64; each decode step under CUDA's sync debug mode at "error": no
+   step waits for the card), then at ``LM_MAMBA_CHECK_LAYERS`` layers
+   card against CPU; both
+   through the serve loop of ``examples/serve_lm.py`` (4 x (32 + 32)
+   tokens) at f32 and bf16 with tok/s and peak memory (``lm full``
+   lines); every arch at ``reduced()``, prefill and 3 decode steps with
+   the cache, card against CPU (``lm reduced <arch> card vs cpu``); and
+   ``python -m repro_torch.serve_lm`` as a ``--front-door`` child,
+   whose greedy tokens must equal the same twin's on the CPU (``lm
+   serve_lm``).
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -3775,14 +3795,15 @@ def _failed(label: str, out) -> AssertionError:
                           f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
 
 
-def front_door_child(name: str, m: int) -> int:
-    """``chip_smoke.py --front-door NAME M``: the twin's command line
-    (``python -m repro_torch.NAME M``, its ``cli``) with the launch counts
-    set to 0 just before it; prints its JSON line, then the launches."""
+def front_door_child(name: str, argv: list) -> int:
+    """``chip_smoke.py --front-door NAME [ARGS]``: the twin's command line
+    (``python -m repro_torch.NAME ARGS``, its ``cli``) with the launch
+    counts set to 0 just before it; prints its JSON line, then the
+    launches."""
     import importlib
     mod = importlib.import_module(f"repro_torch.{name}")
     reset_counts()
-    rc = mod.cli([str(m)])
+    rc = mod.cli(list(argv))
     print("door launches " + json.dumps(read_counts()))
     return rc
 
@@ -3955,6 +3976,342 @@ def front_doors_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The LM phase
+# ---------------------------------------------------------------------------
+
+#: the LM phase: the f32 tolerance of logits and caches, card against CPU
+#: and decode against prefill (the reference's own,
+#: tests/test_arch_smoke.py:110); the serve loop of examples/serve_lm.py
+#: (batch, prompt, generated tokens); falcon-mamba-7b's prefill length,
+#: past the selective scan's chunk of 64, its depth on the card (the
+#: config's 64 layers, ~29 GB of f32 params) and in the card-vs-CPU
+#: check (29 GB on the host is too slow); the reduced check's batch,
+#: prompt, cache and decode steps; the seed of every init
+LM_TOL = 2e-4
+LM_B, LM_PROMPT, LM_GEN = 4, 32, 32
+LM_MAMBA_TOKENS = 70
+LM_MAMBA_LAYERS = 64
+LM_MAMBA_CHECK_LAYERS = 2
+LM_REDUCED = (2, 16, 8, 3)
+LM_SEED = 0
+LM_DOOR = "serve_lm"
+
+
+def _lm_err(got, want) -> float:
+    """The largest |got - want| (as f32 on the CPU); raises past the f32
+    tolerance, elementwise ``atol + rtol * |want|``."""
+    import torch
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"lm: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or not finite")
+    diff = (got - want).abs()
+    if bool((diff > LM_TOL + LM_TOL * want.abs()).any()):
+        raise AssertionError(f"lm: {float(diff.max())} past rtol = atol = "
+                             f"{LM_TOL}")
+    return float(diff.max())
+
+
+def _lm_leaves(tree: dict):
+    for v in tree.values():
+        yield from _lm_leaves(v) if isinstance(v, dict) else (v,)
+
+
+def _lm_tree_err(got: dict, want: dict) -> float:
+    """The largest gap over two trees built alike (same keys, same
+    order)."""
+    return max(_lm_err(g, w) for g, w in zip(_lm_leaves(got),
+                                              _lm_leaves(want)))
+
+
+def _lm_to(tree, device):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda a: a.to(device), tree)
+
+
+@contextlib.contextmanager
+def _no_host_sync(device):
+    """CUDA's sync debug mode at "error" inside the block (on the card):
+    any op that waits for the device raises."""
+    import torch
+    on = torch.device(device).type == "cuda"
+    if on:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _lm_step_ops(step, *args) -> dict:
+    """``step(*args)`` run twice: the aten ops it dispatches (views
+    included), then its host-to-device bytes and copies
+    (``repro_torch.obs.transfer.count_h2d``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.obs.transfer import count_h2d
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as ops:
+        step(*args)
+    _, nbytes, copies = count_h2d(lambda: step(*args))
+    return dict(aten_ops=ops.n, h2d_bytes=nbytes, h2d_copies=copies)
+
+
+def _lm_decode_vs_prefill(cfg, params, tokens, cdt) -> tuple:
+    """Prefill logits of ``tokens``, the largest gap of a token-by-token
+    decode from them at each position (the cache holds the prompt; each
+    step, its position a device tensor, under ``_no_host_sync``), and
+    then the last step's ``_lm_step_ops`` (which must copy nothing to the
+    card)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill, make_serve_step
+    full = make_prefill(cfg, cdt)(params, tokens)
+    step = make_serve_step(cfg, cdt)
+    cache = T.init_full_cache(cfg, tokens.shape[0], tokens.shape[1], cdt,
+                              device=tokens.device)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    gaps = []
+    for i in range(tokens.shape[1]):
+        with _no_host_sync(tokens.device):
+            lg, cache = step(params, cache, tokens[:, i:i + 1], pos[i])
+        gaps.append(_lm_err(lg[:, 0], full[:, i]))
+    ops = _lm_step_ops(step, params, cache, tokens[:, -1:], pos[-1])
+    if ops["h2d_bytes"]:
+        raise AssertionError(f"lm: a decode step copies to the card: {ops}")
+    return full, gaps, ops
+
+
+def _lm_serve(cfg, params, cdt, device="cuda") -> dict:
+    """``serve_lm.serve`` on the card with the peak memory of its loop."""
+    import torch
+
+    from repro_torch import serve_lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.serve(cfg, params, device=device, cdt=cdt, batch=LM_B,
+                         prompt=LM_PROMPT, gen=LM_GEN)
+    return dict(seconds=res["seconds"], tok_per_s=res["tok_per_s"],
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                tokens=res["tokens"])
+
+
+def lm_full_qwen2(device="cuda") -> dict:
+    """qwen2-0.5b at its full config: params drawn on the CPU from the seed,
+    copied to the card; prefill of ``LM_B`` x ``LM_PROMPT`` tokens at f32,
+    card against the port on the CPU; decode against prefill on the card;
+    the serve loop at f32 and bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    cpu = T.init_lm(cfg, LM_SEED, device="cpu")
+    init_s = time.perf_counter() - t0
+    params = _lm_to(cpu, device)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_B, LM_PROMPT)))
+    t0 = time.perf_counter()
+    want = make_prefill(cfg, torch.float32)(cpu, toks)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    prefill = make_prefill(cfg, torch.float32)
+    dtoks = toks.to(device)
+    card = prefill(params, dtoks)
+    prefill_ms = time_ms(lambda: prefill(params, dtoks), reps=5)
+    err = _lm_err(card, want)
+    _, gaps, ops = _lm_decode_vs_prefill(cfg, params, dtoks, torch.float32)
+    serve = {name: _lm_serve(cfg, params, cdt, device) for name, cdt in
+             (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    same = float((serve["f32"].pop("tokens")
+                  == serve["bf16"].pop("tokens")).mean())
+    return dict(card=card_line(), arch=cfg.name, layers=cfg.n_layers,
+                d_model=cfg.d_model, vocab=cfg.vocab_size,
+                params=T.count_params(params),
+                init_cpu_s=init_s, prefill=f"{LM_B}x{LM_PROMPT}",
+                card_vs_cpu_max_abs=err, prefill_cpu_s=cpu_s,
+                prefill_card_ms=prefill_ms,
+                decode_vs_prefill_max_abs=max(gaps), decode_step=ops,
+                serve=serve, greedy_tokens_bf16_equal_f32=same)
+
+
+def lm_full_mamba(layers: int = LM_MAMBA_LAYERS, device="cuda") -> dict:
+    """falcon-mamba-7b at full width: ``layers`` layers drawn on the card;
+    ``LM_MAMBA_TOKENS`` tokens decoded one by one against their prefill at
+    f32 (the gaps over the first ``LM_PROMPT`` and over all of them); the
+    serve loop at f32 and bf16.  Then the config at
+    ``LM_MAMBA_CHECK_LAYERS`` layers, card against CPU: the prefill and 3
+    decode steps (logits and state)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill, make_serve_step
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, LM_SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.count_params(params)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, LM_MAMBA_TOKENS)), device=device)
+    _, gaps, ops = _lm_decode_vs_prefill(cfg, params, toks, torch.float32)
+    peak = torch.cuda.max_memory_allocated()
+    serve = {name: _lm_serve(cfg, params, cdt, device) for name, cdt in
+             (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    for s in serve.values():
+        del s["tokens"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(full, n_layers=LM_MAMBA_CHECK_LAYERS)
+    card = T.init_lm(small, LM_SEED, device=device)
+    cpu = _lm_to(card, "cpu")
+    runs = {}
+    for dev, p in (("card", card), ("cpu", cpu)):
+        t = toks.to(p["embed"].device)
+        cache = T.init_full_cache(small, 2, LM_MAMBA_TOKENS, torch.float32,
+                                  device=t.device)
+        step = make_serve_step(small, torch.float32)
+        out = [make_prefill(small, torch.float32)(p, t)]
+        for i in range(3):
+            lg, cache = step(p, cache, t[:, i:i + 1], i)
+            out.append(lg)
+        runs[dev] = (out, cache)
+    (got, gcache), (want, wcache) = runs["card"], runs["cpu"]
+    check = dict(layers=LM_MAMBA_CHECK_LAYERS,
+                 prefill_max_abs=_lm_err(got[0], want[0]),
+                 decode_max_abs=max(_lm_err(g, w) for g, w in zip(
+                     got[1:], want[1:])),
+                 state_max_abs=_lm_tree_err(gcache, wcache))
+    del card, cpu, runs, got, gcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card_line(), arch=full.name, layers=layers,
+                of_layers=full.n_layers,
+                d_model=cfg.d_model, d_inner=cfg.ssm.expand * cfg.d_model,
+                d_state=cfg.ssm.d_state, vocab=cfg.vocab_size,
+                params=n_params, init_card_s=init_s,
+                tokens=f"2x{LM_MAMBA_TOKENS}",
+                decode_vs_prefill_max_abs_first_32=max(gaps[:LM_PROMPT]),
+                decode_vs_prefill_max_abs=max(gaps), decode_step=ops,
+                max_memory_allocated=peak, serve=serve, card_vs_cpu=check)
+
+
+def lm_reduced(arch: str, device="cuda") -> dict:
+    """``arch`` at ``reduced()``: params drawn on the CPU, copied to the
+    card; prefill logits and 3 decode steps (logits and cache; whisper
+    with its encoder output) at f32, card against CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill, make_serve_step
+    cfg = get_config(arch).reduced()
+    b, s, cache_len, steps = LM_REDUCED
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)))
+    feats = None if cfg.encdec is None else torch.as_tensor(
+        rng.standard_normal((b, cfg.encdec.encoder_frames, cfg.d_model)),
+        dtype=torch.float32)
+    cpu = T.init_lm(cfg, LM_SEED, device="cpu")
+    runs = {}
+    for key, p in (("cpu", cpu), ("card", _lm_to(cpu, device))):
+        dev = p["embed"].device
+        t = toks.to(dev)
+        f = None if feats is None else feats.to(dev)
+        out = [make_prefill(cfg, torch.float32)(p, t, f)]
+        enc = None
+        if f is not None:
+            with torch.inference_mode():
+                enc = T.encoder_apply(p["encoder"], f, cfg, torch.float32)
+        step = make_serve_step(cfg, torch.float32)
+        cache = T.init_full_cache(cfg, b, cache_len, torch.float32,
+                                  device=dev)
+        for i in range(steps):
+            lg, cache = step(p, cache, t[:, i:i + 1], i, enc)
+            out.append(lg)
+        runs[key] = (out, cache)
+    (card, ccache), (cpu_out, pcache) = runs["card"], runs["cpu"]
+    return dict(prefill_max_abs=_lm_err(card[0], cpu_out[0]),
+                decode_max_abs=max(_lm_err(g, w) for g, w in zip(
+                    card[1:], cpu_out[1:])),
+                cache_max_abs=_lm_tree_err(ccache, pcache),
+                params=T.count_params(cpu))
+
+
+def lm_phase() -> dict:
+    """The LM models and the serving path on the card (no AMG kernel on
+    it): qwen2-0.5b at its full config, falcon-mamba-7b at full width,
+    every arch at ``reduced()`` against the CPU, and ``python -m
+    repro_torch.serve_lm`` as a child process beside the same twin on the
+    CPU (equal greedy tokens).  The launch counts are set to 0 before it
+    and read after: every one must still be 0.  Returns them.  The
+    ``max_memory_allocated`` of its lines include what the process held
+    when the phase began (``allocated_before`` on the ``lm phase``
+    line)."""
+    import torch
+
+    from repro_torch import serve_lm
+    from repro_torch.configs.registry import ARCH_IDS
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    print("lm full " + json.dumps(lm_full_qwen2()))
+    print("lm full " + json.dumps(lm_full_mamba()))
+    cmd = {LM_DOOR: [sys.executable, str(ROOT / "chip_smoke.py"), DOOR_FLAG,
+                     LM_DOOR]}
+    with Children(cmd) as kids:
+        for arch in ARCH_IDS:
+            print(f"lm reduced {arch} card vs cpu "
+                  + json.dumps(lm_reduced(arch)))
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            cpu = serve_lm.main(device="cpu")
+        done, secs = kids.wait(DOORS_TIMEOUT_S)
+    res, launches = _door_run(LM_DOOR, done[LM_DOOR])
+    if res["device"] == "cpu" or any(launches.values()):
+        raise AssertionError(f"lm serve_lm: {res['device']}, {launches}")
+    same = {a: res["models"][a]["tokens"] == cpu["models"][a]["tokens"]
+            for a in serve_lm.ARCHS}
+    if not all(same.values()):
+        raise AssertionError(f"lm serve_lm: card tokens differ from the "
+                             f"CPU's: {same}")
+    print("lm serve_lm " + json.dumps(dict(
+        device=res["device"], tokens_equal_cpu=same, child_s=secs[LM_DOOR],
+        tok_per_s={a: m["tok_per_s"] for a, m in res["models"].items()},
+        launches=launches)))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"lm phase launched AMG kernels: {counts}")
+    print("lm phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, allocated_before=held,
+        launches=counts)))
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4045,7 +4402,7 @@ def main() -> int:
         with tune_mode("off"):
             if DOOR_FLAG in args:
                 i = args.index(DOOR_FLAG)
-                return front_door_child(args[i + 1], int(args[i + 2]))
+                return front_door_child(args[i + 1], args[i + 2:])
             return h2d_witness() if H2D_FLAG in args else run_all()
     finally:
         if tune_dir is not None:
@@ -4154,6 +4511,9 @@ def run_all() -> int:
         reserved=torch.cuda.memory_reserved())))
     by_path["dist"] = dist_path()
     by_path["doors"] = front_doors_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["lm"] = lm_phase()
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks,
                                    precision, (s_launches, s_step, s_per))))

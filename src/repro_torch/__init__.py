@@ -21,8 +21,15 @@ Subpackages and modules:
               families (f64, f32, bf16), the lanes map, the autotuner
   robust      solve health flags, fault injection, the recovery ladder
   obs         host metrics, the server's instruments, transfer counts
-  configs     the paper's elasticity configuration
+  configs     the paper's elasticity configuration and the LM architecture
+              zoo (``registry``)
+  models      the LM scaffold: configs, layers, the stacked decoders and
+              the whisper encoder-decoder, the sharding rules
+  train       the serve steps (``make_prefill``, ``make_serve_step``,
+              ``make_init``)
   interop     numpy -> port objects, for holding the port against ``repro``
   quickstart  ``python -m repro_torch.quickstart [m]``: the twin of
               ``examples/quickstart.py``
+  serve_lm    ``python -m repro_torch.serve_lm``: the twin of
+              ``examples/serve_lm.py``
 """

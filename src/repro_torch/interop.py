@@ -3,7 +3,8 @@
 Lets a caller run the port's hot path (``recompute``, ``vcycle``, ``pcg``)
 on exactly another implementation's operators, prolongators and
 hierarchies — handed over as numpy arrays — so hot-path parity can be
-checked apart from cold-setup parity.  Structures are taken as given;
+checked apart from cold-setup parity; likewise an LM's param tree and
+decode cache.  Structures are taken as given;
 every plan is rebuilt by the port's own symbolic phases (host numpy).
 Payloads keep their own dtype (f64, f32, or bf16 as ``ml_dtypes``'
 ``bfloat16``, carried bitwise through its 16-bit pattern), so a
@@ -28,6 +29,7 @@ from repro_torch.fem.assemble import ElasticityProblem, coo_plan
 from repro_torch.fem.device_stiffness import DeviceAssembler
 from repro_torch.fem.hex_elasticity import hex_mesh
 from repro_torch.kernels.backend import resolve_device, resolve_precision
+from repro_torch.models.transformer import tree_map
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -160,3 +162,20 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse_chol, *,
     return Hierarchy(levels=tuple(states), coarse_chol=_t(coarse_chol, dev),
                      a_fine_ell=None if a_fine_ell is None
                      else _ell(a_fine_ell, dev))
+
+
+def lm_params_from_numpy(tree, device="cuda", dtype=torch.float32) -> dict:
+    """An LM param tree (``repro_torch.models.transformer``'s) from the
+    reference's as nested dicts of numpy arrays (e.g. ``jax.tree_util.
+    tree_map(np.asarray, params)``): the same keys, every leaf at
+    ``dtype`` (the fp32 masters by default) on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _t(a, dev, dtype), tree)
+
+
+def lm_cache_from_numpy(tree, device="cuda") -> dict:
+    """A stacked decode cache from the reference's as nested dicts of numpy
+    arrays: the same keys, each leaf at its own dtype (a bf16 cache
+    crosses bitwise)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _t(a, dev), tree)

@@ -1505,3 +1505,103 @@ def test_nccl_world1_solve_on_card(dev, tmp_path):
     assert res["rel_single"] <= 1e-10
     for fam in ("block_spmv", "block_pair_gemm", "block_seg_sum"):
         assert res["launches"][fam] > 0, res["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The LM models and the serve loop (no AMG kernel on their path)
+# ---------------------------------------------------------------------------
+
+def _lm_runs(arch, devices):
+    """``arch`` at ``reduced()`` (params drawn on the CPU, copied): prefill
+    logits, 3 serve steps' logits and the cache after them, at f32, on
+    each device."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill, make_serve_step
+    cfg = get_config(arch).reduced()
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)))
+    params = T.init_lm(cfg, 0, device="cpu")
+    runs = []
+    for dev in devices:
+        p = T.tree_map(lambda a: a.to(dev), params)
+        t = toks.to(dev)
+        out = [make_prefill(cfg, torch.float32)(p, t)]
+        cache = T.init_full_cache(cfg, 2, 8, torch.float32, device=dev)
+        step = make_serve_step(cfg, torch.float32)
+        for i in range(3):
+            lg, cache = step(p, cache, t[:, i:i + 1],
+                             torch.tensor(i, device=dev))
+            out.append(lg)
+        runs.append((out, cache))
+    return runs
+
+
+def _lm_leaves(tree):
+    for v in tree.values():
+        yield from _lm_leaves(v) if isinstance(v, dict) else (v,)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
+                                  "deepseek-v2-236b"])
+def test_lm_reduced_on_card_matches_cpu(dev, arch):
+    """Prefill, 3 decode steps and the cache on the card against the CPU at
+    f32 (the reference's tolerance, tests/test_arch_smoke.py:110); no AMG
+    kernel launches."""
+    mods = (seg_ops, spmv_ops, smooth_ops, gemm_ops, spmm_ops, pair_ops,
+            pbj_ops)
+    before = [m.launches for m in mods]
+    (card, ccache), (cpu, pcache) = _lm_runs(arch, (dev, "cpu"))
+    for g, w in zip(card + list(_lm_leaves(ccache)),
+                    cpu + list(_lm_leaves(pcache))):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().numpy(), rtol=2e-4, atol=2e-4)
+    assert [m.launches for m in mods] == before
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
+def test_lm_serve_tokens_on_card_equal_cpu(dev, arch):
+    """``serve_lm.serve`` (the example's loop, prompt 8, gen 8, f32) gives
+    the same greedy tokens on the card as on the CPU."""
+    from repro_torch import serve_lm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    params = T.init_lm(cfg, 0, device="cpu")
+    got = serve_lm.serve(cfg, T.tree_map(lambda a: a.to(dev), params),
+                         device=dev, prompt=8, gen=8)
+    want = serve_lm.serve(cfg, params, device="cpu", prompt=8, gen=8)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "deepseek-v2-236b", "hymba-1.5b",
+                                  "qwen2-0.5b", "falcon-mamba-7b",
+                                  "whisper-small"])
+def test_lm_decode_takes_no_host_sync(dev, arch):
+    """A serve step whose position is a device tensor never waits for the
+    card (CUDA's sync debug mode at "error"): the ring slot, the keep mask
+    and the MoE dispatch stay on the device."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_serve_step
+    cfg = get_config(arch).reduced()
+    p = T.init_lm(cfg, 0, device=dev)
+    cache = T.init_full_cache(cfg, 2, 8, torch.float32, device=dev)
+    enc = None
+    if cfg.encdec is not None:
+        enc = torch.zeros((2, cfg.encdec.encoder_frames, cfg.d_model),
+                          device=dev)
+    step = make_serve_step(cfg, torch.float32)
+    tok = torch.zeros((2, 1), dtype=torch.int64, device=dev)
+    pos = torch.arange(10, device=dev)
+    step(p, cache, tok, pos[0], enc)                    # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, 10):                          # hymba's ring wraps
+            lg, cache = step(p, cache, tok, pos[i], enc)
+            tok = torch.argmax(lg, dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(lg).all()

@@ -136,6 +136,41 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         assert proc.returncode != 0 and "device='cpu'" in err, proc.args
 
 
+def test_lm_entry_points_default_to_cuda_and_raise_without_it():
+    """The LM models, serve steps and ``serve_lm`` put what they make on
+    the card by default: without CUDA they raise, in-process and as
+    ``python -m repro_torch.serve_lm``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch import serve_lm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.interop import lm_cache_from_numpy, \
+        lm_params_from_numpy
+    from repro_torch.models import layers, transformer
+    from repro_torch.train.steps import make_init
+    cfg = get_config("falcon-mamba-7b").reduced()
+    calls = [
+        lambda: transformer.init_lm(cfg),
+        lambda: transformer.init_full_cache(cfg, 1, 4),
+        lambda: transformer.init_layer_cache(cfg, 1, 4, torch.float32),
+        lambda: transformer.LM(cfg),
+        lambda: make_init(cfg)(0),
+        lambda: layers.init_mamba_state(cfg, 1, torch.float32),
+        lambda: layers.causal_mask(4, 4),
+        lambda: lm_params_from_numpy({"w": np.zeros(2)}),
+        lambda: lm_cache_from_numpy({"k": np.zeros(2)}),
+        lambda: serve_lm.serve(cfg), lambda: serve_lm.main(),
+        lambda: serve_lm.cli([]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.serve_lm"],
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+
+
 def test_dist_entry_points_default_to_cuda_and_nccl(tmp_path):
     """The distributed layer's front doors default to the card and the
     NCCL backend: without CUDA they raise unless asked for the CPU and
