@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives fourteen
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives fifteen
 paths of the port, each with the launch counts set to 0 just before it
 and read just after, the observability layer and the torch
 quickstart.  The autotuner's cache is a fresh temporary file
@@ -179,7 +179,7 @@ taken on:
    ranks at m=6 on the one card, MIS, ``coarse_size=30``) and at world
    1 (NCCL), each taking the single-device card solve's iterations.  The
    children's launches, summed, are the ``doors`` column of the record;
-14. the LM phase (last) — the LM models and the serving path
+14. the LM phase — the LM models and the serving path
    (``repro_torch.models``, ``repro_torch.train.steps``), which launch no
    AMG kernel (the counts are set to 0 before it and must read 0 after:
    the record's ``lm`` column), all at f32 against ``LM_TOL`` (the
@@ -197,7 +197,30 @@ taken on:
    the cache, card against CPU (``lm reduced <arch> card vs cpu``); and
    ``python -m repro_torch.serve_lm`` as a ``--front-door`` child,
    whose greedy tokens must equal the same twin's on the CPU (``lm
-   serve_lm``).
+   serve_lm``);
+15. the train phase (last) — LM training (``repro_torch.train``:
+   data, AdamW, the train step and its backward pass, checkpoints,
+   restarts), again with no AMG kernel (the record's ``train`` column,
+   0): qwen2-0.5b at its full config (``train full``: one f32 step at
+   ``TRAIN_CHECK`` card against CPU, the loss and global norm within
+   1e-5 relative and each gradient leaf within 1e-4 of its largest;
+   ``TRAIN_BF16`` bf16 steps with ``examples/train_lm.py``'s optimizer,
+   whose loss must fall, with ms a step, tok/s and peak memory; one
+   profiled bf16 step; the step with the stacked layers indexed
+   against unbound, in turns) and falcon-mamba-7b at full width and
+   ``TRAIN_MAMBA_LAYERS`` layers (bf16 steps, every param moved; at
+   ``LM_MAMBA_CHECK_LAYERS`` layers one f32 step over 70 tokens card
+   against CPU, the scan's backward across chunks); every arch at
+   ``reduced()`` card against CPU (``train reduced <arch> card vs
+   cpu``); ``run_with_restarts`` at ``tests/test_fault_tolerance.py``'s
+   settings (``train restart``: 2 restarts from steps 3 and 6, losses
+   equal to the clean run at 1e-6, a corrupted newest checkpoint
+   skipped); and as ``--front-door`` children ``python -m
+   repro_torch.train_lm --steps 40`` (its loss falling), then ``--steps
+   60`` in the same directory (resumed from step 40; ``train
+   train_lm``), and ``python -m repro_torch.launch.train --arch
+   qwen2-0.5b --steps 5``, its first loss within 1e-5 of the same twin's
+   on the CPU (``train launch``).
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -4312,6 +4335,483 @@ def lm_phase() -> dict:
     return counts
 
 
+#: the train phase: the f32 card-vs-CPU tolerances (the loss and the
+#: global norm relative, each gradient leaf against its largest
+#: magnitude; a leaf under ``TRAIN_NOISE`` of the tree's largest
+#: gradient is zero in exact arithmetic, e.g. llama4's top-1 router, and
+#: is held below that on both devices); (a)'s batch and sequence; (b)'s
+#: batch, sequence and steps at bf16 with ``examples/train_lm.py``'s
+#: optimizer (``tests/test_arch_smoke.py``'s lr 3e-3 and warmup 5, made
+#: for the reduced model, make the full one's loss rise again within 20
+#: steps); falcon-mamba-7b's
+#: depth (params, gradients and both moments, 16 B a param, with the
+#: activations on one card: ~1.4e9 params) and its bf16 batch, sequence
+#: and steps; its card-vs-CPU sequence at ``LM_MAMBA_CHECK_LAYERS``
+#: layers (past the scan's chunk of 64); the restart run of
+#: ``tests/test_fault_tolerance.py`` (steps, save every, failures, batch,
+#: sequence); the twins' steps
+TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, leaf=1e-4)
+TRAIN_NOISE = 1e-6
+TRAIN_CHECK = (2, 32)
+TRAIN_BF16 = (4, 256, 20)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=50)
+TRAIN_MAMBA_LAYERS = 8
+TRAIN_MAMBA_BF16 = (2, 256, 4)
+TRAIN_MAMBA_CHECK_SEQ = LM_MAMBA_TOKENS
+TRAIN_RESTART = dict(total=10, save_every=3, fail_at=(4, 8), batch=2,
+                     seq_len=17)
+TRAIN_RESTART_RTOL = 1e-6
+TRAIN_LM_STEPS = (40, 60)
+TRAIN_LAUNCH_STEPS = 5
+TRAIN_DOORS = ("train_lm", "launch.train")
+
+
+def _batch(cfg, batch: int, seq: int, step: int = 0) -> dict:
+    """``SyntheticTokens.batch_at(step)`` (numpy) for ``cfg``: ``seq``
+    tokens and labels a row (``enc_feats`` for an enc-dec)."""
+    from repro_torch.train.data import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=batch, seq_len=seq + 1,
+        enc_frames=cfg.encdec.encoder_frames if cfg.encdec else 0,
+        d_model=cfg.d_model)).batch_at(step)
+
+
+def _falls(losses) -> bool:
+    """The reference's criterion (``tests/test_arch_smoke.py:155``): every
+    loss finite and the mean of the last 4 below the mean of the first 4."""
+    import numpy as np
+    losses = np.asarray(losses, dtype=np.float64)
+    return bool(np.isfinite(losses).all()
+                and losses[-4:].mean() < losses[:4].mean())
+
+
+def train_check(cfg, cpu_params, batch: int, seq: int,
+                device="cuda") -> dict:
+    """One f32 train step of ``cfg`` on the card against the CPU from the
+    same params (drawn on the CPU): the loss and the global gradient norm
+    relative, each gradient leaf against that leaf's largest magnitude,
+    within ``TRAIN_TOL``; the card's ``make_train_step`` gives the same
+    loss and norm, its step ms beside."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig, global_norm, \
+        init_opt_state
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+    b = _batch(cfg, batch, seq)
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads(
+        cpu_params, {k: torch.as_tensor(v) for k, v in b.items()}, cfg,
+        torch.float32)
+    want_norm = global_norm(want)
+    cpu_s = time.perf_counter() - t0
+    params = _lm_to(cpu_params, device)
+    db = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+    loss, grads = loss_and_grads(params, db, cfg, torch.float32)
+    norm = global_norm(grads)
+    top = max(float(w.abs().max()) for w in T.tree_leaves(want))
+    leaf, noise = 0.0, {}
+    for (path, g), w in zip(T.tree_leaves_with_path(grads),
+                            T.tree_leaves(want)):
+        g, scale = g.cpu(), float(w.abs().max())
+        if scale < TRAIN_NOISE * top:
+            noise["/".join(path)] = max(scale, float(g.abs().max())) / top
+        else:
+            leaf = max(leaf, float((g - w).abs().max()) / scale)
+    del grads, want
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), torch.float32,
+                           device=device)
+    opt = init_opt_state(params)
+    _, _, m = step(params, opt, db)
+    step_ms = time_ms(lambda: step(params, opt, db), reps=3, warmup=0)
+    res = dict(loss=float(loss), loss_rel=_rel(loss, want_loss),
+               grad_norm=float(norm), grad_norm_rel=_rel(norm, want_norm),
+               leaf_max_rel=leaf, noise_leaves=noise,
+               step_loss_rel=_rel(m["loss"], want_loss),
+               step_grad_norm_rel=_rel(m["grad_norm"], want_norm),
+               cpu_s=cpu_s, f32_step_ms=step_ms)
+    bad = {k: res[k] for k in ("loss_rel", "step_loss_rel")
+           if not res[k] <= TRAIN_TOL["loss"]}
+    bad.update({k: res[k] for k in ("grad_norm_rel", "step_grad_norm_rel")
+                if not res[k] <= TRAIN_TOL["grad_norm"]})
+    if not leaf <= TRAIN_TOL["leaf"]:
+        bad["leaf_max_rel"] = leaf
+    if not all(v < TRAIN_NOISE for v in noise.values()):
+        bad["noise_leaves"] = noise
+    if bad:
+        raise AssertionError(f"train {cfg.name}: card against CPU past "
+                             f"{TRAIN_TOL}: {bad}")
+    return res
+
+
+def _train_steps(cfg, params, batch: int, seq: int, steps: int, opt_cfg,
+                 device="cuda") -> dict:
+    """``steps`` bf16 train steps on ``SyntheticTokens``: every loss, ms a
+    step over the steps after the first (host clock, synchronized), tok/s
+    over them and ``max_memory_allocated``; returns the last params too."""
+    import torch
+
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import make_train_step
+    step = make_train_step(cfg, opt_cfg, torch.bfloat16, device=device)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, opt, m = step(params, opt, _batch(cfg, batch, seq, i))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(losses=torch.stack(losses).tolist(),
+                step_ms=dt * 1e3 / (steps - 1),
+                tok_per_s=(steps - 1) * batch * seq / dt,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                params=params)
+
+
+def _train_step_profile(cfg, params, batch: int, seq: int,
+                        device="cuda") -> dict:
+    """One bf16 train step (the batch on the card) under
+    ``torch.profiler`` (``_profiled``): wall ms, device busy ms (the sum
+    of its kernels' device time), the idle share, kernel launches and the
+    top kernels by device ms; then the aten ops it dispatches and the
+    bytes it copies to the card (``_lm_step_ops``)."""
+    import collections
+
+    import torch
+
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), torch.bfloat16,
+                           device=device)
+    opt = init_opt_state(params)
+    b = {k: torch.as_tensor(v, device=device)
+         for k, v in _batch(cfg, batch, seq).items()}
+    step(params, opt, b)
+
+    def timed():
+        t0 = time.perf_counter()
+        step(params, opt, b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall, kernels, _ = _profiled(timed)
+    busy = sum(e.device_time for e in kernels) / 1e3
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:60]] += e.device_time / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=1.0 - busy / wall, kernels=len(kernels),
+                top=[(k, round(v, 3)) for k, v in by_name.most_common(6)],
+                **_lm_step_ops(step, params, opt, b))
+
+
+def _stack_backward_ms(cfg, params, batch: int, seq: int,
+                       device="cuda") -> dict:
+    """One bf16 train step with each layer's params taken by one
+    ``unbind`` a stacked leaf (``transformer._unstack``, kept) and by
+    indexing the stack a layer at a time (each ``a[i]``'s backward a
+    zero tensor the size of the stack), in turns (indexed, unbind,
+    unbind, indexed): ms a step (CUDA events, median of 3) and peak
+    memory of each."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), torch.bfloat16,
+                           device=device)
+    opt = init_opt_state(params)
+    b = {k: torch.as_tensor(v, device=device)
+         for k, v in _batch(cfg, batch, seq).items()}
+    kept = T._unstack
+
+    def indexed(tree, n):
+        return [T._layer(tree, i) for i in range(n)]
+
+    out = {"indexed": [], "unbind": []}
+    peak = {}
+    try:
+        for name in ("indexed", "unbind", "unbind", "indexed"):
+            T._unstack = indexed if name == "indexed" else kept
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out[name].append(time_ms(lambda: step(params, opt, b), reps=3,
+                                     warmup=1))
+            peak[name] = torch.cuda.max_memory_allocated()
+    finally:
+        T._unstack = kept
+    return {name: dict(step_ms=min(v), max_memory_allocated=peak[name])
+            for name, v in out.items()}
+
+
+def train_full_qwen2(device="cuda") -> dict:
+    """qwen2-0.5b at its full config, params drawn on the CPU from the
+    seed and copied: (a) one f32 step card against CPU at
+    ``TRAIN_CHECK``; (b) ``TRAIN_BF16`` bf16 steps with
+    ``examples/train_lm.py``'s optimizer, whose loss must fall; one
+    bf16 step profiled; the stacked-leaf backward both ways."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    cpu = T.init_lm(cfg, LM_SEED, device="cpu")
+    init_s = time.perf_counter() - t0
+    n_params = T.count_params(cpu)
+    check = train_check(cfg, cpu, *TRAIN_CHECK, device=device)
+    b, s, n = TRAIN_BF16
+    run = _train_steps(cfg, _lm_to(cpu, device), b, s, n,
+                       AdamWConfig(**TRAIN_OPT), device)
+    del cpu
+    if not _falls(run["losses"]):
+        raise AssertionError(f"train qwen2-0.5b: the bf16 loss does not "
+                             f"fall: {run['losses']}")
+    params = run.pop("params")
+    prof = _train_step_profile(cfg, params, b, s, device)
+    stack = _stack_backward_ms(cfg, params, b, s, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card_line(), arch=cfg.name, layers=cfg.n_layers,
+                d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+                init_cpu_s=init_s, f32_check=dict(
+                    batch=f"{TRAIN_CHECK[0]}x{TRAIN_CHECK[1]}", **check),
+                bf16=dict(batch=f"{b}x{s}", steps=n,
+                          settings="examples/train_lm.py (lr 3e-4, "
+                                   "warmup 50)", **run),
+                profiled_bf16_step=prof, stacked_leaf_backward=stack)
+
+
+def train_full_mamba(layers: int = TRAIN_MAMBA_LAYERS,
+                     device="cuda") -> dict:
+    """falcon-mamba-7b at full width and ``layers`` layers (drawn on the
+    card): ``TRAIN_MAMBA_BF16`` bf16 steps (every loss finite, every
+    param moved); then at ``LM_MAMBA_CHECK_LAYERS`` layers one f32 step
+    card against CPU over ``TRAIN_MAMBA_CHECK_SEQ`` tokens a row (the
+    backward of the Hillis–Steele scan across chunks)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    params = T.init_lm(cfg, LM_SEED, device=device)
+    n_params = T.count_params(params)
+    b, s, n = TRAIN_MAMBA_BF16
+    run = _train_steps(cfg, params, b, s, n, AdamWConfig(**TRAIN_OPT),
+                       device)
+    moved = [not torch.equal(a, c) for a, c in zip(
+        T.tree_leaves(params), T.tree_leaves(run.pop("params")))]
+    del params
+    if not (np.isfinite(run["losses"]).all() and all(moved)):
+        raise AssertionError(f"train falcon-mamba-7b: losses "
+                             f"{run['losses']}, leaves moved {moved}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(full, n_layers=LM_MAMBA_CHECK_LAYERS)
+    cpu = T.init_lm(small, LM_SEED, device="cpu")
+    check = train_check(small, cpu, 2, TRAIN_MAMBA_CHECK_SEQ, device)
+    del cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card_line(), arch=full.name, layers=layers,
+                of_layers=full.n_layers, d_model=cfg.d_model,
+                d_inner=cfg.ssm.expand * cfg.d_model, d_state=cfg.ssm.d_state,
+                vocab=cfg.vocab_size, params=n_params,
+                bf16=dict(batch=f"{b}x{s}", steps=n, **run),
+                f32_check=dict(layers=LM_MAMBA_CHECK_LAYERS,
+                               batch=f"2x{TRAIN_MAMBA_CHECK_SEQ}", **check))
+
+
+def train_reduced(arch: str, device="cuda") -> dict:
+    """``arch`` at ``reduced()``: one f32 train step card against CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    cpu = T.init_lm(cfg, LM_SEED, device="cpu")
+    res = train_check(cfg, cpu, *TRAIN_CHECK, device=device)
+    return dict(params=T.count_params(cpu), **{
+        k: res[k] for k in ("loss", "loss_rel", "grad_norm_rel",
+                            "leaf_max_rel", "noise_leaves",
+                            "step_loss_rel")})
+
+
+def train_restart(device="cuda") -> dict:
+    """``run_with_restarts`` on the card at ``tests/test_fault_tolerance
+    .py``'s settings (qwen2 ``reduced()``, f32, ``TRAIN_RESTART``): 2
+    restarts, resumed from ``[3, 6]``, losses equal to the uninterrupted
+    run at ``TRAIN_RESTART_RTOL``; then the newest checkpoint corrupted:
+    ``restore_latest`` must return the one before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig, SyntheticTokens
+    from repro_torch.train.fault import run_with_restarts
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config("qwen2-0.5b").reduced()
+    r = TRAIN_RESTART
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      global_batch=r["batch"],
+                                      seq_len=r["seq_len"]))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), torch.float32,
+                           device=device)
+    cpu = T.init_lm(cfg, LM_SEED, device="cpu")
+
+    def init_state():
+        params = _lm_to(cpu, device)
+        return {"params": params, "opt": init_opt_state(params),
+                "loss": torch.zeros((), device=device)}
+
+    def step_fn(state, i):
+        p, o, m = step(state["params"], state["opt"], data.batch_at(i))
+        return {"params": p, "opt": o, "loss": m["loss"]}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        runs = {}
+        t0 = time.perf_counter()
+        for name, fail_at in (("clean", ()), ("faulty", r["fail_at"])):
+            ckpt = CheckpointManager(os.path.join(tmp, name), keep=2)
+            runs[name] = run_with_restarts(
+                init_state, step_fn, lambda s: float(s["loss"]), ckpt,
+                r["total"], save_every=r["save_every"], fail_at=fail_at)
+        seconds = time.perf_counter() - t0
+        clean, faulty = runs["clean"], runs["faulty"]
+        gap = float(np.max(np.abs(np.subtract(clean.losses, faulty.losses))
+                           / np.abs(clean.losses)))
+        if faulty.restarts != 2 or faulty.resumed_from != [3, 6] \
+                or not gap <= TRAIN_RESTART_RTOL:
+            raise AssertionError(f"train restart: {faulty}, clean "
+                                 f"{clean.losses}, gap {gap}")
+        steps = ckpt.available_steps()
+        npz, _ = ckpt._paths(steps[-1])
+        with open(npz, "r+b") as f:      # as the reference's test does
+            f.seek(200)
+            f.write(b"\xde\xad\xbe\xef" * 8)
+        restored = ckpt.restore_latest(init_state())
+        if restored is None or restored[0] != steps[-2]:
+            raise AssertionError(f"train restart: the corrupt checkpoint "
+                                 f"{steps[-1]} not skipped: "
+                                 f"{restored and restored[0]}")
+        on_card = restored[1]["params"]["embed"].device.type == "cuda"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(restarts=faulty.restarts, resumed_from=faulty.resumed_from,
+                losses=clean.losses, max_rel_gap=gap, seconds=seconds,
+                corrupt_skipped=f"{steps[-1]} -> {restored[0]}",
+                restored_on_card=on_card)
+
+
+def _door_cmd(name: str, argv: list) -> list:
+    return [sys.executable, str(ROOT / "chip_smoke.py"), DOOR_FLAG, name,
+            *argv]
+
+
+def train_phase() -> dict:
+    """LM training on the card (no AMG kernel on it): qwen2-0.5b at its
+    full config and falcon-mamba-7b at full width and
+    ``TRAIN_MAMBA_LAYERS`` layers, every arch at ``reduced()`` card
+    against CPU, the restart run, and ``python -m repro_torch.train_lm``
+    (``TRAIN_LM_STEPS[0]`` steps, then resumed to ``[1]`` in the same
+    directory) and ``python -m repro_torch.launch.train`` as
+    ``--front-door`` children, the latter's first loss against the same
+    twin on the CPU.  The launch counts are set to 0 before it and read
+    after: every one must still be 0.  Returns them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch import train as launch_train
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    print("train full " + json.dumps(train_full_qwen2()))
+    print("train full " + json.dumps(train_full_mamba()))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    lm_argv = ["--ckpt-dir", tmp]
+    launch_argv = ["--arch", "qwen2-0.5b", "--steps",
+                   str(TRAIN_LAUNCH_STEPS)]
+    try:
+        cmds = {"train_lm": _door_cmd("train_lm", ["--steps", str(
+                    TRAIN_LM_STEPS[0])] + lm_argv),
+                "launch.train": _door_cmd("launch.train", launch_argv)}
+        with Children(cmds) as kids:
+            for arch in ARCH_IDS:
+                print(f"train reduced {arch} card vs cpu "
+                      + json.dumps(train_reduced(arch)))
+            print("train restart " + json.dumps(train_restart()))
+            with contextlib.redirect_stdout(open(os.devnull, "w")):
+                cpu = launch_train.main(launch_argv + ["--device", "cpu"])
+            done, secs = kids.wait(DOORS_TIMEOUT_S)
+        first, launches = _door_run("train_lm", done["train_lm"])
+        lres, llaunch = _door_run("launch.train", done["launch.train"])
+        cmd = {"train_lm": _door_cmd("train_lm", ["--steps", str(
+            TRAIN_LM_STEPS[1])] + lm_argv)}
+        with Children(cmd) as kids:
+            done2, secs2 = kids.wait(DOORS_TIMEOUT_S)
+        second, launches2 = _door_run("train_lm", done2["train_lm"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = f"resumed from step {TRAIN_LM_STEPS[0]}" in \
+        done2["train_lm"].stdout.splitlines()
+    bad = {}
+    if first["device"] == "cpu" or not _falls(first["losses"]):
+        bad["first"] = (first["device"], first["losses"])
+    if not resumed or second["start"] != TRAIN_LM_STEPS[0] \
+            or len(second["losses"]) != TRAIN_LM_STEPS[1] - TRAIN_LM_STEPS[0]:
+        bad["second"] = (second["start"], len(second["losses"]))
+    if any(launches.values()) or any(launches2.values()):
+        bad["launches"] = (launches, launches2)
+    if bad:
+        raise AssertionError(f"train train_lm: {bad}")
+    print("train train_lm " + json.dumps(dict(
+        device=first["device"], model=first["model"],
+        params=first["params"], steps=TRAIN_LM_STEPS,
+        loss_first_last=[first["losses"][0], first["losses"][-1],
+                         second["losses"][-1]],
+        resumed_from=second["start"], tok_per_s=[first["tok_per_s"],
+                                                 second["tok_per_s"]],
+        tok_per_s_after_first=[first["tok_per_s_after_first"],
+                               second["tok_per_s_after_first"]],
+        loop_s=[first["seconds"], second["seconds"]],
+        first_step_s=[first["first_step_s"], second["first_step_s"]],
+        child_s=[secs["train_lm"], secs2["train_lm"]],
+        launches=launches)))
+    gap = _rel(torch.tensor(lres["losses"][0]),
+               torch.tensor(cpu["losses"][0]))
+    if lres["device"] == "cpu" or not gap <= TRAIN_TOL["loss"] \
+            or not np.isfinite(lres["losses"]).all() \
+            or any(llaunch.values()):
+        raise AssertionError(f"train launch: {lres}, cpu {cpu['losses']}, "
+                             f"gap {gap}, {llaunch}")
+    print("train launch " + json.dumps(dict(
+        device=lres["device"], devices=lres["devices"],
+        losses=lres["losses"], cpu_losses=cpu["losses"],
+        first_loss_rel=gap, step_ms=lres["step_ms"],
+        child_s=secs["launch.train"], launches=llaunch)))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train phase launched AMG kernels: {counts}")
+    print("train phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, allocated_before=held,
+        launches=counts)))
+    return counts
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4514,6 +5014,9 @@ def run_all() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["lm"] = lm_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["train"] = train_phase()
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks,
                                    precision, (s_launches, s_step, s_per))))

@@ -3,9 +3,10 @@
 Lets a caller run the port's hot path (``recompute``, ``vcycle``, ``pcg``)
 on exactly another implementation's operators, prolongators and
 hierarchies — handed over as numpy arrays — so hot-path parity can be
-checked apart from cold-setup parity; likewise an LM's param tree and
-decode cache.  Structures are taken as given;
-every plan is rebuilt by the port's own symbolic phases (host numpy).
+checked apart from cold-setup parity; likewise an LM's param tree, its
+decode cache and a training state (params and optimizer moments).
+Structures are taken as given; every plan is rebuilt by the port's own
+symbolic phases (host numpy).
 Payloads keep their own dtype (f64, f32, or bf16 as ``ml_dtypes``'
 ``bfloat16``, carried bitwise through its 16-bit pattern), so a
 reduced-precision hierarchy crosses as it is.  Imports nothing but numpy,
@@ -179,3 +180,12 @@ def lm_cache_from_numpy(tree, device="cuda") -> dict:
     crosses bitwise)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _t(a, dev), tree)
+
+
+def train_state_from_numpy(state, device="cuda") -> dict:
+    """A training state from the reference's ``{"params", "opt": {"mu",
+    "nu", "step"}}`` (and any other leaves, e.g. a ``"loss"``) as nested
+    dicts of numpy arrays: the same keys, every leaf at its own dtype (fp32
+    params and moments, the 0-d int32 step) on ``device``, as
+    ``lm_cache_from_numpy`` carries a cache."""
+    return lm_cache_from_numpy(state, device)

@@ -33,8 +33,51 @@ def tree_map(fn: Callable, tree):
             for k, v in tree.items()}
 
 
+def tree_leaves_with_path(tree, prefix: Tuple[str, ...] = ()) -> list:
+    """``[(path, leaf)]`` of a nested dict in jax's flattening order (the
+    keys sorted at every level): the order the reference's optimizer sums
+    and pairs leaves in, and its checkpoint keys (``"/".join(path)``)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += tree_leaves_with_path(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in jax's order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` (in jax's order)."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(t[k]) if isinstance(t[k], dict) else next(it)
+                for k in sorted(t)}
+
+    return build(like)
+
+
 def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, one ``torch.unbind`` a
+    leaf.  The same views as ``_layer(tree, i)``; under autograd the
+    backward of one ``unbind`` is a single stack, where each ``a[i]``
+    would scatter into a zero tensor the size of the whole stack."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
 
 
 def _stack(make: Callable[[], Params], n: int) -> Params:
@@ -239,8 +282,7 @@ def forward_train(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
         def body(h, bp):
             return block_apply(bp, h, cfg, cdt)
     remat = remat and torch.is_grad_enabled()
-    for i in range(_n_units(cfg)):
-        bp = _layer(p["blocks"], i)
+    for bp in _unstack(p["blocks"], _n_units(cfg)):
         x = checkpoint(body, x, bp, use_reentrant=False) if remat \
             else body(x, bp)
     x = L.rms_norm(x, p["ln_f"], cfg.norm_eps)
@@ -322,8 +364,7 @@ def encoder_apply(p: Params, feats: torch.Tensor, cfg: ModelConfig, cdt
     frontend)."""
     x = feats.to(cdt) + p["pos_embed"].to(cdt)[None]
     B, S, _ = x.shape
-    for i in range(cfg.encdec.n_encoder_layers):
-        bp = _layer(p["blocks"], i)
+    for bp in _unstack(p["blocks"], cfg.encdec.n_encoder_layers):
         a = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         # bidirectional attention: no mask
         q, k, v = L._qkv(bp["attn"], a, cfg, cdt)

@@ -1605,3 +1605,53 @@ def test_lm_decode_takes_no_host_sync(dev, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(lg).all()
+
+
+# ---------------------------------------------------------------------------
+# LM training (no AMG kernel on its path)
+# ---------------------------------------------------------------------------
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One f32 train step of qwen2 ``reduced()`` (params drawn on the CPU,
+    copied) on the card against the CPU: the loss and ``grad_norm`` within
+    1e-5 relative, each gradient leaf within 1e-4 of its largest magnitude;
+    with the batch on the card the step never waits for it (CUDA's sync
+    debug mode at "error"); no AMG kernel launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.data import DataConfig, SyntheticTokens
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+    mods = (seg_ops, spmv_ops, smooth_ops, gemm_ops, spmm_ops, pair_ops,
+            pbj_ops)
+    before = [m.launches for m in mods]
+    cfg = get_config("qwen2-0.5b").reduced()
+    batch = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                       global_batch=2, seq_len=33)).batch_at(0)
+    cpu = T.init_lm(cfg, 0, device="cpu")
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        p = T.tree_map(lambda a: a.to(d), cpu)
+        b = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+        loss, grads = loss_and_grads(p, b, cfg, torch.float32)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), torch.float32,
+                               device=d)
+        opt = init_opt_state(p)
+        step(p, opt, b)                                 # warm up
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, opt2, met = step(p, opt, b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs[d.type] = (loss, grads, met)
+        assert int(opt2["step"]) == 1
+    (loss, grads, met), (wloss, wgrads, wmet) = runs["cuda"], runs["cpu"]
+    for got, want in ((loss, wloss), (met["loss"], wmet["loss"]),
+                      (met["grad_norm"], wmet["grad_norm"])):
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    for g, w in zip(T.tree_leaves(grads), T.tree_leaves(wgrads)):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    assert [m.launches for m in mods] == before

@@ -137,17 +137,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it():
-    """The LM models, serve steps and ``serve_lm`` put what they make on
-    the card by default: without CUDA they raise, in-process and as
-    ``python -m repro_torch.serve_lm``."""
+    """The LM models, the serve and train steps, ``serve_lm`` and the
+    training twins put what they make on the card by default: without CUDA
+    they raise, in-process and as ``python -m repro_torch.serve_lm``,
+    ``.train_lm`` and ``.launch.train``."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     from repro_torch import serve_lm
     from repro_torch.configs.registry import get_config
     from repro_torch.interop import lm_cache_from_numpy, \
-        lm_params_from_numpy
+        lm_params_from_numpy, train_state_from_numpy
+    from repro_torch import train_lm
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import layers, transformer
-    from repro_torch.train.steps import make_init
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.steps import make_init, make_train_step
     cfg = get_config("falcon-mamba-7b").reduced()
     calls = [
         lambda: transformer.init_lm(cfg),
@@ -159,16 +163,23 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it():
         lambda: layers.causal_mask(4, 4),
         lambda: lm_params_from_numpy({"w": np.zeros(2)}),
         lambda: lm_cache_from_numpy({"k": np.zeros(2)}),
+        lambda: train_state_from_numpy({"opt": {"step": np.zeros(())}}),
         lambda: serve_lm.serve(cfg), lambda: serve_lm.main(),
         lambda: serve_lm.cli([]),
+        lambda: make_train_step(cfg, AdamWConfig()),
+        lambda: train_lm.main([]), lambda: train_lm.cli([]),
+        lambda: launch_train.main(["--arch", "qwen2-0.5b"]),
+        lambda: launch_train.cli(["--arch", "qwen2-0.5b"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.serve_lm"],
-                         capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    for cmd in (["repro_torch.serve_lm"], ["repro_torch.train_lm"],
+                ["repro_torch.launch.train", "--arch", "qwen2-0.5b"]):
+        out = subprocess.run(
+            [sys.executable, "-m"] + cmd, capture_output=True, text=True,
+            timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        assert out.returncode != 0 and "device='cpu'" in out.stderr, cmd
 
 
 def test_dist_entry_points_default_to_cuda_and_nccl(tmp_path):
