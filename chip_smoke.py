@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the seven hand-written CUDA kernels from ``src/repro_torch/
-kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives fifteen
+kernels/csrc`` (each at f64, f32 and bf16 payloads) and drives sixteen
 paths of the port, each with the launch counts set to 0 just before it
 and read just after, the observability layer and the torch
 quickstart.  The autotuner's cache is a fresh temporary file
@@ -220,7 +220,28 @@ taken on:
    60`` in the same directory (resumed from step 40; ``train
    train_lm``), and ``python -m repro_torch.launch.train --arch
    qwen2-0.5b --steps 5``, its first loss within 1e-5 of the same twin's
-   on the CPU (``train launch``).
+   on the CPU (``train launch``);
+16. the launch phase (last) — the launch layer (``repro_torch.launch``)
+   as ``--front-door`` children: ``python -m repro_torch.launch.dryrun``
+   for qwen2-0.5b and falcon-mamba-7b at their full configs over every
+   shape on the ``single`` (256 devices), ``multi`` (512) and ``card``
+   meshes, every row measured in this run (``--force``; falcon-mamba's
+   ``train_4k`` and ``prefill_32k``, millions of aten ops traced whole,
+   are traced at depths 1 and 2 and extrapolated), ``--probe`` for qwen2
+   (each full row's FLOPs equal to its probe-corrected count within
+   1e-9), ``--amg`` at m=21 (``LAUNCH_AMG_M``: the 256- and 512-rank
+   stagings and the card row, the dist hot path at NCCL world 1, whose
+   iterations must equal the single-device solve's, within 1e-10, and
+   whose solution's true residual by the plain CPU product must be within
+   the solve's tolerance; every launch of the child held against the
+   kernel's plain version on its own inputs, ``KernelCheck``, one
+   ``launch kernel check`` line a kernel) and ``python -m
+   repro_torch.launch.roofline`` on the H100's constants.
+   Every card row either ran (median ms and measured peak beside the
+   trace's estimate) or is a SKIP with ``cell_applicable``'s reason or
+   "exceeds one card"; no row may FAIL.  One ``launch`` line a row; the
+   LM dry runs and the roofline launch no AMG kernel, the AMG rows'
+   launches are the record's ``launch`` column.
 
 The observability phase (after the stored path) profiles one hot step
 through closures built under ``use("spans")``: every expected span
@@ -3818,22 +3839,171 @@ def _failed(label: str, out) -> AssertionError:
                           f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
 
 
+#: each kernel's counted wrappers (the functions of its ``ops`` module
+#: that launch it) with their plain versions (its ``ref`` module)
+WRAPPERS = {
+    "block_seg_sum": (("block_seg_sum", "block_seg_sum_ref"),),
+    "block_spmv": (("block_spmv_ell", "block_spmv_ell_ref"),),
+    "fused_smoother": (("smoother_step_ell", "smoother_step_ref"),
+                       ("smoother_step_scalar_ell",
+                        "smoother_step_scalar_ref")),
+    "fused_pair_gemm": (("fused_pair_gemm", "fused_pair_gemm_ref"),),
+    "block_spmm": (("block_spmm_ell", "block_spmm_ell_ref"),),
+    "block_pair_gemm": (("block_pair_gemm", "block_pair_gemm_ref"),),
+    "pbjacobi": (("pbjacobi_update", "pbjacobi_update_ref"),),
+}
+#: the pair GEMMs' plain versions run in slices of this many pairs (tile
+#: slots for ``fused_pair_gemm``), each independent of the others: at
+#: m=21 one call's pair products are GBs, the plain version's gathers as
+#: many again
+CHECK_CHUNK = 1 << 20
+#: ``--front-door NAME --check-kernels ...``: the child holds its launches
+#: against the plain versions (``KernelCheck``)
+KERNEL_CHECK_FLAG = "--check-kernels"
+
+
+def _sig(value):
+    """What a call's signature keeps of an argument: a tensor's shape and
+    dtype, any other value as it is."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        return tuple(value.shape), value.dtype
+    return value
+
+
+class KernelCheck:
+    """Every kernel launch of a scope held against the kernel's plain
+    version on the launch's own inputs.  Each wrapper of ``WRAPPERS`` is
+    replaced for the scope; the first call on the card of each signature
+    (wrapper, argument shapes, dtypes and other values) runs the plain
+    version on the same card tensors as soon as the kernel has returned
+    (before the caller can touch them; the pair GEMMs in ``CHECK_CHUNK``
+    slices), the largest error within its dtype's tolerance of the largest
+    term.  ``through`` counts the launches made inside the replaced
+    wrappers: equal to the launch counts, every launch of the scope had a
+    checked signature.  The plain versions launch no kernel."""
+
+    def __init__(self):
+        self.rows, self.seen = {}, set()
+        self.through = dict.fromkeys(KERNELS, 0)
+        self._saved = []
+
+    def __enter__(self) -> "KernelCheck":
+        import importlib
+        for kernel, mod in _ops().items():
+            ref = importlib.import_module(
+                f"repro_torch.kernels.{kernel}.ref")
+            for wname, rname in WRAPPERS[kernel]:
+                orig = getattr(mod, wname)
+                self._saved.append((mod, wname, orig))
+                setattr(mod, wname, self._shim(kernel, mod, wname, orig,
+                                               getattr(ref, rname)))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, wname, orig in self._saved:
+            setattr(mod, wname, orig)
+
+    def _shim(self, kernel, mod, wname, orig, ref):
+        import torch
+
+        def shim(*args, **kwargs):
+            if not (isinstance(args[0], torch.Tensor)
+                    and args[0].device.type == "cuda"):
+                return orig(*args, **kwargs)
+            sig = (wname, tuple(map(_sig, args)),
+                   tuple((k, _sig(v)) for k, v in sorted(kwargs.items())))
+            before = mod.launches
+            out = orig(*args, **kwargs)
+            self.through[kernel] += mod.launches - before
+            if sig not in self.seen:
+                self.seen.add(sig)
+                self._compare(kernel, orig, ref, args, kwargs, out)
+            return out
+        return shim
+
+    def _compare(self, kernel, orig, ref, args, kwargs, out) -> None:
+        import inspect
+
+        import torch
+        a = inspect.signature(orig).bind(*args, **kwargs).arguments
+        a.pop("threads", None)
+        if kernel in ("block_pair_gemm", "fused_pair_gemm"):
+            sliced = (("lhs", "rhs") if kernel == "block_pair_gemm"
+                      else ("tile_a", "tile_b", "tile_mask"))
+            n = a[sliced[0]].shape[0]
+            # a tile row gathers its pair_kmax slots
+            step = CHECK_CHUNK // (a["tile_a"].shape[1] or 1) \
+                if kernel == "fused_pair_gemm" else CHECK_CHUNK
+            step = max(step, 1)
+            parts = [(out[i:i + step], dict(a, **{
+                k: a[k][i:i + step] for k in sliced}))
+                for i in range(0, n, step)]
+        else:
+            parts = [(out, a)]
+        err = scale = 0.0
+        for got, kw in parts:
+            want = ref(**kw)
+            if isinstance(got, tuple):
+                got, want = torch.cat([g.reshape(-1) for g in got]), \
+                    torch.cat([w.reshape(-1) for w in want])
+            if got.numel():
+                err = max(err, float((got - want).abs().max()))
+                scale = max(scale, float(want.abs().max()))
+        dt = out[0].dtype if isinstance(out, tuple) else out.dtype
+        tol = {torch.float32: PRECISIONS["f32"],
+               torch.bfloat16: PRECISIONS["bf16"]}.get(dt, REL_TOL)
+        rel = err / scale if scale else err
+        row = self.rows.setdefault(kernel, dict(
+            kernel=kernel, signatures=0, max_abs_err=0.0, max_rel_err=0.0,
+            failed=[]))
+        row["signatures"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+        if not rel <= tol:
+            row["failed"].append(dict(args=repr(
+                [_sig(v) for v in a.values()]), rel=rel, tol=tol))
+
+    def report(self, counts: dict) -> list:
+        """One row a kernel that launched, with its launches; raises if a
+        launch went round the wrappers or a signature disagreed."""
+        bad = {k: (self.through[k], n) for k, n in counts.items()
+               if self.through[k] != n}
+        bad.update({k: r["failed"] for k, r in self.rows.items()
+                    if r["failed"]})
+        if bad:
+            raise AssertionError(f"kernel check: {bad}")
+        return [dict(self.rows[k], launches=n) for k, n in counts.items()
+                if n]
+
+
 def front_door_child(name: str, argv: list) -> int:
-    """``chip_smoke.py --front-door NAME [ARGS]``: the twin's command line
-    (``python -m repro_torch.NAME ARGS``, its ``cli``) with the launch
-    counts set to 0 just before it; prints its JSON line, then the
-    launches."""
+    """``chip_smoke.py --front-door NAME [--check-kernels] [ARGS]``: the
+    twin's command line (``python -m repro_torch.NAME ARGS``, its ``cli``)
+    with the launch counts set to 0 just before it; prints its JSON line,
+    then the launches.  With ``--check-kernels`` the launches are held
+    against the plain versions (``KernelCheck``): one ``door kernel
+    check`` line a kernel that launched, before the launches."""
     import importlib
+    check = KERNEL_CHECK_FLAG in argv
+    argv = [a for a in argv if a != KERNEL_CHECK_FLAG]
     mod = importlib.import_module(f"repro_torch.{name}")
-    reset_counts()
-    rc = mod.cli(list(argv))
-    print("door launches " + json.dumps(read_counts()))
+    with KernelCheck() if check else contextlib.nullcontext() as chk:
+        reset_counts()
+        rc = mod.cli(list(argv))
+    counts = read_counts()
+    if chk is not None:
+        for row in chk.report(counts):
+            print("door kernel check " + json.dumps(row))
+    print("door launches " + json.dumps(counts))
     return rc
 
 
 def _door_run(label: str, out) -> tuple:
-    """A ``--front-door`` child's JSON line and launches."""
-    lines = out.stdout.splitlines()
+    """A ``--front-door`` child's JSON line and launches (its ``door
+    kernel check`` lines aside)."""
+    lines = [ln for ln in out.stdout.splitlines()
+             if not ln.startswith("door kernel check ")]
     if out.returncode or len(lines) < 2 \
             or not lines[-1].startswith("door launches "):
         raise _failed(label, out)
@@ -4812,11 +4982,196 @@ def train_phase() -> dict:
         launches=counts)))
     return counts
 
+#: the launch phase: ``python -m repro_torch.launch.dryrun`` for the two
+#: archs the LM phases run, every shape on every mesh, qwen2's depth
+#: probes, the roofline and the AMG rows
+LAUNCH_ARCHS = ("qwen2-0.5b", "falcon-mamba-7b")
+LAUNCH_MESHES = ("single", "multi", "card")
+LAUNCH_TIMEOUT_S = 600
+#: the AMG rows' grid (``run_amg_dryrun``'s default, the reference's)
+LAUNCH_AMG_M = 21
+#: what the AMG card row (the dist hot path at world 1) must launch
+LAUNCH_KERNELS = ("block_spmv", "fused_smoother", "block_pair_gemm",
+                  "block_seg_sum")
+PROBE_REL = 1e-9
+
+
+def _launch_results() -> dict:
+    from repro_torch.launch import dryrun
+    with open(dryrun.RESULTS_PATH) as f:
+        return json.load(f)
+
+
+def _launch_child(label: str, argv: list, name: str = "launch.dryrun"
+                  ) -> tuple:
+    """One launch CLI as a ``--front-door`` child: its JSON line, its
+    launches and its seconds."""
+    with Children({label: _door_cmd(name, argv)}) as kids:
+        done, secs = kids.wait(LAUNCH_TIMEOUT_S)
+    res, launches = _door_run(label, done[label])
+    return res, launches, secs[label], done[label].stdout
+
+
+def _check_lm_rows(results: dict) -> list:
+    """Every LM row of ``LAUNCH_ARCHS``: OK, or a SKIP with
+    ``cell_applicable``'s reason or, on the card, "exceeds one card"; a
+    card row that ran has its ms and peak beside the estimate; each full
+    row's FLOPs equal its mesh's probe-corrected count (qwen2)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.models.config import LM_SHAPES, cell_applicable
+    lines, bad = [], []
+    for arch in LAUNCH_ARCHS:
+        cfg = get_config(arch)
+        for shape in LM_SHAPES:
+            ok, why = cell_applicable(cfg, shape)
+            for mesh in LAUNCH_MESHES:
+                key = f"{arch}|{shape.name}|{mesh}|base"
+                rec = results.get(key, {"status": "MISSING"})
+                st = rec["status"]
+                line = dict(key=key, status=st)
+                if st == "SKIP":
+                    line.update(reason=rec["reason"])
+                    if rec["reason"] != why and not (
+                            ok and mesh == "card"
+                            and rec["reason"] == "exceeds one card"):
+                        bad.append((key, rec["reason"]))
+                elif st == "OK" and ok:
+                    m = rec["memory"]
+                    line.update(
+                        flops_per_device=rec["cost"]["flops_per_device"],
+                        bytes_per_device=rec["cost"][
+                            "bytes_accessed_per_device"],
+                        argument_bytes=m["argument_bytes"],
+                        peak_bytes=m["peak_bytes"],
+                        peak_is_lower_bound=m["peak_is_lower_bound"],
+                        trace_s=rec["trace_s"], aten_ops=rec["aten_ops"],
+                        extrapolated_from_depths=rec.get(
+                            "extrapolated_from_depths"))
+                    if mesh == "card":
+                        run = rec.get("measured", {})
+                        line.update(card=rec.get("card"), ms=run.get("ms"),
+                                    ms_all=run.get("ms_all"),
+                                    peak_measured_bytes=m.get(
+                                        "peak_measured_bytes"),
+                                    peak_estimate_bytes=m.get(
+                                        "peak_estimate_bytes"))
+                        if not run.get("ms") or not m.get(
+                                "peak_measured_bytes"):
+                            bad.append((key, "card row without ms/peak"))
+                    probes = [results.get(f"{arch}|{shape.name}|{mesh}|"
+                                          f"probe-d{d}") for d in (1, 2)]
+                    if all(p and p["status"] == "OK" for p in probes):
+                        full = rec["cost"]["flops_per_device"]
+                        corr = roofline._loop_corrected(
+                            full, *(p["cost"]["flops_per_device"]
+                                    for p in probes),
+                            roofline._n_units(arch))
+                        line["probe_rel"] = abs(corr - full) / full
+                        if not line["probe_rel"] <= PROBE_REL:
+                            bad.append((key, "probe", corr, full))
+                    elif arch == LAUNCH_ARCHS[0]:
+                        bad.append((key, "no probes"))
+                else:
+                    bad.append((key, st, rec.get("error")))
+                lines.append(line)
+    if bad:
+        raise AssertionError(f"launch rows: {bad}")
+    return lines
+
+
+def launch_phase(card: str) -> tuple:
+    """The launch layer on the card (``repro_torch.launch``): ``python -m
+    repro_torch.launch.dryrun`` for ``LAUNCH_ARCHS`` over every shape on
+    the ``single``, ``multi`` and ``card`` meshes, ``--probe`` for qwen2,
+    ``--amg`` at ``LAUNCH_AMG_M`` with its launches held against the plain
+    versions (``KernelCheck``), then ``python -m
+    repro_torch.launch.roofline``, each a ``--front-door`` child with its
+    launches counted and every row of this run (``--force``): the LM dry
+    runs and the roofline must launch none of the seven kernels, the AMG
+    rows (whose card row runs the dist hot path at NCCL world 1) every
+    one of ``LAUNCH_KERNELS``.  Prints a ``launch`` line a row; fails on
+    any FAIL record, a card row whose iterations differ from the
+    single-device solve's or whose true residual (the plain CPU product)
+    is above the solve's tolerance, a kernel that disagrees with its plain
+    version, or a probe-corrected FLOP count more than ``PROBE_REL`` off
+    the full trace's.  Returns the AMG rows' launches and the kernel
+    checks' largest errors."""
+    from repro_torch.launch import dryrun_amg
+    t0 = time.perf_counter()
+    lm_launches = {}
+    runs = [("qwen2-0.5b", ["--arch", "qwen2-0.5b", "--force"]),
+            ("qwen2-0.5b probe", ["--arch", "qwen2-0.5b", "--probe",
+                                  "--force"]),
+            ("falcon-mamba-7b", ["--arch", "falcon-mamba-7b", "--force"])]
+    for label, argv in runs:
+        res, lm_launches[label], child_s, _ = _launch_child(label, argv)
+        print(f"launch dryrun {label} " + json.dumps(dict(
+            rows=res["rows"], failures=res["failures"], child_s=child_s,
+            launches=lm_launches[label])))
+    amg, launches, amg_s, amg_out = _launch_child(
+        "amg", [KERNEL_CHECK_FLAG, "--amg", "--force"])
+    per = {}
+    for ln in amg_out.splitlines():
+        if ln.startswith("door kernel check "):
+            row = json.loads(ln[len("door kernel check "):])
+            per[row["kernel"]] = row
+            print("launch kernel check " + json.dumps(row))
+    roof, lm_launches["roofline"], roof_s, roof_out = _launch_child(
+        "roofline", [], name="launch.roofline")
+    for ln in roof_out.splitlines():
+        if ln.startswith(("constants:", "| ", "  ")):
+            print("launch roofline " + ln)
+    results = _launch_results()
+    for line in _check_lm_rows(results):
+        print("launch " + json.dumps(line))
+    amg_rows = {}
+    for mesh in ("single", "multi", "card"):
+        key = f"amg-elasticity-q1-m{LAUNCH_AMG_M}|solve|{mesh}|base"
+        rec = results.get(key, {"status": "MISSING"})
+        if rec["status"] != "OK":
+            raise AssertionError(f"launch {key}: {rec}")
+        amg_rows[mesh] = rec
+        line = {k: rec[k] for k in ("grid", "halo_strategy", "placement",
+                                    "n_devices", "stage_s", "iters",
+                                    "single_device_iters", "x_rel_diff",
+                                    "relres", "true_relres", "backend",
+                                    "card")
+                if k in rec}
+        line.update(key=key, argument_bytes=rec["memory"].get(
+            "argument_bytes"), peak_measured_bytes=rec["memory"].get(
+            "peak_measured_bytes"), ms=rec.get("measured", {}).get("ms"))
+        if rec.get("collectives"):
+            line.update(cycle_msgs=rec["collectives"]["msgs"],
+                        cycle_bytes=rec["collectives"]["total_bytes"])
+        print("launch " + json.dumps(line))
+    crow = amg_rows["card"]
+    if crow["iters"] != crow["single_device_iters"] or not crow[
+            "converged"] or not crow["x_rel_diff"] <= DIST_TOL \
+            or not crow["true_relres"] <= dryrun_amg.RTOL:
+        raise AssertionError(f"launch AMG card row: {crow}")
+    unchecked = [k for k, n in launches.items() if n and k not in per]
+    if unchecked:
+        raise AssertionError(f"launch: no kernel check of {unchecked}")
+    if any(v for counts in lm_launches.values() for v in counts.values()):
+        raise AssertionError(f"launch: LM rows launched AMG kernels: "
+                             f"{lm_launches}")
+    check_path_launches("launch", launches, LAUNCH_KERNELS)
+    print("launch phase " + json.dumps(dict(
+        card=card, seconds=time.perf_counter() - t0, amg_child_s=amg_s,
+        roofline_child_s=roof_s, roofline_rows=roof["rows"],
+        launches=launches)))
+    return launches, per
+
+
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    return out[0]
+    """The card's name and power limit (``nvidia-smi``); raises without
+    them."""
+    from repro_torch.launch.dryrun import card_line as line
+    out = line()
+    if out is None:
+        raise RuntimeError("chip_smoke: nvidia-smi gave no card line")
+    return out
 
 
 def peaks_for(name: str) -> tuple:
@@ -5017,6 +5372,10 @@ def run_all() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train"] = train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["launch"], launch_per = launch_phase(card_line())
+    fold_errors(per, launch_per)
 
     print(json.dumps(kernel_record(per, by_path, per_step, peaks,
                                    precision, (s_launches, s_step, s_per))))

@@ -75,7 +75,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on; CUDA unless the caller asks for
-    the CPU.  Raises instead of falling back when CUDA is absent."""
+    the CPU.  Raises instead of falling back when CUDA is absent.  ``meta``
+    (shapes without data) is taken too: the launch layer traces the LM
+    steps there; the kernel wrappers refuse it."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -84,9 +86,9 @@ def resolve_device(device="cuda") -> torch.device:
                 "available; pass device='cpu' to run the plain versions")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: expected 'cuda' "
-                         f"or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}: expected 'cuda', "
+                         f"'cpu' or 'meta'")
     return dev
 
 

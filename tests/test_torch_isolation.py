@@ -182,6 +182,39 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it():
         assert out.returncode != 0 and "device='cpu'" in out.stderr, cmd
 
 
+def test_launch_entry_points_default_to_cuda_and_raise_without_it():
+    """The launch layer's dry run, AMG rows and roofline run on the card by
+    default: without CUDA they raise, in-process and as ``python -m
+    repro_torch.launch.dryrun``, ``.dryrun_amg`` and ``.roofline``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, dryrun_amg, roofline
+    from repro_torch.models.config import shape_by_name
+    cfg = get_config("qwen2-0.5b").reduced()
+    calls = [
+        lambda: dryrun.main(["--arch", "qwen2-0.5b"]),
+        lambda: dryrun.cli(["--amg"]),
+        lambda: dryrun.run_cell("qwen2-0.5b", "decode_32k", "card",
+                                device="cuda"),
+        lambda: dryrun.cell_record(cfg, shape_by_name("decode_32k"), "card",
+                                   device="cuda"),
+        lambda: dryrun_amg.run_amg_dryrun(m=3),
+        lambda: roofline.main([]), lambda: roofline.cli(["--json"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    for cmd in (["repro_torch.launch.dryrun", "--arch", "qwen2-0.5b"],
+                ["repro_torch.launch.dryrun", "--amg"],
+                ["repro_torch.launch.dryrun_amg"],
+                ["repro_torch.launch.roofline"]):
+        out = subprocess.run(
+            [sys.executable, "-m"] + cmd, capture_output=True, text=True,
+            timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        assert out.returncode != 0 and "device='cpu'" in out.stderr, cmd
+
+
 def test_dist_entry_points_default_to_cuda_and_nccl(tmp_path):
     """The distributed layer's front doors default to the card and the
     NCCL backend: without CUDA they raise unless asked for the CPU and
