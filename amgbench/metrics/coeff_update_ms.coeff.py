@@ -1,0 +1,7 @@
+"""Mean wall time of ``update_coefficients`` over the window's hot steps,
+on the harness's clock, synchronised after the call."""
+from amgbench.metrics._common import mean_ms
+
+
+def read(ctx):
+    return mean_ms(ctx.get("coeff_update_s"))
