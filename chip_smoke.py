@@ -449,7 +449,7 @@ PREC_BURST = 4           # requests of the precision path's serve burst
 #: width of the counted panel solve, and the f64 static profiled hot
 #: step's device events in PR 21's final run (PERF.md section 5)
 KERNEL_SPANS = ("kernels/block_seg_sum", "kernels/fused_pair_gemm",
-                "kernels/block_spmv", "kernels/fused_smoother", "spmv_ell",
+                "kernels/block_spmv", "kernels/fused_smoother",
                 "apply_ell_t")
 OBS_K = 4
 PR21_HOT_EVENTS = 3778

@@ -316,13 +316,19 @@ def jittered_cholesky(densef: torch.Tensor, base_scale: float,
     tr = torch.trace(densef)
     chol, info = torch.linalg.cholesky_ex(densef + (base_scale * tr / n)
                                           * eye)
-    if int(info) == 0:
+    if _info_read(info) == 0:
         return chol
     chol, info = torch.linalg.cholesky_ex(
         densef + (retry_scale * torch.abs(tr) / n) * eye)
-    if int(info) == 0:
+    if _info_read(info) == 0:
         return chol
     return torch.full_like(chol, float("nan"))
+
+
+def _info_read(info: torch.Tensor) -> int:
+    """The host read of a factorization's ``info`` (a host sync)."""
+    with obs_trace.host_span("sync/coarse_chol_info"):
+        return int(info)
 
 
 def coarse_cholesky(dense: torch.Tensor, policy: PrecisionPolicy

@@ -99,7 +99,9 @@ def pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
     k = 0
     while k < maxiter:
         go = (rnorm > thresh) & ~brk & ~nonf & (stall < stall_window)
-        if not bool(go):                 # the one host sync per iteration
+        with obs_trace.host_span("sync/cg_exit"):
+            go = bool(go)                # the one host sync per iteration
+        if not go:
             break
         Ap = inject.maybe("spmv", apply_a(p), step=k)
         pAp = dot(p, Ap)

@@ -23,13 +23,16 @@ from repro_torch.core.spgemm import (
     spgemm_symbolic,
 )
 from repro_torch.kernels.block_spmv import ops as spmv_ops
+from repro_torch.obs import trace as obs_trace
 
 
 def invert_diag_blocks(diag: torch.Tensor) -> torch.Tensor:
     """Batched small-block inverse; the pbjacobi setup.  Row-major, as the
     kernels read it (the batched CUDA inverse returns column-major
-    blocks)."""
-    return torch.linalg.inv(diag).contiguous()
+    blocks).  ``torch.linalg.inv`` reads the factorization's ``info`` on
+    the host, a host sync on CUDA: the call runs in ``sync/diag_inv``."""
+    with obs_trace.host_span("sync/diag_inv"):
+        return torch.linalg.inv(diag).contiguous()
 
 
 def scale_rows_data(A: BlockCSR, dinv: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,6 @@ from repro_torch.kernels.block_spmv import ops as spmv_ops
 from repro_torch.obs import trace as obs_trace
 
 
-@obs_trace.spanned("spmv_ell")
 def spmv_ell(ell: BlockELL, x: torch.Tensor, *,
              accum_dtype=None) -> torch.Tensor:
     """y = A @ x on the padded ELL layout.  x: (nbc*bc,) -> y: (nbr*br,),
@@ -37,7 +36,6 @@ def spmv_ell(ell: BlockELL, x: torch.Tensor, *,
     return spmv_ops.block_spmv(ell, x, accum_dtype=accum_dtype)
 
 
-@obs_trace.spanned("spmm_ell")
 def spmm_ell(ell: BlockELL, X: torch.Tensor, *,
              accum_dtype=None) -> torch.Tensor:
     """Y = A @ X for a panel X: ``(nbc*bc, k)`` -> ``(nbr*br, k)``.  ``k ==

@@ -42,6 +42,7 @@ from repro_torch.fem.hex_elasticity import (
     element_quadrature,
     lame_parameters,
 )
+from repro_torch.obs import trace as obs_trace
 
 BS = 3  # displacement components per node
 
@@ -144,5 +145,10 @@ class DeviceAssembler:
 
     def coo_data(self, E: torch.Tensor, nu: torch.Tensor) -> torch.Tensor:
         """Assembled (nnzb, 3, 3) operator payload: the value stream
-        through the cached plan's scatter-sum."""
-        return set_values_coo_data(self.plan, self.value_stream(E, nu))
+        through the cached plan's scatter-sum.  Under the observability
+        knob, ``assemble/value_stream`` times the quadrature and
+        ``assemble/scatter`` the scatter-sum."""
+        with obs_trace.span("assemble/value_stream"):
+            values = self.value_stream(E, nu)
+        with obs_trace.span("assemble/scatter"):
+            return set_values_coo_data(self.plan, values)

@@ -115,7 +115,9 @@ def block_pcg(apply_a: Callable[[torch.Tensor], torch.Tensor],
     k = 0
     while k < maxiter:
         active = (rnorm > thresh) & ~brk & ~nonf & (stall < stall_window)
-        if not bool(active.any()):        # the one host sync per iteration
+        with obs_trace.host_span("sync/block_cg_exit"):
+            go = bool(active.any())       # the one host sync per iteration
+        if not go:
             break
         Ap = inject.maybe("spmv", apply_a(p), step=k)
         pAp = col_dot(p, Ap)

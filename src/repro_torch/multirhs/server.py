@@ -36,6 +36,17 @@ fields through the device assembly) under
 ``inject.suppress_transient()``: a transient fault is gone from the
 retry and the report says ``status="recovered"``; a persistent one keeps
 its explicit failure.
+
+Host ranges (``repro_torch.obs.trace.host_span``: recorded whenever a
+profiler is recording, else free): each ``submit`` runs in
+``server/submit``; each panel of ``flush`` in ``server/flush``, whose
+children ``server/flush/pack`` (the host panel), ``server/flush/upload``
+(its blocking copy to the device, itself in ``sync/panel_upload``),
+``server/flush/solve`` (the masked panel PCG) and ``server/flush/fetch``
+(the results' copies to the host) together cover exactly the interval
+that the ``server/solve_wall_seconds`` histogram times;
+``server/flush/report`` (the per-request reports, a flagged column's
+retry included) follows it.
 """
 from __future__ import annotations
 
@@ -188,7 +199,14 @@ class AMGSolveServer:
 
         A rhs that is the wrong shape, does not convert to the panel
         dtype, or carries NaN/Inf is rejected here with a ``ValueError``.
+        The whole call runs in a ``server/submit`` range whose argument is
+        the id the request gets if it is accepted.
         """
+        rid = self._next_id if request_id is None else request_id
+        with obs_trace.host_span("server/submit", rid):
+            return self._submit(b, request_id)
+
+    def _submit(self, b, request_id: Optional[Hashable]) -> Hashable:
         try:
             b = np.asarray(b, dtype=self.dtype)
         except (TypeError, ValueError) as e:
@@ -260,16 +278,30 @@ class AMGSolveServer:
         reports: List[SolveReport] = []
         kmax = self.buckets[-1]
         while self._pending:
-            chunk = self._pending[:kmax]
-            del self._pending[:kmax]
-            self._metrics.pending.set(len(self._pending))
+            with obs_trace.host_span("server/flush"):
+                chunk = self._pending[:kmax]
+                del self._pending[:kmax]
+                self._metrics.pending.set(len(self._pending))
+                reports += self._flush_panel(chunk)
+        return reports
+
+    def _flush_panel(self, chunk: list) -> List[SolveReport]:
+        """One panel of ``flush``: the host phases ``server/flush/pack``,
+        ``upload``, ``solve`` and ``fetch`` (together the interval
+        ``server/solve_wall_seconds`` times), then ``report``."""
+        host_span = obs_trace.host_span
+        with host_span("server/flush/pack"):
             t_batch = time.perf_counter()
             k = self._bucket_for(len(chunk))
             B = np.zeros((self.n, k), self.dtype)
             for j, (_, b, _) in enumerate(chunk):
                 B[:, j] = b
-            out = self._solve(self.hierarchy,
-                              torch.from_numpy(B).to(self.device))
+        with host_span("server/flush/upload"), \
+                host_span("sync/panel_upload"):
+            B = torch.from_numpy(B).to(self.device)
+        with host_span("server/flush/solve", [c[0] for c in chunk]):
+            out = self._solve(self.hierarchy, B)
+        with host_span("server/flush/fetch"):
             res, hist = out if self._record_history else (out, None)
             x = res.x.cpu().numpy()
             iters = res.iters.cpu().numpy()
@@ -279,6 +311,8 @@ class AMGSolveServer:
             hist_np = None if hist is None else hist.cpu().numpy()
             # every result is on the host now: the clock stop is honest
             solve_s = time.perf_counter() - t_batch
+        reports: List[SolveReport] = []
+        with host_span("server/flush/report"):
             for j, (rid, b_j, t_sub) in enumerate(chunk):
                 code = int(codes[j])
                 status = self._classify(code, bool(conv[j]))
@@ -311,11 +345,11 @@ class AMGSolveServer:
                     k_bucket=k, status=status, health=code,
                     latency_s=latency, queue_wait_s=queue_wait,
                     history=None if hist_np is None else hist_np[:, j]))
-            self.stats["requests"] += len(chunk)
-            self.stats["batches"] += 1
-            self.stats["padded_columns"] += k - len(chunk)
-            self.stats["solves_per_k"][k] += 1
-            self._metrics.record_batch(k, len(chunk), solve_s)
+        self.stats["requests"] += len(chunk)
+        self.stats["batches"] += 1
+        self.stats["padded_columns"] += k - len(chunk)
+        self.stats["solves_per_k"][k] += 1
+        self._metrics.record_batch(k, len(chunk), solve_s)
         return reports
 
     def serve(self, rhs_list: Sequence) -> List[SolveReport]:

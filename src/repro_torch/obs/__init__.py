@@ -3,10 +3,12 @@
 * ``metrics``        process-local ``MetricsRegistry`` (counters, gauges,
                      histograms), ``Timer`` spans, JSONL and Prometheus
                      exporters;
-* ``trace``          ``record_function`` ranges on every kernel family,
-                     V-cycle and recompute stage, and the device
-                     ``CycleTally`` counter carry — both absent under
-                     ``REPRO_TORCH_OBS=off``;
+* ``trace``          two tiers of ``record_function`` ranges: ``span``
+                     on every kernel family, V-cycle and recompute stage,
+                     and the device ``CycleTally`` counter carry — both
+                     absent under ``REPRO_TORCH_OBS=off``; ``host_span``
+                     around host syncs and the server's host phases,
+                     recorded whenever a profiler is recording;
 * ``model``          the analytic HBM-traffic model the counters carry;
 * ``server_metrics`` ``AMGSolveServer`` instrumentation;
 * ``transfer``       host-to-device bytes of a call, counted at the aten
@@ -30,6 +32,7 @@ from repro_torch.obs.trace import (            # noqa: F401
     attach_model_bytes,
     counters_enabled,
     describe_tally,
+    host_span,
     span,
     spans_enabled,
     use,
@@ -39,6 +42,6 @@ from repro_torch.obs.trace import (            # noqa: F401
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "ServerMetrics",
     "Timer", "default_registry", "parse_prometheus", "CycleTally",
-    "attach_model_bytes", "counters_enabled", "describe_tally", "span",
-    "spans_enabled", "use", "zero_tally",
+    "attach_model_bytes", "counters_enabled", "describe_tally", "host_span",
+    "span", "spans_enabled", "use", "zero_tally",
 ]

@@ -37,6 +37,13 @@ name                                      kind        meaning
 ``server/status_{s}_total``               counter     report outcomes
 ``server/iters``                          histogram   per-request iterations
 ========================================  ==========  ====================
+
+``solve_wall_seconds`` runs from the start of the server's
+``server/flush/pack`` range to the end of its ``server/flush/fetch``
+range: the ranges ``server/flush/pack``, ``server/flush/upload`` (with
+``sync/panel_upload``), ``server/flush/solve`` and ``server/flush/fetch``
+nest inside it, in that order; ``server/flush/report`` and
+``server/submit`` lie outside it (``repro_torch.multirhs.server``).
 """
 from __future__ import annotations
 

@@ -34,6 +34,33 @@ in force at their first call per argument signature
 (``repro_torch.robust.inject.traced``); each call then runs under its
 bound mode (``use``).  A bare ``span`` outside those closures reads the
 mode at that call, as the reference's un-jitted code does.
+
+Two tiers of ranges.  ``span`` is the fine tier above: one range per
+kernel launch or V-cycle stage, recorded only under the knob.
+``host_span`` is the coarse tier, a few ranges per request, panel or CG
+iteration around host phases and host syncs: it records whenever a
+profiler is recording in this process, whatever the knob says, and is a
+bare ``nullcontext`` otherwise (one profiler-state check, no op).  Its
+names:
+
+``sync/cg_exit``, ``sync/block_cg_exit``
+                the host read of the CG loop's exit test (one a
+                vector or panel iteration, and the last one);
+``sync/coarse_chol_info``
+                each host read of the coarse Cholesky factor's ``info``;
+``sync/diag_inv``
+                the batched inverse of a level's diagonal blocks, whose
+                ``info`` ``torch.linalg.inv`` reads on the host;
+``sync/panel_upload``
+                the blocking host-to-device copy of a served panel;
+``server/submit``
+                the whole of ``AMGSolveServer.submit``;
+``server/flush``
+                one panel of ``AMGSolveServer.flush``, with the children
+                ``server/flush/pack`` (the host panel), ``.../upload``
+                (its copy to the device), ``.../solve`` (the panel
+                solve), ``.../fetch`` (the results' copies to the host)
+                and ``.../report`` (the per-request reports).
 """
 from __future__ import annotations
 
@@ -88,6 +115,17 @@ def span(name: str, mode: Optional[str] = None):
     if not spans_enabled(mode):
         return contextlib.nullcontext()
     return torch.profiler.record_function(name)
+
+
+def host_span(name: str, args=None):
+    """A ``record_function`` range around one coarse host phase or host
+    sync when a profiler is recording in this process (whatever the
+    knob), else a bare ``nullcontext``.  ``args`` (any object, rendered
+    with ``str`` only when recorded) rides on the range."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(
+        name, None if args is None else str(args))
 
 
 def spanned(name: str) -> Callable:

@@ -4,6 +4,7 @@ solve, the ``CycleTally`` field by field, the traffic model exactly, and
 the server's history default.  Both sides build their own m=4 setup with
 the reference's defaults (device assembly, the MIS coarsener), which the
 port reproduces bitwise."""
+import contextlib
 import hashlib
 
 import numpy as np
@@ -224,8 +225,8 @@ def test_spans_name_every_stage(three):
 
     with trace.use("spans"):
         names = _span_names(step)
-    want = {"vcycle/coarse", "recompute/coarse_chol", "spmv_ell",
-            "apply_ell_t", "kernels/block_spmv", "kernels/fused_smoother",
+    want = {"vcycle/coarse", "recompute/coarse_chol", "apply_ell_t",
+            "kernels/block_spmv", "kernels/fused_smoother",
             "kernels/block_seg_sum", "kernels/fused_pair_gemm"}
     for li in range(nl):
         want |= {f"vcycle/level{li}/{s}" for s in
@@ -233,6 +234,8 @@ def test_spans_name_every_stage(three):
         want |= {f"recompute/level{li}/{s}" for s in
                  ("smoother_data", "ptap")}
     assert want <= names, sorted(want - names)
+    # the operator applies run inside their kernel's range alone
+    assert not names & {"spmv_ell", "spmm_ell"}
     with trace.use("off"):
         names_off = _span_names(step)
     assert not {n for n in names_off if n.startswith(("vcycle/",
@@ -399,3 +402,144 @@ def test_server_record_history_follows_the_knob(two, monkeypatch):
     monkeypatch.setenv("REPRO_OBS", "spans")
     monkeypatch.setenv("REPRO_TORCH_OBS", "off")
     assert not AMGSolveServer(sd, prob.A.data)._record_history
+
+
+# ---------------------------------------------------------------------------
+# The host ranges: recorded whenever a profiler records, else free
+# ---------------------------------------------------------------------------
+
+#: host reads the CPU makes and the card does not, by a name on their
+#: profiler parent chain: the CPU's error check of ``cholesky_solve`` (on
+#: CUDA one cuSOLVER solve, no check), the plain ``block_seg_sum``'s
+#: segment count (the card runs the kernel) and the coarse retry jitter
+#: (a host tensor on either device)
+CPU_ONLY_READS = ("aten::cholesky_solve", "block_seg_sum_ref",
+                  "coarse_retry_scale")
+
+SERVER_CHILDREN = ["server/flush/pack", "server/flush/upload",
+                   "server/flush/solve", "server/flush/fetch",
+                   "server/flush/report"]
+
+
+@pytest.fixture(scope="module")
+def coeff_solver(probs):
+    from repro_torch.fem.assemble import inclusion_fields
+    prob = probs[0]
+    solver = gamg.GAMGSolver(prob.A, prob.B, coarse_size=40, maxiter=100)
+    solver.bind_assembler(prob.assembler)
+    fields = inclusion_fields(prob.mesh, E_inclusion=10.0)
+    solver.update_coefficients(*fields)
+    solver.solve(prob.b)
+    return solver, fields
+
+
+def _served(two, k, buckets):
+    sd, prob = two["sd"], two["prob"]
+    srv = AMGSolveServer(sd, prob.A.data, buckets=buckets, maxiter=100)
+    rhs = [s * prob.b.numpy() for s in (1.0, 2.0, -0.5, 3.0)[:k]]
+    srv.serve(rhs)
+    return srv, rhs
+
+
+def _profiled(fn, stack=False):
+    with profile(activities=[ProfilerActivity.CPU], with_stack=stack) as p:
+        fn()
+    return sorted(p.events(), key=lambda e: e.time_range.start)
+
+
+def _within(inner, outer) -> bool:
+    return outer.time_range.start <= inner.time_range.start and \
+        inner.time_range.end <= outer.time_range.end
+
+
+def _chain(e) -> list:
+    names = []
+    while e is not None:
+        names.append(e.name)
+        e = e.cpu_parent
+    return names
+
+
+@pytest.mark.parametrize("unit", ["coefficient_step", "served_panel"])
+def test_every_host_read_is_in_a_sync_range(unit, coeff_solver, two, probs):
+    prob = probs[0]
+    if unit == "coefficient_step":
+        solver, fields = coeff_solver
+
+        def run():
+            solver.update_coefficients(*fields)
+            solver.solve(prob.b)
+    else:
+        srv, rhs = _served(two, 3, (4,))
+
+        def run():
+            srv.serve(rhs)
+    events = _profiled(run, stack=True)
+    syncs = [e for e in events if e.name.startswith("sync/")]
+    reads = [e for e in events if e.name == "aten::_local_scalar_dense"]
+    loose = [_chain(e) for e in reads
+             if not any(_within(e, s) for s in syncs)]
+    assert syncs and len(reads) > len(loose)
+    assert all(any(n.endswith(CPU_ONLY_READS) for n in c) for c in loose), \
+        [c[:6] for c in loose if not any(n.endswith(CPU_ONLY_READS)
+                                         for n in c)]
+    names = {e.name for e in syncs}
+    if unit == "coefficient_step":
+        assert names == {"sync/cg_exit", "sync/coarse_chol_info",
+                         "sync/diag_inv"}
+        assert sum(e.name == "sync/cg_exit" for e in syncs) == \
+            solver.solve(prob.b).iters + 1
+    else:
+        assert names == {"sync/block_cg_exit", "sync/panel_upload"}
+
+
+def test_served_round_ranges_nest_in_order(two):
+    """One ``server/submit`` a request; a ``server/flush`` a panel holding
+    its five children once each, in order, the upload's sync inside the
+    upload."""
+    srv, rhs = _served(two, 3, (2,))          # two panels: 2 + 1 columns
+    wall = srv.metrics().solve_wall
+    before = wall.snapshot()["sum"]
+    events = _profiled(lambda: srv.serve(rhs))
+    timed = wall.snapshot()["sum"] - before
+    server = [e for e in events if e.name.startswith(("server/",
+                                                      "sync/panel"))]
+    assert [e.name for e in server if e.name == "server/submit"] == \
+        ["server/submit"] * 3
+    flushes = [e for e in server if e.name == "server/flush"]
+    assert len(flushes) == 2
+    for f in flushes:
+        inside = [e.name for e in server if e is not f and _within(e, f)]
+        assert inside == SERVER_CHILDREN[:2] + ["sync/panel_upload"] + \
+            SERVER_CHILDREN[2:]
+    upload = [e for e in server if e.name == "server/flush/upload"]
+    sync = [e for e in server if e.name == "sync/panel_upload"]
+    assert all(_within(s, u) for s, u in zip(sync, upload))
+    # pack, upload, solve and fetch cover what solve_wall_seconds times
+    covered = 1e-6 * sum(e.time_range.elapsed_us() for e in server
+                         if e.name in SERVER_CHILDREN[:4])
+    assert covered == pytest.approx(timed, rel=0.01, abs=2e-4)
+
+
+def test_host_span_is_free_without_a_profiler(two):
+    assert isinstance(trace.host_span("sync/x"), contextlib.nullcontext)
+    srv, rhs = _served(two, 3, (4,))
+    for b in rhs:
+        srv.submit(b)
+    reports, ops = _ops(srv.flush)
+    assert len(reports) == 3
+    assert not [op for op in ops if op.startswith("profiler.")]
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert not isinstance(trace.host_span("sync/x"),
+                              contextlib.nullcontext)
+
+
+@pytest.mark.parametrize("mode,recorded", [("spans", True), ("off", False)])
+def test_assembly_ranges_follow_the_knob(coeff_solver, mode, recorded):
+    solver, fields = coeff_solver
+    assembler = solver.assembler
+    with trace.use(mode):
+        names = _span_names(lambda: assembler.coo_data(
+            *assembler.as_fields(*fields)))
+    both = {"assemble/value_stream", "assemble/scatter"}
+    assert names & both == (both if recorded else set())
