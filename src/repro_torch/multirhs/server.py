@@ -18,10 +18,16 @@ cached hierarchy and drains it in panels:
   per-element material fields: device assembly, then the recompute, so a
   client ships two ``(n_elements,)`` arrays, not a value stream.
 
-Requests arrive as numpy f64 and reports return numpy; each panel is
-built on the host and moved to the setup's device once per batch, and the
-panel solve runs there (on CUDA through the ``block_spmm`` and panel
-``fused_smoother`` kernels).
+Requests arrive as numpy f64 and reports return numpy.  The host side of
+a panel is request-major: each request's rhs is one contiguous row of a
+``(k, n)`` staging buffer, kept per bucket width and reused across
+flushes (pinned on a CUDA device, so its copy is one asynchronous DMA).
+The buffer goes to the setup's device in one copy and is transposed there
+into the row-major ``(n, k)`` panel the solve takes; the panel solve runs
+there (on CUDA through the ``block_spmm`` and panel ``fused_smoother``
+kernels), and its solution is transposed back on the device, so each
+report's ``x`` is a contiguous row of a host array that belongs to its
+flush.
 
 A malformed request — wrong shape, a payload that does not convert to the
 panel dtype, or non-finite values — is rejected at ``submit`` with a
@@ -40,10 +46,11 @@ its explicit failure.
 Host ranges (``repro_torch.obs.trace.host_span``: recorded whenever a
 profiler is recording, else free): each ``submit`` runs in
 ``server/submit``; each panel of ``flush`` in ``server/flush``, whose
-children ``server/flush/pack`` (the host panel), ``server/flush/upload``
-(its blocking copy to the device, itself in ``sync/panel_upload``),
-``server/flush/solve`` (the masked panel PCG) and ``server/flush/fetch``
-(the results' copies to the host) together cover exactly the interval
+children ``server/flush/pack`` (the staging rows), ``server/flush/upload``
+(their copy to the device and the transpose there, itself in
+``sync/panel_upload``), ``server/flush/solve`` (the masked panel PCG) and
+``server/flush/fetch`` (the solution's transpose and the results' copies
+to the host) together cover exactly the interval
 that the ``server/solve_wall_seconds`` histogram times;
 ``server/flush/report`` (the per-request reports, a flagged column's
 retry included) follows it.
@@ -142,6 +149,10 @@ class AMGSolveServer:
             "rejected": 0, "degraded": 0, "failed": 0, "recovered": 0,
         }
         self._metrics = ServerMetrics(self.buckets)
+        # one request-major (k, n) host staging buffer a bucket width,
+        # pinned where the panel goes to a CUDA device
+        self._staging: dict[int, torch.Tensor] = {}
+        self._pin = torch.device(self.device).type == "cuda"
 
     def _on_device(self, a) -> torch.Tensor:
         """Fine values on the hierarchy's device at their own dtype:
@@ -285,6 +296,18 @@ class AMGSolveServer:
                 reports += self._flush_panel(chunk)
         return reports
 
+    def _staging_rows(self, k: int) -> torch.Tensor:
+        """The reused ``(k, n)`` host staging buffer of bucket width ``k``,
+        allocated on its first use."""
+        S = self._staging.get(k)
+        if S is None:
+            S = torch.empty((k, self.n), dtype=self.setupd.precision
+                            .krylov_dtype, pin_memory=self._pin)
+            self._staging[k] = S
+            self._metrics.staging_allocs.inc()
+        self._metrics.staged_panels.inc()
+        return S
+
     def _flush_panel(self, chunk: list) -> List[SolveReport]:
         """One panel of ``flush``: the host phases ``server/flush/pack``,
         ``upload``, ``solve`` and ``fetch`` (together the interval
@@ -293,17 +316,26 @@ class AMGSolveServer:
         with host_span("server/flush/pack"):
             t_batch = time.perf_counter()
             k = self._bucket_for(len(chunk))
-            B = np.zeros((self.n, k), self.dtype)
+            # reuse is safe: the last flush's upload read this buffer on
+            # the stream that its fetch synchronised before returning
+            S = self._staging_rows(k)
+            rows = S.numpy()
             for j, (_, b, _) in enumerate(chunk):
-                B[:, j] = b
+                rows[j] = b
+            rows[len(chunk):] = 0.0     # no old request in a padding row
         with host_span("server/flush/upload"), \
                 host_span("sync/panel_upload"):
-            B = torch.from_numpy(B).to(self.device)
+            Bt = S.to(self.device, non_blocking=True)
+            B = Bt.T.contiguous()
+            del Bt      # the (k, n) copy does not live through the solve
         with host_span("server/flush/solve", [c[0] for c in chunk]):
             out = self._solve(self.hierarchy, B)
+            del B
         with host_span("server/flush/fetch"):
             res, hist = out if self._record_history else (out, None)
-            x = res.x.cpu().numpy()
+            # the transpose on the device makes each request's solution a
+            # contiguous row of this flush's own host array
+            x = res.x.T.contiguous().cpu().numpy()
             iters = res.iters.cpu().numpy()
             relres = res.relres.cpu().numpy()
             conv = res.converged.cpu().numpy()
@@ -316,7 +348,7 @@ class AMGSolveServer:
             for j, (rid, b_j, t_sub) in enumerate(chunk):
                 code = int(codes[j])
                 status = self._classify(code, bool(conv[j]))
-                x_j, it_j = x[:, j], int(iters[j])
+                x_j, it_j = x[j], int(iters[j])
                 rr_j = float(relres[j])
                 if status != "ok" and self.recover is not None:
                     r1 = self._retry_column(b_j)

@@ -1,5 +1,6 @@
 """End-to-end ``AMGSolveServer`` instrumentation (torch twin of
-``repro.obs.server_metrics``; the same instrument names).
+``repro.obs.server_metrics``; the same instrument names, and two of the
+port's own).
 
 ``ServerMetrics`` is the host-side measurement surface the solve server
 owns: every request's queue wait and end-to-end latency, every batch's
@@ -12,7 +13,12 @@ the server already makes (the solve wall clock stops after the results
 were copied to the host, which the server does anyway), so they add no
 device work.  ``retry_seconds`` times each flagged column's retry
 (``AMGSolveServer(recover=)``), and ``status_recovered_total`` counts the
-retries that came back healthy.
+retries that came back healthy.  ``staged_panels_total`` and
+``staging_allocs_total`` count the server's request-major host staging:
+every panel is packed into a ``(k, n)`` buffer kept per bucket width, so
+allocations stay at one per width seen while packed panels count every
+flush; the ratio is the buffers' reuse.  These two are the port's own
+(the reference builds a fresh panel each flush).
 
 Instrument names (all under the server's private ``MetricsRegistry``):
 
@@ -35,13 +41,20 @@ name                                      kind        meaning
 ``server/padded_columns_total``           counter     padding columns
 ``server/solves_k{k}_total``              counter     per-bucket solves
 ``server/status_{s}_total``               counter     report outcomes
+``server/staged_panels_total``            counter     panels packed into a
+                                                      reused staging buffer
+``server/staging_allocs_total``           counter     staging buffers
+                                                      allocated (one a
+                                                      bucket width)
 ``server/iters``                          histogram   per-request iterations
 ========================================  ==========  ====================
 
 ``solve_wall_seconds`` runs from the start of the server's
-``server/flush/pack`` range to the end of its ``server/flush/fetch``
-range: the ranges ``server/flush/pack``, ``server/flush/upload`` (with
-``sync/panel_upload``), ``server/flush/solve`` and ``server/flush/fetch``
+``server/flush/pack`` range (the request rows written into the staging
+buffer) to the end of its ``server/flush/fetch`` range: the ranges
+``server/flush/pack``, ``server/flush/upload`` (one copy of the buffer
+and the transpose on the device, with ``sync/panel_upload``),
+``server/flush/solve`` and ``server/flush/fetch``
 nest inside it, in that order; ``server/flush/report`` and
 ``server/submit`` lie outside it (``repro_torch.multirhs.server``).
 """
@@ -94,6 +107,12 @@ class ServerMetrics:
         self.batches = r.counter("server/batches_total", help="panel solves")
         self.padded_columns = r.counter("server/padded_columns_total",
                                         help="padding columns solved")
+        self.staged_panels = r.counter(
+            "server/staged_panels_total",
+            help="panels packed into a reused host staging buffer")
+        self.staging_allocs = r.counter(
+            "server/staging_allocs_total",
+            help="host staging buffers allocated, one a bucket width")
         self._useful_columns = 0
         self._total_columns = 0
         self._solves_k = {

@@ -180,8 +180,10 @@ def test_observe_amg_matches_the_reference_telemetry():
     for key in ("requests", "batches", "padded_columns",
                 "padding_efficiency", "solves_per_k", "status"):
         assert got["snapshot"][key] == snap[key], key
-    assert got["prometheus"] == sorted(ref_parse(
-        server.metrics().to_prometheus()))
+    # the reference's instruments, and the port's two staging counters
+    assert got["prometheus"] == sorted(set(ref_parse(
+        server.metrics().to_prometheus())) | {
+            "server_staged_panels_total", "server_staging_allocs_total"})
     assert got["recompute"]["compile"]["count"] == 1
     assert got["recompute"]["steady"]["count"] == 2
 

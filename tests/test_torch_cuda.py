@@ -324,6 +324,48 @@ def test_panel_solve_on_card_matches_cpu_and_vector(dev):
                        apply_ell(a, B[:, 0].contiguous()))
 
 
+def test_server_on_card_stages_pinned_rows(dev):
+    """The solve server on the card: its ``(k, n)`` staging buffer is
+    pinned and reused, the panel the solve takes is the row-major
+    ``(n, k)`` panel of the requests bitwise, a padding column stays zero
+    after a fuller flush, and the reports (contiguous rows, never views of
+    the buffer) match the server on the CPU."""
+    from repro_torch.multirhs import AMGSolveServer
+    rng = np.random.default_rng(11)
+    runs = {}
+    for d in ("cpu", dev):
+        prob = assemble_elasticity(7, path="host", device=d)
+        solver = GAMGSolver(prob.A, prob.B, coarse_size=12,
+                            coarsener="greedy")
+        srv = AMGSolveServer(solver.setup_data, prob.A.data, buckets=(4,))
+        solve, panels = srv._solve, []
+
+        def recording(hier, B, solve=solve, panels=panels):
+            panels.append(B.clone())
+            return solve(hier, B)
+        srv._solve = recording
+        if not runs:
+            rhs = [[rng.standard_normal(prob.n) for _ in range(c)]
+                   for c in (4, 3)]
+        runs[str(d)] = (srv, panels, [srv.serve(r) for r in rhs])
+    (_, _, cpu), (srv, panels, card) = runs.values()
+    (S,) = srv._staging.values()
+    assert S.is_pinned() and S.shape == (4, srv.n)
+    assert srv.metrics().staged_panels.value() == 2
+    assert srv.metrics().staging_allocs.value() == 1
+    for stream, B in zip(rhs, panels):
+        want = np.zeros((srv.n, 4))
+        want[:, :len(stream)] = np.stack(stream, 1)
+        assert B.device.type == "cuda" and B.is_contiguous()
+        assert torch.equal(B.cpu(), torch.as_tensor(want))
+    for got, ref in zip(card, cpu):
+        for g, r in zip(got, ref):
+            assert g.x.flags.c_contiguous
+            assert not np.shares_memory(g.x, S.numpy())
+            assert g.iters == r.iters and g.status == r.status == "ok"
+            assert np.linalg.norm(g.x - r.x) <= 1e-9 * np.linalg.norm(r.x)
+
+
 def test_pairs_path_matches_fused_on_card(dev, monkeypatch):
     prob = assemble_elasticity(7, path="host", device=dev)
     solver = GAMGSolver(prob.A, prob.B, coarse_size=12, coarsener="greedy")

@@ -245,6 +245,61 @@ def test_server_records_history_when_asked(m6):
     assert off.serve(_stream(off.n, 1, 4))[0].history is None
 
 
+def test_server_reuses_its_request_major_staging(m6):
+    """Two flushes through one ``(4, n)`` staging buffer, 4 requests then
+    3: the first flush's reports survive the second, the second panel's
+    padding column is zero (0 iterations, a zero solution: nothing of the
+    first flush's last request leaks into it), and every report's ``x`` is
+    a contiguous row of its flush's own array, the panel column the solve
+    returned."""
+    srv = AMGSolveServer(m6["port_setup"], m6["a"], buckets=(4,))
+    solve, panels = srv._solve, []
+
+    def recording(hier, B):
+        res = solve(hier, B)
+        panels.append((B.clone(), res))
+        return res
+    srv._solve = recording
+    rhs = [_stream(srv.n, 4, 5), _stream(srv.n, 3, 6)]
+    first = srv.serve(rhs[0])
+    kept = [r.x.copy() for r in first]
+    second = srv.serve(rhs[1])
+    for r, x in zip(first, kept):
+        np.testing.assert_array_equal(r.x, x)
+    (S,) = srv._staging.values()
+    assert S.shape == (4, srv.n) and not S.is_pinned()
+    for reps, stream, (B, res) in zip((first, second), rhs, panels):
+        assert B.shape == (srv.n, 4) and B.is_contiguous()
+        for j, (r, b) in enumerate(zip(reps, stream)):
+            np.testing.assert_array_equal(B[:, j].numpy(), b)
+            np.testing.assert_array_equal(r.x, res.x[:, j].numpy())
+            assert r.x.flags.c_contiguous and r.x.shape == (srv.n,)
+            assert not np.shares_memory(r.x, S.numpy())
+            assert r.status == "ok" and r.converged and r.k_bucket == 4
+    B, res = panels[1]
+    assert not B[:, 3].any()
+    assert int(res.iters[3]) == 0 and not res.x[:, 3].any()
+    assert not np.shares_memory(first[0].x, second[0].x)
+
+
+def test_server_counts_its_staging(m6):
+    """``staged_panels_total`` counts every panel, ``staging_allocs_total``
+    one buffer a bucket width used; neither is a server stat."""
+    srv = AMGSolveServer(m6["port_setup"], m6["a"], buckets=(1, 2, 4))
+    met = srv.metrics()
+    for burst in (3, 4, 1, 2, 7):
+        srv.serve(_stream(srv.n, burst, 10 + burst))
+    assert srv.stats["batches"] == 6
+    assert met.staged_panels.value() == 6
+    assert met.staging_allocs.value() == 3
+    assert {k: tuple(S.shape) for k, S in srv._staging.items()} == \
+        {k: (k, srv.n) for k in (1, 2, 4)}
+    assert not {"staged_panels", "staging_allocs"} & set(srv.stats)
+    text = met.to_prometheus()
+    assert "server_staged_panels_total 6" in text
+    assert "server_staging_allocs_total 3" in text
+
+
 # ---------------------------------------------------------------------------
 # Host metrics: a copy of the reference's, so the exports agree
 # ---------------------------------------------------------------------------
