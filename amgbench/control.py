@@ -6,8 +6,11 @@ broken underneath, must come out not correct.
         --seconds <s> (--precision f32 | --fault <name>)
 
 Prints one JSON line a seed: ``correct`` and every compared number.
-``FAULTS`` names the faults each kind of traffic can have; the tests run
-them on the CPU at a small size.
+``FAULTS`` names the faults each of the two built-in loops can have; a
+loop of ``loops/<generator>.py`` brings its own as a ``FAULTS`` dict in
+that file (``faults``).  A cell on several chips runs through the rank
+processes, as ``run.py`` runs it, with the precision and the fault set
+in every rank.  The tests run them on the CPU at a small size.
 """
 import argparse
 import contextlib
@@ -103,18 +106,38 @@ FAULTS = {"coefficient_loop": {"state_unchanged": state_unchanged,
                                 "answer_altered": answer_altered}}
 
 
-def run(workload, seed, seconds, precision=None, fault=None, root=ROOT,
-        device=None):
-    """One cell run under the control or a fault; the result object."""
+def faults(generator, base=None):
+    """The faults, by name, of the loop a traffic file's ``generator``
+    names: each a function that returns the context manager which breaks
+    the timed path while the window runs."""
     from amgbench import harness
-    cell = harness.load_cell(root, workload)
+    if generator in FAULTS:
+        return FAULTS[generator]
+    return getattr(harness.loop_file(generator, base or harness.HERE),
+                   "FAULTS", {})
+
+
+def run(workload, seed, seconds, precision=None, fault=None, root=ROOT,
+        device=None, base=None, watchdog_s=None):
+    """One cell run under the control or a fault; the result object.
+    ``base`` (the harness's folder) and ``watchdog_s`` are for the
+    tests."""
+    from amgbench import harness
+    base = base or harness.HERE
+    cell = harness.load_cell(root, workload, base)
+    env = {"REPRO_TORCH_PRECISION": precision} if precision else {}
+    t_start = time.perf_counter()
+    if cell.chips > 1:
+        return harness.run_ranks(cell, seed, seconds, False, t_start,
+                                 device=device, src=root / "src", base=base,
+                                 watchdog_s=watchdog_s, fault=fault,
+                                 env=env)
     harness.prepare_env(cell)
-    if precision:
-        os.environ["REPRO_TORCH_PRECISION"] = precision
-    broken = FAULTS[cell.traffic["generator"]][fault] if fault \
+    os.environ.update(env)
+    broken = faults(cell.traffic["generator"], base)[fault] if fault \
         else contextlib.nullcontext
-    return harness.run_cell(cell, seed, seconds, False, time.perf_counter(),
-                            device=device, src=root / "src",
+    return harness.run_cell(cell, seed, seconds, False, t_start,
+                            device=device, src=root / "src", base=base,
                             window_context=broken)
 
 

@@ -1,5 +1,45 @@
-"""The two traffic generators.  A traffic file names its generator and holds
-every parameter it reads; a new mix of either kind is a new data file.
+"""The two traffic generators, and the interface of every loop.  A traffic
+file names its generator and holds every parameter it reads; a new mix of
+either kind is a new data file.  A generator that is not in
+``GENERATORS`` is the class ``Loop`` of ``loops/<generator>.py`` under
+the harness's folder, a new kind of traffic is a new file there.
+
+A loop is built as ``Loop(cfg, traffic, seed, device)``: the
+configuration's and the traffic's parsed files, the run's seed and the
+card (``cuda:r`` on rank ``r``).  The harness then calls, in order:
+
+- ``warmup()``: every shape the window uses, once; set-up ends after it;
+- ``window(seconds, spans)``: the measured window, until ``seconds`` have
+  passed (``spans``: a traced run, which may synchronise inside a unit to
+  time its parts);
+- ``traced(n, tracer)`` (``--trace 1`` on a card): ``tracer(units)`` of a
+  function ``units()`` that runs ``n`` more units, ending synchronised;
+  returns what ``tracer`` returned;
+- ``end_to_end()``: the cell's end-to-end metrics but ``setup_s`` and
+  ``peak_device_gib``, by name; ``attempted`` and ``failed``, counts;
+- ``layer_context(trace)`` (``--trace 1``): the dict the per-layer
+  readers of ``metrics/`` read, ``trace`` the window's ``Trace`` or None;
+- ``release()``: drops the program's state; returns what judging needs;
+- ``make_judge(device)``: the reference side, with a ``worst`` dict of
+  the largest gap of each compared number (names from ``limits.json``);
+- ``judge(judge, kept)``: judges what ``release`` returned.
+
+A loop file may also hold ``FAULTS``: fault name -> a function that
+returns a context manager which breaks the timed path while the window
+runs (``control.py --fault <name>`` plants it, in every rank process of
+a cell on several chips; it may act on one rank alone).  ``control.py
+--precision`` sets ``REPRO_TORCH_PRECISION`` there after the cell's own
+knobs.
+
+A loop of a cell on several chips runs once on every rank, in a process
+of its own, and reads its rank and world from the default
+``torch.distributed`` group, which the harness has set up
+(``repro_torch.dist.comm.RankComm()`` takes that group as it is).  It
+keeps its ranks in lockstep through its own collectives, the window's
+end too: every rank has to run the same number of units.  The lead rank
+(0) gives the end-to-end metrics, ``attempted`` and the layers' readings;
+every rank counts its own ``failed``, runs the traced units under the
+profiler and judges its own share.
 
 ``coefficient_loop``: one closed-loop stream of hot steps on a hierarchy
 set up once on the uniform material: each step brings new per-element
@@ -24,6 +64,7 @@ import torch
 
 from amgbench import work
 from amgbench.reference import fem
+from amgbench.reference.judge import Judge
 
 
 def sync(device) -> None:
@@ -58,7 +99,16 @@ def shapes(setupd, hier, coo_input: int) -> work.Shapes:
                        coo_input=coo_input, smoother_steps=degree)
 
 
-class CoefficientLoop:
+class _WholeCube:
+    """A loop over one whole Q1 cube on one device: its judge is the
+    reference of that cube, on the program's set-up aggregates."""
+
+    def make_judge(self, device) -> Judge:
+        return Judge(self.econf.m, self.econf.E, self.econf.nu,
+                     self.aggregates, device)
+
+
+class CoefficientLoop(_WholeCube):
     """Hot steps: new fields, ``update_coefficients``, ``solve``."""
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
@@ -182,7 +232,7 @@ class CoefficientLoop:
             judge.solution(A, fem.body_force(self.econf.m, self.device), x)
 
 
-class ClosedLoopServe:
+class ClosedLoopServe(_WholeCube):
     """Rounds of one request a client through ``submit`` / ``flush``."""
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):

@@ -31,9 +31,11 @@ def test_manifest_names_existing_files():
                           fromlist=["CHECKS"]).CHECKS)
 
 
-def test_new_cell_runs_from_added_files_only(tmp_path):
-    """A new configuration, traffic mix and per-layer metric, added as
-    files with a manifest entry, run without an edit to any file."""
+def _dummy_cell(tmp_path, generator=None, reader="dummy_steps.dummy",
+                reads="float(len(ctx['solve_s']))"):
+    """A new configuration, traffic mix (of ``generator``, or of the
+    coefficient loop) and per-layer metric, added as files with a
+    manifest entry, in a copy of the harness's data; the cell, ``base``."""
     root = small_root(tmp_path)
     base = tmp_path / "amgbench"
     for sub in ("traffic", "metrics"):
@@ -46,9 +48,11 @@ def test_new_cell_runs_from_added_files_only(tmp_path):
     (base / "configs" / "dummy-config.json").write_text(json.dumps(cfg))
     traffic = json.loads((base / "traffic" / "coeff.json").read_text())
     traffic["inclusion"]["radius"] = 0.2
+    if generator:
+        traffic["generator"] = generator
     (base / "traffic" / "dummy-traffic.json").write_text(json.dumps(traffic))
-    (base / "metrics" / "dummy_steps.dummy.py").write_text(
-        "def read(ctx):\n    return float(len(ctx['solve_s']))\n")
+    (base / "metrics" / f"{reader}.py").write_text(
+        f"def read(ctx):\n    return {reads}\n")
     manifest = json.loads((root / "BENCHMARK.json").read_text())
     manifest["configs"].append(dict(BENCH["configs"][0], name="dummy-config",
                                     file="amgbench/configs/dummy-config.json"))
@@ -57,15 +61,26 @@ def test_new_cell_runs_from_added_files_only(tmp_path):
                                   "traffic": "dummy-traffic", "chips": 1,
                                   "why": "test"})
     manifest["per_layer"].append({
-        "name": "dummy_steps.dummy", "unit": "steps", "better": "higher",
+        "name": reader, "unit": "steps", "better": "higher",
         "source": "host_clock", "layer": "solve", "moves": "hot_step_ms",
         "workloads": ["dummy.cell"]})
     manifest["end_to_end"][1]["workloads"].append("dummy.cell")
     (root / "BENCHMARK.json").write_text(json.dumps(manifest))
-    before = {p: p.read_bytes() for p in (ROOT / "amgbench").rglob("*")
-              if p.is_file() and "__pycache__" not in p.parts}
     cell = harness.load_cell(root, "dummy.cell", base=base)
     harness.prepare_env(cell)
+    return cell, base
+
+
+def _tree():
+    return {p: p.read_bytes() for p in (ROOT / "amgbench").rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_new_cell_runs_from_added_files_only(tmp_path):
+    """A new configuration, traffic mix and per-layer metric, added as
+    files with a manifest entry, run without an edit to any file."""
+    before = _tree()
+    cell, base = _dummy_cell(tmp_path)
     out = harness.run_cell(cell, 7, 0.5, True, time.perf_counter(),
                            device="cpu", base=base)
     assert out["correct"], out["checks"]
@@ -76,9 +91,62 @@ def test_new_cell_runs_from_added_files_only(tmp_path):
     assert set(out["metrics"]) == {"setup_s", "hot_step_ms",
                                    "peak_device_gib"}
     assert list(out)[-1] == "checks"
-    after = {p: p.read_bytes() for p in (ROOT / "amgbench").rglob("*")
-             if p.is_file() and "__pycache__" not in p.parts}
-    assert after == before
+    assert _tree() == before
+
+
+ADDED_LOOP = '''"""The coefficient loop, found by its file's name."""
+from amgbench.generators import CoefficientLoop
+
+
+class Loop(CoefficientLoop):
+    def layer_context(self, trace):
+        return dict(super().layer_context(trace), loop_file=__file__)
+'''
+
+
+def test_new_loop_file_runs_on_one_chip(tmp_path):
+    """A traffic mix whose generator is a loop in a new file under
+    ``loops/``: the cell runs in this process, with its judge."""
+    before = _tree()
+    cell, base = _dummy_cell(tmp_path, generator="dummy_loop",
+                             reader="dummy_loop_file.dummy",
+                             reads="float(ctx['loop_file'].endswith("
+                                   "'dummy_loop.py'))")
+    (base / "loops").mkdir()
+    (base / "loops" / "dummy_loop.py").write_text(ADDED_LOOP)
+    out = harness.run_cell(cell, 7, 0.5, True, time.perf_counter(),
+                           device="cpu", base=base)
+    assert out["correct"], out["checks"]
+    assert out["metrics"]["dummy_loop_file.dummy"]["value"] == 1.0
+    assert out["device"]["count"] == 1
+    assert list(out["checks"]) == list(harness.limits())
+    assert _tree() == before
+    cell.traffic = dict(cell.traffic, generator="no_such_loop")
+    with pytest.raises(harness.Refused, match="no_such_loop"):
+        harness.run_cell(cell, 7, 0.5, False, time.perf_counter(),
+                         device="cpu", base=base)
+
+
+@pytest.mark.parametrize("traffic", ["coeff", "serve"])
+def test_make_judge_is_the_whole_cube_judge(traffic):
+    """Each loop's own judge gives what the harness's judge of one whole
+    Q1 cube on the set-up aggregates gave (m=8, one step or round)."""
+    import torch
+    from amgbench.reference.judge import Judge
+    cfg = json.loads((ROOT / BENCH["configs"][0]["file"]).read_text())
+    cfg["elasticity"].update(m=8, coarse_size=16)
+    t = json.loads((ROOT / "amgbench" / "traffic" / f"{traffic}.json")
+                   .read_text())
+    cpu = torch.device("cpu")
+    loop = harness.load_loop(t["generator"])(cfg, t, 5, cpu)
+    loop.warmup()
+    loop.window(1e-3, spans=False)
+    assert loop.attempted >= 1
+    kept = loop.release()
+    el = loop.econf
+    whole = Judge(el.m, el.E, el.nu, loop.aggregates, cpu)
+    loop.judge(whole, kept)
+    assert harness.judge_run(loop, kept, cpu) == whole.worst
 
 
 _MODULES = """
