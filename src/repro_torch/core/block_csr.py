@@ -3,7 +3,8 @@
 Host-symbolic / device-numeric split, as in the reference:
 
 * ``indptr`` / ``indices`` (the structure) are host numpy arrays, and every
-  symbolic phase consumes them on the host;
+  symbolic phase consumes them: on the host, or, for the SpGEMM and AXPY
+  plans (``core.spgemm``), copied to the operators' device and back;
 * ``data`` (the values) is a torch tensor of dense ``(nnzb, br, bc)`` blocks
   on the chosen device.
 

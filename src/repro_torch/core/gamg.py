@@ -4,8 +4,9 @@ twin of ``repro.core.gamg``).
 ``setup``      cold phase: strength graph, aggregation (the device
                Luby-MIS coarsener by default, the host greedy covering on
                request), tentative + smoothed prolongators, every
-               SpGEMM/transpose/ELL plan — on the block format, host
-               symbolic, device numeric.
+               SpGEMM/transpose/ELL plan — on the block format; the
+               SpGEMM symbolic phases run on the operators' device and
+               keep numpy plans, the numeric ones run on the device.
 ``recompute``  hot phase: new fine-operator values, same structure; every
                level operator is rebuilt through the cached PtAP plans,
                plus ``dinv``, ``lam_max`` and the coarse Cholesky.
@@ -180,7 +181,11 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
     ``coarse_eq_limit`` is the distributed placement hint (equations per
     rank at or below which a level is agglomerated); the single-device
     path ignores it and ``repro_torch.dist.solver.build_dist_gamg``
-    consumes it.
+    consumes it.  Each level's phases run in ``obs.trace.host_span``
+    ranges: ``setup/strength``, ``setup/aggregate``, ``setup/tentative``,
+    ``setup/symbolic`` (the SpGEMM, AXPY and PtAP plans) and
+    ``setup/numeric`` (the rest of the prolongator smoothing, the
+    Galerkin product, the level's ELL and transpose plans).
     """
     precision = backend.resolve_precision(precision)
     if A.br != A.bc:
@@ -200,35 +205,43 @@ def setup(A: BlockCSR, B: torch.Tensor, *, theta: float = 0.08,
              "level_bs": [A.br], "conversions_to_scalar": 0}
     if coarsener == "mis":
         stats["mis_rounds"] = []
+    span = obs_trace.host_span
     while Acur.nbr > coarse_size and len(levels) < max_levels - 1:
         bs = Acur.br
-        graph = strength_graph(Acur, theta)
-        if coarsener == "mis":
-            idx, mask = graph_to_ell(graph, A.device)
-            agg, rounds = mis_aggregate_rounds(idx, mask)
-            stats["mis_rounds"].append(rounds)
-            aggr = _repair_small_aggregates(aggregation_from_device(agg),
-                                            graph, min_size=-(-nns // bs))
-        else:
-            aggr = greedy_aggregate(graph, min_size=-(-nns // bs))
+        with span("setup/strength"):
+            graph = strength_graph(Acur, theta)
+        with span("setup/aggregate"):
+            if coarsener == "mis":
+                idx, mask = graph_to_ell(graph, A.device)
+                agg, rounds = mis_aggregate_rounds(idx, mask)
+                stats["mis_rounds"].append(rounds)
+                aggr = _repair_small_aggregates(
+                    aggregation_from_device(agg), graph,
+                    min_size=-(-nns // bs))
+            else:
+                aggr = greedy_aggregate(graph, min_size=-(-nns // bs))
         if aggr.n_agg >= Acur.nbr:        # no coarsening possible
             break
-        Ptent, Bc = tentative_prolongator(aggr, Bcur, bs)
+        with span("setup/tentative"):
+            Ptent, Bc = tentative_prolongator(aggr, Bcur, bs)
         P, omega, _lam, _plans = smoothed_prolongator(Acur, Ptent)
-        cache = ptap_symbolic(Acur, P)
-        a_next = ptap_numeric_data(cache, Acur.data, P.data)
-        Anext = BlockCSR.from_arrays(cache.ac_plan.indptr,
-                                     cache.ac_plan.indices, a_next,
-                                     cache.n_coarse)
-        p_ell = P.to_ell()
-        if restriction == "stored":
-            R = transpose_bcsr(P)
-            r_ell, pt = R.to_ell(), None
-        else:
-            R, r_ell = None, None
-            pt = transpose_apply_plan(P, p_ell.kmax)
+        with span("setup/symbolic"):
+            cache = ptap_symbolic(Acur, P)
+        with span("setup/numeric"):
+            a_next = ptap_numeric_data(cache, Acur.data, P.data)
+            Anext = BlockCSR.from_arrays(cache.ac_plan.indptr,
+                                         cache.ac_plan.indices, a_next,
+                                         cache.n_coarse)
+            p_ell = P.to_ell()
+            if restriction == "stored":
+                R = transpose_bcsr(P)
+                r_ell, pt = R.to_ell(), None
+            else:
+                R, r_ell = None, None
+                pt = transpose_apply_plan(P, p_ell.kmax)
+            a_ell_plan = Acur.ell_plan()
         levels.append(LevelSetup(
-            A0=Acur, P=P, ptap_cache=cache, a_ell_plan=Acur.ell_plan(),
+            A0=Acur, P=P, ptap_cache=cache, a_ell_plan=a_ell_plan,
             p_ell=p_ell, aggr=aggr, omega=omega, n_fine=Acur.nbr,
             n_coarse=aggr.n_agg, pt=pt, R=R, r_ell=r_ell))
         stats["level_rows"].append(Anext.nbr * Anext.br)

@@ -1,12 +1,13 @@
 """Galerkin triple product A_c = P^T A P with cached plans (torch twin of
 ``repro.core.ptap``; paper Sec. 3.5).
 
-``ptap_symbolic(A, P)`` builds the prolongator-side ``PtAPCache`` once on
-the host (the transpose permutation and both SpGEMM plans, structure
-only); ``ptap_numeric_data`` is the hot PtAP: two cached numeric SpGEMMs
-on the device, no symbolic work.  ``ptap`` is the front door with
-PETSc's state gate: the cache is reused while P's and A's structure
-tokens (``BlockCSR.state_token``) are the ones it was built for.
+``ptap_symbolic(A, P)`` builds the prolongator-side ``PtAPCache`` once
+(the transpose permutation on the host and both SpGEMM plans on the
+operators' device, structure only); ``ptap_numeric_data`` is the hot
+PtAP: two cached numeric SpGEMMs on the device, no symbolic work.
+``ptap`` is the front door with PETSc's state gate: the cache is reused
+while P's and A's structure tokens (``BlockCSR.state_token``) are the
+ones it was built for.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.core.block_csr import BlockCSR, device_array, \
     transpose_structure
 from repro_torch.core.spgemm import (
     SpGEMMPlan,
+    _work_device,
     spgemm_numeric_data,
     spgemm_symbolic,
 )
@@ -48,16 +50,18 @@ def _structure(indptr, indices, nbc, br, bc, dtype) -> BlockCSR:
 
 def ptap_symbolic(A: BlockCSR, P: BlockCSR) -> PtAPCache:
     """Cold symbolic phase: transpose plan + both SpGEMM plans (structure
-    only; never touches A.data or P.data)."""
+    only; never touches A.data or P.data), the products' on the
+    operators' device."""
     if A.nbc != P.nbr or A.bc != P.br:
         raise ValueError("A (f x f) must feed P (f x c)")
     r_indptr, r_indices, r_perm = transpose_structure(P.indptr, P.indices,
                                                       P.nbc)
     R = _structure(r_indptr, r_indices, P.nbr, P.bc, P.br, P.data.dtype)
-    ap_plan = spgemm_symbolic(A, P)
+    dev = _work_device(A, P)
+    ap_plan = spgemm_symbolic(A, P, device=dev)
     AP = _structure(ap_plan.indptr, ap_plan.indices, ap_plan.nbc,
                     ap_plan.br, ap_plan.bc, A.data.dtype)
-    ac_plan = spgemm_symbolic(R, AP)
+    ac_plan = spgemm_symbolic(R, AP, device=dev)
     return PtAPCache(r_indptr=r_indptr, r_indices=r_indices, r_perm=r_perm,
                      ap_plan=ap_plan, ac_plan=ac_plan, n_coarse=P.nbc,
                      p_state=P.state_token, a_struct_state=A.state_token)

@@ -66,23 +66,31 @@ def smoothed_prolongator(A: BlockCSR, P_tent: BlockCSR,
                          ) -> Tuple[BlockCSR, torch.Tensor, torch.Tensor,
                                     dict]:
     """One damped-Jacobi smoothing step of the tentative prolongator.
-    Returns (P, omega, lam_max, plans)."""
-    dinv = invert_diag_blocks(A.diagonal_blocks())
-    dinva_data = scale_rows_data(A, dinv)
-    if lam_max is None:
-        plan = A.ell_plan()
-        ell = plan.build(dinva_data)
-        lam_max = lambda_max_dinv_a(ell.indices, ell.data)
-    omega = omega_scale / lam_max
-    DinvA = A.with_data(dinva_data)
-    ap_plan = spgemm_symbolic(DinvA, P_tent)
-    ap_data = spgemm_numeric_data(ap_plan, dinva_data, P_tent.data)
-    AP = BlockCSR.from_arrays(ap_plan.indptr, ap_plan.indices, ap_data,
-                              ap_plan.nbc)
-    axpy_plan = block_axpy_symbolic(AP, P_tent)
-    p_data = block_axpy_numeric_data(axpy_plan, -omega, ap_data, P_tent.data)
-    P = BlockCSR.from_arrays(axpy_plan.indptr, axpy_plan.indices, p_data,
-                             axpy_plan.nbc)
+    Returns (P, omega, lam_max, plans).  The plans are built in
+    ``setup/symbolic`` ranges, the payloads in ``setup/numeric`` ones
+    (``obs.trace.host_span``)."""
+    span = obs_trace.host_span
+    with span("setup/numeric"):
+        dinv = invert_diag_blocks(A.diagonal_blocks())
+        dinva_data = scale_rows_data(A, dinv)
+        if lam_max is None:
+            plan = A.ell_plan()
+            ell = plan.build(dinva_data)
+            lam_max = lambda_max_dinv_a(ell.indices, ell.data)
+        omega = omega_scale / lam_max
+    with span("setup/symbolic"):
+        ap_plan = spgemm_symbolic(A, P_tent)
+    with span("setup/numeric"):
+        ap_data = spgemm_numeric_data(ap_plan, dinva_data, P_tent.data)
+        AP = BlockCSR.from_arrays(ap_plan.indptr, ap_plan.indices, ap_data,
+                                  ap_plan.nbc)
+    with span("setup/symbolic"):
+        axpy_plan = block_axpy_symbolic(AP, P_tent)
+    with span("setup/numeric"):
+        p_data = block_axpy_numeric_data(axpy_plan, -omega, ap_data,
+                                         P_tent.data)
+        P = BlockCSR.from_arrays(axpy_plan.indptr, axpy_plan.indices,
+                                 p_data, axpy_plan.nbc)
     return P, omega, lam_max, dict(ap_plan=ap_plan, axpy_plan=axpy_plan)
 
 

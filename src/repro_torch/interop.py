@@ -6,7 +6,7 @@ hierarchies — handed over as numpy arrays — so hot-path parity can be
 checked apart from cold-setup parity; likewise an LM's param tree, its
 decode cache and a training state (params and optimizer moments).
 Structures are taken as given; every plan is rebuilt by the port's own
-symbolic phases (host numpy).
+symbolic phases (numpy plans; the SpGEMM ones computed on the device).
 Payloads keep their own dtype (f64, f32, or bf16 as ``ml_dtypes``'
 ``bfloat16``, carried bitwise through its 16-bit pattern), so a
 reduced-precision hierarchy crosses as it is.  Imports nothing but numpy,

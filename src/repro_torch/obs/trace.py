@@ -60,7 +60,13 @@ names:
                 ``server/flush/pack`` (the host panel), ``.../upload``
                 (its copy to the device), ``.../solve`` (the panel
                 solve), ``.../fetch`` (the results' copies to the host)
-                and ``.../report`` (the per-request reports).
+                and ``.../report`` (the per-request reports);
+``setup/strength``, ``setup/aggregate``, ``setup/tentative``,
+``setup/symbolic``, ``setup/numeric``
+                the phases of each level of the cold ``gamg.setup``: the
+                strength graph, the coarsener, the tentative
+                prolongator, the SpGEMM / AXPY / PtAP plans, and the
+                payload work with the level's ELL and transpose plans.
 """
 from __future__ import annotations
 

@@ -504,6 +504,58 @@ def test_launch_record_notes_each_launch_and_its_grid(dev, nbr, threads):
         before + 1, -(-3 * nbr // threads), threads)
 
 
+PLAN_FIELDS = ("indptr", "indices", "pair_a", "pair_b", "out_idx",
+               "tile_pair_a", "tile_pair_b", "tile_mask", "tile_seg")
+
+
+def _same_fields(got, want, names):
+    for name in names:
+        g, w = getattr(got, name), getattr(want, name)
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_symbolic_plans_on_card_equal_cpu(dev):
+    """The symbolic phases on the card, at m=8 (host assembly, greedy,
+    coarse_size 12): every level's aggregates and both PtAP plans equal
+    the port's on the CPU, bitwise; level 0's A P product and its AXPY
+    union with P, in row ranges of 7 pairs (blocks) on the card, equal
+    the one-range plans on the CPU."""
+    from repro_torch.core import gamg
+    from repro_torch.core.block_csr import BlockCSR
+    from repro_torch.core.spgemm import block_axpy_symbolic, \
+        spgemm_symbolic
+    out = {}
+    for d in ("cpu", dev):
+        prob = assemble_elasticity(8, path="host", device=d)
+        out[str(d)] = gamg.setup(prob.A, prob.B, coarse_size=12,
+                                 coarsener="greedy")
+    cpu, card = out.values()
+    assert card.stats["level_rows"] == cpu.stats["level_rows"]
+    assert len(card.levels) >= 2
+    for a, b in zip(cpu.levels, card.levels):
+        np.testing.assert_array_equal(a.aggr.node_to_agg, b.aggr.node_to_agg)
+        for name in ("ap_plan", "ac_plan"):
+            want, got = getattr(a.ptap_cache, name), \
+                getattr(b.ptap_cache, name)
+            _same_fields(got, want, PLAN_FIELDS)
+            assert (got.nnzb, got.tile_identity) == \
+                (want.nnzb, want.tile_identity)
+    ls, ls_cpu = card.levels[0], cpu.levels[0]
+    got = spgemm_symbolic(ls.A0, ls.P, chunk_pairs=7)
+    want = spgemm_symbolic(ls_cpu.A0, ls_cpu.P, chunk_pairs=None)
+    _same_fields(got, want, PLAN_FIELDS)
+
+    def ap(plan, d):
+        return BlockCSR.from_arrays(plan.indptr, plan.indices, torch.zeros(
+            (plan.nnzb, plan.br, plan.bc), dtype=torch.float64, device=d),
+            plan.nbc)
+
+    got = block_axpy_symbolic(ap(got, dev), ls.P, chunk_blocks=7)
+    want = block_axpy_symbolic(ap(want, "cpu"), ls_cpu.P, chunk_blocks=None)
+    _same_fields(got, want, ("indptr", "indices", "x_slot", "y_slot"))
+
+
 def test_mis_aggregates_on_card_match_cpu(dev):
     """The device Luby-MIS coarsener on the card, at m=7 (device
     assembly, coarse_size 12): levels, rounds and aggregates equal the

@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.spgemm import spgemm_numeric_data as ref_spgemm  # noqa: E402
 from repro.core.spgemm import spgemm_symbolic as ref_symbolic  # noqa: E402
+from repro.core.spgemm import block_axpy_symbolic as ref_axpy  # noqa: E402
 from repro.core.block_csr import BlockELL as RefELL  # noqa: E402
 from repro.core.spmv import spmm_ell as ref_spmm_ell  # noqa: E402
 from repro.kernels.block_pair_gemm.block_pair_gemm import (  # noqa: E402
@@ -173,6 +174,42 @@ def _product(rng, br, bk, bc, skew=False):
         A = BlockCSR.from_arrays(indptr, indices, data, 15)
         B = random_bcsr(rng, 15, 3, bk, bc, density=0.9)
     return A, B
+
+
+SPGEMM_PLAN_FIELDS = ("indptr", "indices", "pair_a", "pair_b", "out_idx",
+                      "tile_pair_a", "tile_pair_b", "tile_mask", "tile_seg")
+
+
+def _same_fields(got, want, names):
+    for name in names:
+        g, w = getattr(got, name), np.asarray(getattr(want, name))
+        assert isinstance(g, np.ndarray), name
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, None])
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("br,bk,bc", PRODUCTS)
+def test_symbolic_plans_are_the_references_at_any_chunk(br, bk, bc, skew,
+                                                        chunk):
+    """The torch symbolic phases, in row ranges of 1 or 7 pairs (blocks)
+    or in one, give every plan field of ``repro``'s numpy ones: dtype,
+    shape and values."""
+    rng = np.random.default_rng(600 + br * 100 + bk * 10 + bc + 5 * skew)
+    A, B = _product(rng, br, bk, bc, skew=skew)
+    tA = bcsr_from_numpy(**bcsr_dict(A), device="cpu")
+    tB = bcsr_from_numpy(**bcsr_dict(B), device="cpu")
+    want = ref_symbolic(A, B)
+    got = t_spgemm.spgemm_symbolic(tA, tB, chunk_pairs=chunk)
+    _same_fields(got, want, SPGEMM_PLAN_FIELDS)
+    assert (got.nnzb, got.tile_identity) == (want.nnzb, want.tile_identity)
+    Y = random_bcsr(rng, A.nbr, A.nbc, br, bk, density=0.3)
+    tY = bcsr_from_numpy(**bcsr_dict(Y), device="cpu")
+    want = ref_axpy(A, Y)
+    got = t_spgemm.block_axpy_symbolic(tA, tY, chunk_blocks=chunk)
+    _same_fields(got, want, ("indptr", "indices", "x_slot", "y_slot"))
+    assert got.nnzb == want.nnzb
 
 
 @pytest.mark.parametrize("br,bk,bc", PRODUCTS)
