@@ -501,6 +501,8 @@ def reset_counts():
         mod.launches_by_dtype = dict.fromkeys(mod.launches_by_dtype, 0)
         if hasattr(mod, "launches_by_shape"):
             mod.launches_by_shape = dict.fromkeys(mod.launches_by_shape, 0)
+        if hasattr(mod, "launches_by_body"):
+            mod.launches_by_body = dict.fromkeys(mod.launches_by_body, 0)
 
 
 def read_counts() -> dict:
@@ -2444,15 +2446,17 @@ def build_cases(run: dict, device, dtype=None, extra_ells=()) -> list:
             cases.append(Case(
                 "fused_smoother", f"A{li} ({a.nbr},{a.kmax},{bs},{bs})"
                 + ("" if k is None else f" k={k}"),
-                lambda threads=None, args=args: smooth.smoother_step_ell(
-                    *args, threads=threads),
+                lambda threads=None, args=args, a=a:
+                smooth.smoother_step_ell(*args, threads=threads,
+                                         lengths=a.lengths),
                 lambda args=args: smoother_step_ref(*args),
                 nbytes=nnz * (bs * bs * es + 4) + a.nbr * bs * bs * es
                 + 5 * a.nbr * bs * (k or 1) * es,
                 flops=(k or 1) * (2 * nnz * bs * bs + 2 * a.nbr * bs * bs
                                   + 4 * a.nbr * bs),
-                lanes=nl, at_lanes=lambda n, args=args:
-                smooth.launch_lanes(*args, n, DEFAULT_THREADS)))
+                lanes=nl, at_lanes=lambda n, args=args, a=a:
+                smooth.launch_lanes(*args, n, DEFAULT_THREADS,
+                                    lengths=a.lengths)))
         # pbjacobi at the level's dinv shape; torch.baddbmm computes the
         # same x + omega * dinv @ r in one call
         r, x = randn(a.nbr, bs), randn(a.nbr, bs)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -126,7 +126,8 @@ class BlockCSR:
         sel[for_r, within] = np.arange(self.nnzb)
         mask = sel >= 0
         gather = np.where(mask, sel, 0)
-        return ELLPlan(indices=idx, gather=gather, mask=mask, nbc=self.nbc)
+        return ELLPlan(indices=idx, gather=gather, mask=mask,
+                       lengths=counts.astype(np.int32), nbc=self.nbc)
 
     def to_ell(self) -> "BlockELL":
         return self.ell_plan().build(self.data)
@@ -156,6 +157,7 @@ class ELLPlan:
     indices: np.ndarray   # (nbr, kmax) int32, padded -> block col 0
     gather: np.ndarray    # (nbr, kmax) int64 into BCSR data
     mask: np.ndarray      # (nbr, kmax) bool
+    lengths: np.ndarray   # (nbr,) int32 valid slots a row, first in it
     nbc: int
 
     def ell_data(self, data: torch.Tensor) -> torch.Tensor:
@@ -173,7 +175,9 @@ class ELLPlan:
                                              torch.int32),
                         data=self.ell_data(data),
                         mask=device_array(self, "mask", dev, torch.bool),
-                        nbc=self.nbc)
+                        nbc=self.nbc,
+                        lengths=device_array(self, "lengths", dev,
+                                             torch.int32))
 
 
 @dataclasses.dataclass
@@ -184,6 +188,9 @@ class BlockELL:
     data: torch.Tensor      # (nbr, kmax, br, bc); padded blocks exactly zero
     mask: torch.Tensor      # (nbr, kmax) bool
     nbc: int
+    #: (nbr,) int32 valid slots a row (they come first), on the data's
+    #: device; None: unknown, a kernel then walks every row to kmax
+    lengths: Optional[torch.Tensor] = None
 
     @property
     def nbr(self) -> int:

@@ -132,9 +132,16 @@ def setup_from_numpy(levels: Sequence[dict], coarse: dict, *,
 
 
 def _ell(d: dict, dev) -> BlockELL:
+    """A BlockELL from its arrays, with each row's length from the mask
+    (valid slots come first in a row, as every ELL plan lays them)."""
+    mask = np.asarray(d["mask"], bool)
+    lengths = mask.sum(axis=1).astype(np.int32)
+    if not np.array_equal(mask, np.arange(mask.shape[1]) < lengths[:, None]):
+        raise ValueError("ELL mask: valid slots must come first in a row")
     return BlockELL(indices=_t(d["indices"], dev, torch.int32),
                     data=_t(d["data"], dev),
-                    mask=_t(d["mask"], dev, torch.bool), nbc=int(d["nbc"]))
+                    mask=_t(mask, dev, torch.bool), nbc=int(d["nbc"]),
+                    lengths=_t(lengths, dev, torch.int32))
 
 
 def hierarchy_from_numpy(levels: Sequence[dict], coarse_chol, *,

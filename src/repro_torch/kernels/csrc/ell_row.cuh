@@ -49,51 +49,60 @@ __device__ __forceinline__ void load_block_row(
   }
 }
 
+// One slot of a row: acc[a][j] += blk[a][b] * x[b][j] as FMAs at the
+// accumulator (Num<Acc>), over a, then b, then j, for the first ncol of
+// KC columns of the slot's x block xb (row stride ld; the other columns
+// of acc take exact zeros).  ell_row_lanes and fused_smoother's staged
+// body both run it, so each (a, j) sees the same chain of FMAs in either.
+template <int BR, int BC, int KC, typename T, typename Acc>
+__device__ __forceinline__ void ell_slot(
+    const T* __restrict__ blk, const T* __restrict__ xb, int ld, int ncol,
+    typename Num<Acc>::R (&acc)[BR][KC]) {
+  using N = Num<Acc>;
+  using R = typename N::R;
+  R xv[BC][KC];
+#pragma unroll
+  for (int b = 0; b < BC; ++b) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j)
+      xv[b][j] =
+          j < ncol ? widen(xb[static_cast<long long>(b) * ld + j]) : R(0);
+  }
+#pragma unroll
+  for (int a = 0; a < BR; ++a) {
+    R w[BC];
+    load_block_row<BC, T>(blk + a * BC, w);
+#pragma unroll
+    for (int b = 0; b < BC; ++b) {
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        acc[a][j] = N::fma(w[b], xv[b][j], acc[a][j]);
+    }
+  }
+}
+
 // One lane's share of a block row owned by a sub-warp of `lanes` lanes
 // (aligned within the warp): the slots s = lane, lane + lanes, ... below
-// kmax, ascending.  acc[a][j] = sum over those slots, then over b, of
-// blk[s][a][b] * x[col(s)][b][j], as FMAs at the accumulator (Num<Acc>)
-// into acc[a][j] in that order (padded slots are zero blocks at column 0
-// and add exact zeros), for the first ncol of KC columns (the rest stay
-// 0).  The chain of one (a, j) does not depend on KC, so a panel column
-// runs the vector's chain.  Neighbouring lanes read neighbouring slots,
-// so a sub-warp reads lanes * br * bc consecutive elements of the row per
-// step.
+// kmax, ascending, each through ell_slot into acc (padded slots are zero
+// blocks at column 0 and add exact zeros); acc starts at 0.  The chain of
+// one (a, j) does not depend on KC, so a panel column runs the vector's
+// chain.  Neighbouring lanes read neighbouring slots, so a sub-warp reads
+// lanes * br * bc consecutive elements of the row per step.
 template <int BR, int BC, int KC, typename T, typename Acc>
 __device__ __forceinline__ void ell_row_lanes(
     const int* __restrict__ ri, const T* __restrict__ rd,
     const T* __restrict__ x, int ld, int ncol, int kmax, int lane,
     int lanes, typename Num<Acc>::R (&acc)[BR][KC]) {
-  using N = Num<Acc>;
-  using R = typename N::R;
+  using R = typename Num<Acc>::R;
 #pragma unroll
   for (int a = 0; a < BR; ++a) {
 #pragma unroll
     for (int j = 0; j < KC; ++j) acc[a][j] = R(0);
   }
-  for (int s = lane; s < kmax; s += lanes) {
-    const T* xb = x + static_cast<long long>(ri[s]) * BC * ld;
-    R xv[BC][KC];
-#pragma unroll
-    for (int b = 0; b < BC; ++b) {
-#pragma unroll
-      for (int j = 0; j < KC; ++j)
-        xv[b][j] =
-            j < ncol ? widen(xb[static_cast<long long>(b) * ld + j]) : R(0);
-    }
-    const T* blk = rd + static_cast<long long>(s) * BR * BC;
-#pragma unroll
-    for (int a = 0; a < BR; ++a) {
-      R w[BC];
-      load_block_row<BC, T>(blk + a * BC, w);
-#pragma unroll
-      for (int b = 0; b < BC; ++b) {
-#pragma unroll
-        for (int j = 0; j < KC; ++j)
-          acc[a][j] = N::fma(w[b], xv[b][j], acc[a][j]);
-      }
-    }
-  }
+  for (int s = lane; s < kmax; s += lanes)
+    ell_slot<BR, BC, KC, T, Acc>(
+        rd + static_cast<long long>(s) * BR * BC,
+        x + static_cast<long long>(ri[s]) * BC * ld, ld, ncol, acc);
 }
 
 // The sub-warp's partials combined by a fixed xor butterfly (offsets

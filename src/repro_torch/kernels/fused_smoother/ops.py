@@ -18,7 +18,7 @@ from repro_torch.obs import trace as obs_trace
 
 SHAPES = (3, 6)
 _ARGS = (backend.P,) * 9 + (backend.I,) * 5 + (backend.P,)
-_PANEL_ARGS = (backend.P,) * 9 + (backend.I,) * 6 + (backend.P,)
+_PANEL_ARGS = (backend.P,) * 10 + (backend.I,) * 6 + (backend.P,)
 
 #: kernel launches since the last reset (plain-version calls do not count)
 launches = 0
@@ -28,6 +28,10 @@ launches_by_dtype = dict.fromkeys(backend.PAYLOADS.values(), 0)
 #: for the blocked step, ``(1, bs)`` for the scalar-row step
 launches_by_shape = dict.fromkeys(
     [(bs, bs) for bs in SHAPES] + [(1, bs) for bs in SHAPES], 0)
+#: the same launches by the kernel body that ran them: "staged" for 6x6
+#: panels (k > 1, the rule of ``launch()`` in ``csrc/fused_smoother.cu``),
+#: "sub_warp" for every other blocked launch and the scalar-row step
+launches_by_body = {"sub_warp": 0, "staged": 0}
 
 
 @obs_trace.spanned("kernels/fused_smoother")
@@ -35,11 +39,16 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
                       dinv: torch.Tensor, b_blocks: torch.Tensor,
                       x_blocks: torch.Tensor, d_blocks: torch.Tensor,
                       coef: torch.Tensor, *, threads: int | None = None,
-                      accum_dtype=None):
+                      accum_dtype=None, lengths: torch.Tensor | None = None):
     """``(x', d')`` for one fused step over ``(nbr, bs)`` block vectors or
     ``(nbr, bs, k)`` panels; A square in padded BlockELL form, ``dinv
     (nbr, bs, bs)``, ``coef`` a two-element device tensor ``[c1, c2]``
-    shared by all columns.  ``x'`` is a new tensor (out of place).  Each
+    shared by all columns.  ``x'`` is a new tensor (out of place).
+    ``lengths`` (int32 ``(nbr,)``, the ELL's valid slots a row; None:
+    every row runs to ``kmax``) goes to the panel entry, whose staged body
+    (6x6 blocks, ``k > 1``) reads no slot past a row's length; padded
+    blocks are zero, so the result is the same either way and the vector
+    entry and the plain version ignore it.  Each
     block row takes ``ell_rows.lanes(bs, bs, kmax)`` lanes, as in
     ``block_spmv``, so the step's ``A x`` is bitwise ``block_spmv``'s and a
     panel column bitwise the vector step; ``threads`` per CUDA block,
@@ -52,7 +61,8 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
     global launches
     name = "fused_smoother"
     cuda = backend.on_cuda(name, indices=indices, data=data, dinv=dinv,
-                           b=b_blocks, x=x_blocks, d=d_blocks, coef=coef)
+                           b=b_blocks, x=x_blocks, d=d_blocks, coef=coef,
+                           lengths=lengths)
     nbr, kmax, bs, bs2 = data.shape
     keys = dict(br=bs, bc=bs2, kmax=kmax)
     if b_blocks.ndim == 3:
@@ -74,18 +84,21 @@ def smoother_step_ell(indices: torch.Tensor, data: torch.Tensor,
             or tuple(dinv.shape) != (nbr, bs, bs)
             or any(tuple(v.shape) != vec for v in (b_blocks, x_blocks,
                                                     d_blocks))
-            or tuple(coef.shape) != (2,)):
+            or tuple(coef.shape) != (2,)
+            or (lengths is not None and tuple(lengths.shape) != (nbr,))):
         raise ValueError(f"{name}: operand shapes disagree with A "
                          f"{tuple(data.shape)}")
     backend.check_kernel_args(
         name, dict(data=data, dinv=dinv, b=b_blocks, x=x_blocks, d=d_blocks,
-                   coef=coef), dict(indices=indices))
+                   coef=coef), dict(indices=indices, lengths=lengths))
     ell_rows.check_payload(name, data)
     out = launch_lanes(indices, data, dinv, b_blocks, x_blocks, d_blocks,
-                       coef, lanes, threads, accum_dtype)
+                       coef, lanes, threads, accum_dtype, lengths=lengths)
     launches += 1
     launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
     launches_by_shape[(bs, bs)] += 1
+    k = vec[2] if len(vec) == 3 else 1
+    launches_by_body["staged" if bs == 6 and k > 1 else "sub_warp"] += 1
     return out
 
 
@@ -93,11 +106,13 @@ def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
                  dinv: torch.Tensor, b_blocks: torch.Tensor,
                  x_blocks: torch.Tensor, d_blocks: torch.Tensor,
                  coef: torch.Tensor, lanes: int, threads: int,
-                 accum_dtype=None):
+                 accum_dtype=None, lengths: torch.Tensor | None = None):
     """``(x', d')`` from the kernel at an explicit ``lanes`` (the wrapper
     passes ``ell_rows.lanes``; the card tests and ``chip_smoke.py`` sweep
     it).  Takes checked CUDA tensors, counts no launch; the C entry points
-    refuse a ``lanes`` that is not a power of two <= 32."""
+    refuse a ``lanes`` that is not a power of two <= 32.  ``lengths`` goes
+    to the panel entry (a null pointer for None); the vector entry takes
+    none."""
     nbr, kmax, bs, _ = data.shape
     vec = tuple(b_blocks.shape)
     x_new = torch.empty(vec, dtype=data.dtype, device=data.device)
@@ -110,8 +125,8 @@ def launch_lanes(indices: torch.Tensor, data: torch.Tensor,
     if len(vec) == 2:
         backend.launch(fn, _ARGS, *ptrs, nbr, kmax, bs, lanes, threads)
     else:
-        backend.launch(fn, _PANEL_ARGS, *ptrs, nbr, kmax, bs, vec[2], lanes,
-                       threads)
+        backend.launch(fn, _PANEL_ARGS, ptrs[0], p(lengths), *ptrs[1:], nbr,
+                       kmax, bs, vec[2], lanes, threads)
     return x_new, d_new
 
 
@@ -165,6 +180,7 @@ def smoother_step_scalar_ell(indices: torch.Tensor, data: torch.Tensor,
     launches += 1
     launches_by_dtype[backend.PAYLOADS[data.dtype]] += 1
     launches_by_shape[(1, bs)] += 1
+    launches_by_body["sub_warp"] += 1
     return out
 
 
@@ -204,11 +220,12 @@ def smoother_step_scalar(a_ell: BlockELL, dinv: torch.Tensor,
 def smoother_step(a_ell: BlockELL, dinv: torch.Tensor, b: torch.Tensor,
                   x: torch.Tensor, d: torch.Tensor, coef: torch.Tensor, *,
                   threads: int | None = None, accum_dtype=None):
-    """The fused step on flat ``(n,)`` vectors or ``(n, k)`` panels;
-    returns ``(x', d')``."""
+    """The fused step on flat ``(n,)`` vectors or ``(n, k)`` panels, with
+    the ELL's row lengths; returns ``(x', d')``."""
     shape = (a_ell.nbr, a_ell.br) + tuple(b.shape[1:])
     x_new, d_new = smoother_step_ell(a_ell.indices, a_ell.data, dinv,
                                      b.reshape(shape), x.reshape(shape),
                                      d.reshape(shape), coef, threads=threads,
-                                     accum_dtype=accum_dtype)
+                                     accum_dtype=accum_dtype,
+                                     lengths=a_ell.lengths)
     return x_new.reshape(b.shape), d_new.reshape(b.shape)

@@ -922,6 +922,122 @@ def test_smoother_c_entries_refuse_misaligned_payloads(dev):
             _step((idx, off, dinv, coef), v)
 
 
+def _ragged_rows(op, seed):
+    """``op`` as a padded ELL operator: random row lengths (0, 1 and kmax
+    among them), each row's slots past its length zero blocks at column 0,
+    as ``ELLPlan`` lays them; returns ``(op, lengths)``."""
+    idx, data, dinv, coef = op
+    nbr, kmax = idx.shape
+    g = torch.Generator(device=idx.device).manual_seed(seed)
+    lengths = torch.randint(0, kmax + 1, (nbr,), generator=g,
+                            device=idx.device, dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, kmax], dtype=torch.int32)
+    valid = torch.arange(kmax, device=idx.device) < lengths[:, None]
+    return (torch.where(valid, idx, 0).to(torch.int32),
+            torch.where(valid[..., None, None], data, 0), dinv,
+            coef), lengths
+
+
+@pytest.mark.parametrize("kmax", [45, 490, 796])
+def test_staged_smoother_skips_the_padded_tail(dev, kmax):
+    """The staged body (6x6 panels) at ragged rows, every lanes value and
+    panel width 2, 3, 16, 17: with the rows' lengths each column is
+    bitwise the vector step (the sub-warp body, which walks all kmax
+    slots), ``lengths=None`` is bitwise ``lengths = kmax`` and the padded
+    result, every ``threads`` candidate is bitwise the 256-thread launch,
+    and NaN payloads past the lengths change nothing: the tail is never
+    read."""
+    op, vecs = _smoother_operands(dev, 170 + kmax, 37, kmax, 6,
+                                  ks=(2, 3, 16, 17))
+    op, lengths = _ragged_rows(op, kmax)
+    idx, data, dinv, coef = op
+    full = torch.full_like(lengths, kmax)
+    tail = torch.arange(kmax, device=dev) >= lengths[:, None]
+    nan_data = data.masked_fill(tail[..., None, None], float("nan"))
+    threads = autotune.CANDIDATES["fused_smoother"]["threads"] + (1024,)
+    for lanes in LANES:
+        for k in (2, 3, 16, 17):
+            v = vecs[k]
+            got = smooth_ops.launch_lanes(*op[:3], *v, coef, lanes, 256,
+                                          lengths=lengths)
+            for j in range(k):
+                col = _step(op, tuple(w[:, :, j].contiguous() for w in v),
+                            lanes)
+                for a, b in zip(got, col):
+                    assert torch.equal(a[:, :, j], b), (lanes, k, j)
+            for ln, dat in ((None, data), (full, data), (lengths, nan_data)):
+                for a, b in zip(smooth_ops.launch_lanes(
+                        idx, dat, dinv, *v, coef, lanes, 256, lengths=ln),
+                        got):
+                    assert torch.equal(a, b), (lanes, k, ln is None)
+            for t in threads:
+                for a, b in zip(smooth_ops.launch_lanes(
+                        *op[:3], *v, coef, lanes, t, lengths=lengths), got):
+                    assert torch.equal(a, b), (lanes, k, t)
+    _close(smooth_ops.smoother_step_ell(*op[:3], *vecs[16], coef,
+                                        lengths=lengths),
+           smoother_step_ref(*op[:3], *vecs[16], coef))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("threads", [32, 256, 1024])
+def test_staged_smoother_takes_wide_panels(dev, threads):
+    """A 130-column panel on 490-slot ragged rows: more items a row than
+    any CTA has threads, taken in passes of column chunks; columns
+    bitwise the vector step, the whole close to the plain version."""
+    op, vecs = _smoother_operands(dev, 175, 19, 490, 6, ks=(130,))
+    op, lengths = _ragged_rows(op, 175)
+    v = vecs[130]
+    got = smooth_ops.launch_lanes(*op[:3], *v, op[3], 32, threads,
+                                  lengths=lengths)
+    _close(got, smoother_step_ref(*op[:3], *v, op[3]))
+    for j in (0, 1, 64, 128, 129):
+        col = _step(op, tuple(w[:, :, j].contiguous() for w in v), 32)
+        for a, b in zip(got, col):
+            assert torch.equal(a[:, :, j], b), j
+
+
+def test_staged_smoother_allocates_only_its_outputs(dev, monkeypatch):
+    """The A2-sized allocation pin with the rows' lengths: a k=16 step on
+    836 ragged rows of 490 6x6 slots raises the peak by no more than x'
+    and d' plus 1 MiB (the stages live in shared memory)."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE", "off")
+    op, vecs = _smoother_operands(dev, 141, 836, 490, 6, ks=(16,))
+    op, lengths = _ragged_rows(op, 141)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    x_new, d_new = _launch_once(smooth_ops, lambda: smooth_ops
+                                .smoother_step_ell(*op[:3], *vecs[16],
+                                                   op[3], lengths=lengths))
+    rise = torch.cuda.max_memory_allocated(dev) - before
+    assert rise <= x_new.nbytes + d_new.nbytes + (1 << 20), rise
+
+
+def test_panel_solve_stages_exactly_the_6x6_levels(dev):
+    """An m=8 panel solve launches the staged body on exactly its 6x6
+    levels' steps and the sub-warp body on the 3x3 level's; a vector solve
+    launches no staged body."""
+    prob = assemble_elasticity(8, path="host", device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12, coarsener="greedy")
+    assert all(lv.a_ell.lengths is not None
+               for lv in solver.hierarchy.levels)
+    B = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (prob.n, 4))).to(dev)
+    for name in ("launches_by_body", "launches_by_shape"):
+        counts = getattr(smooth_ops, name)
+        for key in counts:
+            counts[key] = 0
+    solver.solve_many(B)
+    shape, by_body = smooth_ops.launches_by_shape, smooth_ops.launches_by_body
+    assert by_body["staged"] == shape[(6, 6)] > 0
+    assert by_body["sub_warp"] == shape[(3, 3)] > 0
+    staged, sub_warp = by_body["staged"], by_body["sub_warp"]
+    solver.solve(B[:, 0].contiguous())
+    assert by_body["staged"] == staged
+    assert by_body["sub_warp"] > sub_warp
+
+
 # ---------------------------------------------------------------------------
 # The f32 and bf16 instantiations (the reduced-precision policies)
 # ---------------------------------------------------------------------------
@@ -1188,6 +1304,28 @@ def test_recovery_ladder_on_card(dev):
     rs.update_operator(prob.A.data)
     torch.cuda.synchronize()
     assert pair_ops.launches > before
+
+
+def test_panel_solve_flags_a_nan_column_on_staged_levels(dev):
+    """m=7 on the card: a NaN in one column's right-hand side (its block
+    0) is flagged nonfinite in that column although the staged 6x6 levels
+    no longer read the padded slots that pointed at block 0; the other
+    columns are bitwise the clean panel's."""
+    from repro_torch.robust.health import HEALTHY, NONFINITE
+    prob = assemble_elasticity(7, path="host", device=dev)
+    solver = GAMGSolver(prob.A, prob.B, coarse_size=12, coarsener="greedy")
+    assert any(lv.a_ell.br == 6 for lv in solver.hierarchy.levels)
+    B = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (prob.n, 4)), device=dev)
+    bad = B.clone()
+    bad[0, 2] = float("nan")
+    clean, hit = solver.solve_many(B), solver.solve_many(bad)
+    status = hit.health.status.tolist()
+    assert status[2] == NONFINITE
+    assert [status[j] for j in (0, 1, 3)] == [HEALTHY] * 3
+    for j in (0, 1, 3):
+        assert torch.equal(hit.x[:, j], clean.x[:, j]), j
+        assert int(hit.iters[j]) == int(clean.iters[j])
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,8 @@ def test_smoother_wrappers_pass_the_lanes_map(monkeypatch, bs, kmax,
                               lambda: smooth_ops.smoother_step_ell(
                                   *args, threads=threads))
         assert name == "repro_fused_smoother_panel_f64"
-        assert got[9:] == (5, kmax, bs, k, want, threads)
+        assert got[1] is None and got[10:] == (5, kmax, bs, k, want,
+                                               threads)
 
 
 def test_smoother_takes_block_spmv_lanes(monkeypatch):
@@ -97,6 +98,48 @@ def test_launch_lanes_passes_an_explicit_lanes(monkeypatch):
         assert smooth_ops.launches == before
 
 
+@pytest.mark.parametrize("bs,k", [(6, 16), (6, 2), (3, 16), (6, None)])
+def test_smoother_step_hands_the_ell_lengths_to_the_panel_entry(
+        monkeypatch, bs, k):
+    """``smoother_step`` passes its ELL's lengths: their pointer as the
+    panel entry's second argument (a null one for a raw operator), none to
+    the vector entry; the launch is counted under the body the C source's
+    rule picks (staged: 6x6 blocks, k > 1)."""
+    from repro_torch.core.block_csr import BlockELL
+    idx, data, dinv, b, x, d, coef = _operands(bs, 9, k=k, nbr=6, seed=k or 0)
+    lengths = torch.tensor([9, 0, 3, 1, 9, 5], dtype=torch.int32)
+    ell = BlockELL(indices=idx, data=data, mask=torch.ones(idx.shape,
+                                                           dtype=torch.bool),
+                   nbc=6, lengths=lengths)
+    flat = (lambda v: v.reshape(6 * bs, -1) if k else v.reshape(-1))
+    monkeypatch.setattr(smooth_ops, "launches_by_body",
+                        dict.fromkeys(smooth_ops.launches_by_body, 0))
+    name, got = _launched(monkeypatch, lambda: smooth_ops.smoother_step(
+        ell, dinv, flat(b), flat(x), flat(d), coef))
+    if k is None:
+        assert name == "repro_fused_smoother_f64" and len(got) == 14
+        assert lengths.data_ptr() not in got
+    else:
+        assert name == "repro_fused_smoother_panel_f64" and len(got) == 16
+        assert got[:2] == (idx.data_ptr(), lengths.data_ptr())
+    want = "staged" if bs == 6 and k and k > 1 else "sub_warp"
+    assert smooth_ops.launches_by_body == {
+        b: int(b == want) for b in ("sub_warp", "staged")}
+    raw = _operands(bs, 9, k=k or 2, nbr=6)
+    _, got = _launched(monkeypatch, lambda: smooth_ops.smoother_step_ell(
+        *raw))
+    assert got[1] is None
+
+
+def test_smoother_refuses_lengths_of_another_shape(monkeypatch):
+    args = _operands(6, 9, k=4, nbr=6)
+    for bad in (torch.zeros(5, dtype=torch.int32),
+                torch.zeros(6, dtype=torch.int64)):
+        with pytest.raises(ValueError):
+            _launched(monkeypatch, lambda: smooth_ops.smoother_step_ell(
+                *args, lengths=bad))
+
+
 @pytest.mark.parametrize("bs", [3, 6])
 def test_misaligned_smoother_payloads_raise_before_the_launch(monkeypatch,
                                                               bs):
@@ -118,6 +161,17 @@ def test_misaligned_smoother_payloads_raise_before_the_launch(monkeypatch,
 
 def test_smoother_knob_set_is_threads():
     assert set(autotune.CANDIDATES["fused_smoother"]) == {"threads"}
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_cpu_smoother_ignores_lengths(k):
+    """The plain version walks every slot (padded blocks are zero), so
+    ``lengths`` changes nothing on the CPU."""
+    args = _operands(6, 45, k=k, nbr=7)
+    lengths = torch.tensor([45, 0, 1, 7, 45, 30, 2], dtype=torch.int32)
+    for g, w in zip(smooth_ops.smoother_step_ell(*args, lengths=lengths),
+                    smoother_step_ref(*args)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("k", [None, 3])
